@@ -10,11 +10,13 @@ Phases (each prints one line; any failure exits non-zero without the final
 ``"ok": true`` line):
 
 1. device: CUDA must be available; prints the card's name and power limit;
-2. build: compiles both kernels from ``llcomp_tpu_torch/csrc``;
+2. build: compiles all four kernels from ``llcomp_tpu_torch/csrc``;
 3. kernel vs plain: each CUDA kernel against its plain PyTorch version on
    small lane batches (photo, flat, noise, grayscale, RGBA, 1-row, 1-column,
-   odd stride; unprimed, primed, seeded; corrupted and truncated streams);
-   the tolerance is exact equality of bytes, lengths, planes and error flags;
+   odd stride; unprimed, primed, seeded; corrupted and truncated streams),
+   and the sort chain's coder on random records with skewed bits; the
+   tolerance is exact equality of bytes, lengths, planes, error flags,
+   walk records, coder records and final carries;
 4. main path: ``api.compress(img, slices="auto")`` + ``api.decompress`` on a
    512x512x3 and a 2048x2048x3 image; the ``.llct`` sha256 must equal the
    pinned golden (the bytes of ``llcomp_tpu``'s native backend) and the
@@ -23,7 +25,15 @@ Phases (each prints one line; any failure exits non-zero without the final
    12,288 symbols), seeded from the first 8 images; the sha256 of the
    concatenated streams must equal the golden and the round trip be exact;
    encode and decode are timed (median of 3 fresh batches after a warm-up),
-   and each kernel is timed beside its plain version on a stated subset.
+   and each kernel is timed beside its plain version on a stated subset;
+6. the sort engine (``encode_lanes(engine="sort")``, kernels 3 and 4) on the
+   same seeded batch: the same golden, an exact round trip through kernel 2,
+   the unprimed batch and a worst-case batch byte-equal to the fused
+   engine's, both kernels launched (and kernel 1 not), peak device memory
+   within ``encode.lane_bytes``; timed end to end beside the fused engine,
+   its device idle share under ``torch.profiler``, split by stage; each
+   kernel held exactly against its plain version on the inputs the engine
+   gave it at this shape, and both timed.
 
 The last two lines are the per-kernel JSON record and
 ``{"ok": true, "device": {...}}``.  Test images use integer arithmetic only
@@ -38,8 +48,12 @@ import statistics
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
+
+KERNEL_SOURCES = ("encode_fused", "decode_kernel", "walk_symbols",
+                  "coder_scan")
 
 # sha256 of the test images (generator check) and of the expected bytes
 IMAGE_SHA = {
@@ -135,6 +149,86 @@ def _malicious_stream() -> bytes:
     return out[0, : int(lens[0])].numpy().tobytes()
 
 
+def _max_err(a, b) -> int:
+    """Largest absolute difference of two integer tensors."""
+    return int((a.long() - b.long()).abs().max()) if a.numel() else 0
+
+
+def _sort_run(torch, lanes_t, init, keep: bool = False):
+    """One sort-engine encode of device lanes [S, H, W, C] u8 through
+    ``encode._encode_sort``, with a CUDA event after each stage:
+    (ms per stage, the stages' outputs by stage name if ``keep``,
+    (bytes [S, width] u8, lens [S]))."""
+    from llcomp_tpu_torch import encode
+    from llcomp_tpu_torch.core.config import REV2
+
+    marks, made = [], {}
+
+    def stage_done(stage, *out):
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        marks.append((stage, ev))
+        if keep:
+            made[stage] = out
+
+    start = torch.cuda.Event(enable_timing=True)
+    start.record()
+    res = encode._encode_sort(lanes_t, REV2, init,
+                              encode.outcap(lanes_t[0].numel()), stage_done)
+    torch.cuda.synchronize()
+    ms, prev = {}, start
+    for stage, ev in marks:
+        ms[stage] = prev.elapsed_time(ev)
+        prev = ev
+    return ms, made, res
+
+
+def _coder_err(qlo, qhi) -> int:
+    """Kernel 4 against its plain version on (qlo, qhi): kp and fin."""
+    from llcomp_tpu_torch.kernels import encode_kernels as ek
+
+    kp, fin = ek.coder_scan_off_q(qlo, qhi)
+    kp_p, fin_p = ek.coder_scan_off_q_plain(qlo, qhi)
+    return max(_max_err(kp, kp_p), _max_err(fin, fin_p))
+
+
+def _sort_kernels_vs_plain(torch, made, init) -> dict:
+    """Kernels 3 and 4, as the engine ran them (``_sort_run(keep=True)``),
+    against their plain versions on the same inputs: max_abs_err of the
+    walk's records and of the coder's kp and fin, and the plain versions'
+    milliseconds."""
+    from llcomp_tpu_torch.kernels import encode_kernels as ek
+
+    K, _ = made["precompute and counts"]
+    xs, _ = made["sym sort"]
+    lo, hi = made["walk"]
+    qlo, qhi = made["compact sort"]
+    kp, fin = made["coder"]
+    walk_ms, (lo_p, hi_p) = _time_plain(
+        torch, lambda: ek.walk_symbols_plain(xs, K, init))
+    coder_ms, (kp_p, fin_p) = _time_plain(
+        torch, lambda: ek.coder_scan_off_q_plain(qlo, qhi))
+    return {"walk": max(_max_err(lo, lo_p), _max_err(hi, hi_p)),
+            "coder": max(_max_err(kp, kp_p), _max_err(fin, fin_p)),
+            "walk_plain_ms": walk_ms, "coder_plain_ms": coder_ms}
+
+
+def _skewed_records(torch, Tq: int, S: int, dev):
+    """Random pair-packed coder quads (qlo, qhi) [Tq, S]: 90% valid, bits
+    P(1) = 0.97 on even lanes (long deferred runs, carries) and 0.5 on odd
+    ones, probabilities 7..247; from integer hashes only."""
+    r = _hash64(77, 4 * Tq * S).reshape(Tq, 2, 2, S)
+    valid = (r % np.uint64(10) != 0).astype(np.int64)
+    odds = np.where(np.arange(S) % 2 == 0, 97, 50).astype(np.uint64)
+    bit = ((r >> np.uint64(8)) % np.uint64(100) < odds).astype(np.int64)
+    prob = ((r >> np.uint64(20)) % np.uint64(241)).astype(np.int64) + 7
+    rec = valid << 9 | bit << 8 | prob
+    qlo = rec[:, 0, 0] | rec[:, 0, 1] << 10
+    qhi = rec[:, 1, 0] | rec[:, 1, 1] << 10
+    return (torch.from_numpy(qlo.astype(np.int32)).to(dev),
+            torch.from_numpy(qhi.astype(np.int32)).to(dev))
+
+
 def phase_kernels_vs_plain(torch, log) -> dict:
     """Phase 3: each kernel against its plain version, exact."""
     from llcomp_tpu_torch import decode, encode, seed
@@ -142,7 +236,7 @@ def phase_kernels_vs_plain(torch, log) -> dict:
     from llcomp_tpu_torch.kernels import encode_fused as ef
 
     dev = torch.device("cuda")
-    err_enc = err_dec = 0
+    err_enc = err_dec = err_walk = err_coder = 0
     n_err_lanes = 0
     t_kernel = t_plain = 0.0
     mal = _malicious_stream()
@@ -208,11 +302,23 @@ def phase_kernels_vs_plain(torch, log) -> dict:
               f"{name} {mode}: clean lanes did not round-trip")
         check(err_enc == 0 and err_dec == 0,
               f"{name} {mode}: kernel != plain (enc {err_enc}, dec {err_dec})")
+        _, made, _ = _sort_run(torch, torch.from_numpy(lanes).to(dev), init,
+                               keep=True)
+        e = _sort_kernels_vs_plain(torch, made, init)
+        e_walk, e_coder = e["walk"], e["coder"]
+        err_walk, err_coder = max(err_walk, e_walk), max(err_coder, e_coder)
+        check(e_walk == 0 and e_coder == 0, f"{name} {mode}: sort kernels "
+              f"!= plain (walk {e_walk}, coder {e_coder})")
+    e_coder = _coder_err(*_skewed_records(torch, 1024, 256, dev))
+    err_coder = max(err_coder, e_coder)
+    check(e_coder == 0, f"skewed records: coder kernel != plain ({e_coder})")
     log(f"phase 3 kernel vs plain: {len(runs)} batches exact "
-        f"(max_abs_err encode {err_enc}, decode {err_dec}; "
+        f"(max_abs_err encode {err_enc}, decode {err_dec}, walk {err_walk}, "
+        f"coder {err_coder}, also on 1024 x 256 skewed coder records; "
         f"{n_err_lanes} flagged lanes agree) "
         f"kernel {t_kernel:.3f} s, plain encode {t_plain:.1f} s")
-    return {"encode": err_enc, "decode": err_dec}
+    return {"encode": err_enc, "decode": err_dec, "walk": err_walk,
+            "coder": err_coder}
 
 
 def phase_main_path(torch, log) -> dict:
@@ -267,6 +373,15 @@ def _time_cuda(torch, fn, reps: int = 3) -> float:
         torch.cuda.synchronize()
         times.append(a.elapsed_time(b))
     return statistics.median(times)
+
+
+def _time_plain(torch, fn) -> tuple[float, object]:
+    """Milliseconds of one call of ``fn`` (synchronised) and its result."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3, out
 
 
 def phase_bench(torch, log, card: str) -> dict:
@@ -333,22 +448,16 @@ def phase_bench(torch, log, card: str) -> dict:
     xs_s = encode.precompute(torch.from_numpy(sub).to(dev)).t().contiguous()
     cap_s = encode.outcap(xs_s.shape[0])
     enc_sub_ms = _time_cuda(torch, lambda: ef.encode_fused(xs_s, tab, cap_s))
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    out_p, len_p, _ = ef.encode_fused_plain(xs_s, tab, cap_s)
-    torch.cuda.synchronize()
-    enc_plain_ms = (time.perf_counter() - t0) * 1e3
+    enc_plain_ms, (out_p, len_p, _) = _time_plain(
+        torch, lambda: ef.encode_fused_plain(xs_s, tab, cap_s))
     out_k, len_k = ef.encode_fused(xs_s, tab, cap_s)
     check(torch.equal(len_k, len_p) and all(
         torch.equal(out_k[s, : int(len_k[s])], out_p[s, : int(len_p[s])])
         for s in range(S)), "subset: encode kernel != plain")
     # decoding the full streams as 1-row lanes gives each stripe's first row
     dec_sub_ms = _time_cuda(torch, lambda: dk.decode(d, ln, h, W, C, tab))
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    p_p, e_p = dk.decode_plain(d, ln, h, W, C, tab)
-    torch.cuda.synchronize()
-    dec_plain_ms = (time.perf_counter() - t0) * 1e3
+    dec_plain_ms, (p_p, e_p) = _time_plain(
+        torch, lambda: dk.decode_plain(d, ln, h, W, C, tab))
     p_k, e_k = dk.decode(d, ln, h, W, C, tab)
     check(torch.equal(p_k, p_p) and torch.equal(e_k, e_p),
           "subset: decode kernel != plain")
@@ -360,6 +469,167 @@ def phase_bench(torch, log, card: str) -> dict:
             "encode_sub_ms": enc_sub_ms, "decode_sub_ms": dec_sub_ms,
             "encode_plain_ms": enc_plain_ms, "decode_plain_ms": dec_plain_ms,
             "subset": subset}
+
+
+def _device_busy(torch, fn) -> tuple[float, float | None]:
+    """One synchronised ``fn()`` under ``torch.profiler``: (host ms, ms in
+    which the device ran a kernel or a copy, the union of their intervals;
+    None when the profiler recorded no device activity).  The profiler's
+    own buffer request is not the program's work and is left out."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    spans = sorted((e.time_range.start, e.time_range.end)
+                   for e in prof.events()
+                   if e.device_type == DeviceType.CUDA
+                   and e.name != "Activity Buffer Request")
+    busy, end = 0.0, float("-inf")
+    for a, b in spans:
+        busy += max(0.0, b - max(a, end))
+        end = max(end, b)
+    return wall, busy / 1e3 if spans else None
+
+
+def phase_sort(torch, log, card: str) -> dict:
+    """Phase 6: the sort engine on the bench batch: golden, round trip,
+    equality with the fused engine (also on a worst-case batch), launches,
+    memory against the lane budget, timings, and kernels 3 and 4 against
+    their plain versions on the inputs the engine gave them."""
+    from llcomp_tpu_torch import decode, encode, seed
+    from llcomp_tpu_torch.kernels import decode_kernel as dk
+    from llcomp_tpu_torch.kernels import encode_fused as ef
+    from llcomp_tpu_torch.kernels import encode_kernels as ek
+
+    dev = torch.device("cuda")
+    imgs = bench_images(100)
+    lanes = bench_lanes(imgs)
+    check(sha(lanes) == IMAGE_SHA["batch"], "bench images drifted")
+    S, H, W, C = lanes.shape
+    mp = BENCH_IMAGES * BENCH_SIZE * BENCH_SIZE / 1e6
+    tab = seed.derive_pooled(imgs[:8], device=dev)
+    budget = encode.lane_bytes(H * W * C, "sort")
+
+    def peak_per_lane(fn):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        out = fn()
+        return out, (torch.cuda.max_memory_allocated() - base) / S
+
+    # the sort engine's main path: seeded encode, then decode (kernel 2)
+    kernels = (ef.encode_fused, dk.decode, ek.walk_symbols,
+               ek.coder_scan_off_q)
+    for k in kernels:
+        k.launches = 0
+    t0 = time.perf_counter()
+    streams, peak = peak_per_lane(
+        lambda: encode.encode_lanes(lanes, seed=tab, device=dev,
+                                    engine="sort"))
+    t1 = time.perf_counter()
+    out = decode.decode_lanes(streams, (H, W, C), seed=tab, device=dev)
+    t2 = time.perf_counter()
+    counts = {"walk_symbols": ek.walk_symbols.launches,
+              "coder_scan_off_q": ek.coder_scan_off_q.launches,
+              "decode_kernel": dk.decode.launches,
+              "encode_fused": ef.encode_fused.launches}
+    check(counts["walk_symbols"] and counts["coder_scan_off_q"]
+          and counts["decode_kernel"] and not counts["encode_fused"],
+          f"sort path launches wrong: {counts}")
+    check(sha(b"".join(streams)) == GOLDEN_SHA["batch"],
+          "sort engine: bench batch streams != golden")
+    check(np.array_equal(out, lanes), "sort engine: round trip not exact")
+    log(f"phase 6 sort engine: {S} lanes x {H * W * C} symbols, golden ok, "
+        f"exact through kernel 2; first run encode {t1 - t0:.3f} s, decode "
+        f"{t2 - t1:.3f} s; launches on this path {counts}")
+    check(encode.encode_lanes(lanes, device=dev, engine="sort")
+          == encode.encode_lanes(lanes, device=dev),
+          "unprimed batch: sort engine != fused engine")
+    log("phase 6 unprimed batch: sort engine bytes == fused engine bytes")
+
+    # the most decisions a rev-2 symbol can hold: every channel 0 or 255 at
+    # random gives residuals up to +-510, 19 decisions (K 20), and streams
+    # near the byte bound
+    worst = ((_hash64(31, lanes.size) >> np.uint64(7)) % np.uint64(2)
+             * np.uint64(255)).astype(np.uint8).reshape(lanes.shape)
+    got, peak_w = peak_per_lane(
+        lambda: encode.encode_lanes(worst, device=dev, engine="sort"))
+    check(got == encode.encode_lanes(worst, device=dev),
+          "worst-case batch: sort engine != fused engine")
+    check(max(peak, peak_w) <= budget, f"sort engine peak {max(peak, peak_w)}"
+          f" B a lane, above encode.lane_bytes {budget} B")
+    log(f"phase 6 worst-case batch (channels 0/255 at random): sort engine "
+        f"bytes == fused engine bytes, {sum(map(len, got))} B; peak device "
+        f"memory a lane in the encode: bench batch {peak / 1e6:.3f} MB, "
+        f"worst case {peak_w / 1e6:.3f} MB, budget {budget / 1e6:.3f} MB "
+        f"(encode.lane_bytes)")
+
+    times = {"sort": [], "fused": []}
+    for rep in range(3):
+        fresh = bench_lanes(bench_images(5000 + 97 * rep))
+        order = ("sort", "fused") if rep % 2 == 0 else ("fused", "sort")
+        got = {}
+        for eng in order:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            got[eng] = encode.encode_lanes(fresh, seed=tab, device=dev,
+                                           engine=eng)
+            torch.cuda.synchronize()
+            times[eng].append(time.perf_counter() - t0)
+        check(got["sort"] == got["fused"], f"fresh batch {rep}: sort != fused")
+    med = {eng: statistics.median(t) for eng, t in times.items()}
+    log(f"phase 6 end to end (host numpy in, bytes out), median of 3 fresh "
+        f"seeded batches, same batches, on {card}: sort {med['sort']:.4f} s "
+        f"= {mp / med['sort']:.2f} MP/s, fused {med['fused']:.4f} s = "
+        f"{mp / med['fused']:.2f} MP/s")
+
+    prof = []
+    for eng in ("sort", "fused", "sort", "fused"):
+        wall, busy = _device_busy(torch, lambda: encode.encode_lanes(
+            lanes, seed=tab, device=dev, engine=eng))
+        prof.append(f"{eng} {wall:.2f} ms, " + (
+            f"busy {busy:.2f} ms, idle {100 * (1 - busy / wall):.1f}%"
+            if busy is not None else "device time not measured"))
+    log("phase 6 device idle share under torch.profiler (one seeded batch "
+        "encode, host numpy in, bytes out; busy = union of the device's "
+        "kernel and copy intervals): " + "; ".join(prof))
+
+    lanes_t = torch.from_numpy(lanes).to(dev)
+    splits = [_sort_run(torch, lanes_t, tab)[0] for _ in range(4)][1:]
+    split = {n: statistics.median(s[n] for s in splits) for n in splits[0]}
+    log("phase 6 sort engine split (encode._encode_sort's stages), device "
+        "lanes in, bytes on device out, median of 3 after a warm-up: "
+        + ", ".join(f"{n} {ms:.2f} ms" for n, ms in split.items())
+        + f"; sum {sum(split.values()):.2f} ms")
+
+    # the engine's own kernel inputs and outputs at the main path's shape
+    _, made, (out_b, lens) = _sort_run(torch, lanes_t, tab, keep=True)
+    lens = lens.cpu().numpy()
+    out_b = out_b.cpu().numpy()
+    check([out_b[s, : lens[s]].tobytes() for s in range(S)] == streams,
+          "the split's sort engine run != encode_lanes(engine='sort')")
+    K, Tq = made["precompute and counts"]
+    xs, _ = made["sym sort"]
+    qlo, qhi = made["compact sort"]
+    walk_ms = _time_cuda(torch, lambda: ek.walk_symbols(xs, K, tab))
+    coder_ms = _time_cuda(torch, lambda: ek.coder_scan_off_q(qlo, qhi))
+    log(f"phase 6 kernels alone, {S} lanes x {H * W * C} symbols (K {K}, "
+        f"{Tq} quads): walk_symbols {walk_ms:.3f} ms, coder_scan_off_q "
+        f"{coder_ms:.3f} ms")
+    e = _sort_kernels_vs_plain(torch, made, tab)
+    check(e["walk"] == 0 and e["coder"] == 0, f"main path: sort kernels != "
+          f"plain (walk {e['walk']}, coder {e['coder']})")
+    log(f"phase 6 kernels vs plain on the engine's inputs, same shape: walk "
+        f"kernel {walk_ms:.3f} ms vs plain {e['walk_plain_ms']:.1f} ms, "
+        f"coder kernel {coder_ms:.3f} ms vs plain {e['coder_plain_ms']:.1f} "
+        f"ms; lo/hi, kp and fin exact")
+    return {"counts": counts, "walk_ms": walk_ms, "coder_ms": coder_ms, **e}
 
 
 def main() -> int:
@@ -389,14 +659,16 @@ def main() -> int:
         from llcomp_tpu_torch.kernels import build
 
         t0 = time.perf_counter()
-        for name in ("encode_fused", "decode_kernel"):
-            build.build(name)
-        log(f"phase 2 build: both kernels from llcomp_tpu_torch/csrc in "
+        with ThreadPoolExecutor(len(KERNEL_SOURCES)) as pool:
+            list(pool.map(build.build, KERNEL_SOURCES))
+        log(f"phase 2 build: {len(KERNEL_SOURCES)} kernels from "
+            f"llcomp_tpu_torch/csrc, one nvcc each in parallel, in "
             f"{time.perf_counter() - t0:.2f} s")
 
         errs = phase_kernels_vs_plain(torch, log)
         counts = phase_main_path(torch, log)
         bench = phase_bench(torch, log, card)
+        sort = phase_sort(torch, log, card)
         if "jax" in sys.modules or "llcomp_tpu" in sys.modules:
             raise Failed("the port imported JAX or llcomp_tpu")
     except Failed as e:
@@ -418,6 +690,16 @@ def main() -> int:
          "ms": bench["decode_ms"], "plain_ms": bench["decode_plain_ms"],
          "ms_subset": bench["decode_sub_ms"], "note": note},
     ]
+    for name, src, line, err in (("walk_symbols", "walk_symbols", 175, "walk"),
+                                 ("coder_scan_off_q", "coder_scan", 574,
+                                  "coder")):
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": f"llcomp_tpu_torch/csrc/{src}.cu",
+            "replaces": f"llcomp_tpu/pallas/encode_kernels.py:{line}",
+            "launches": sort["counts"][name],
+            "max_abs_err": max(errs[err], sort[err]),
+            "ms": sort[f"{err}_ms"], "plain_ms": sort[f"{err}_plain_ms"]})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

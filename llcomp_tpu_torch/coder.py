@@ -12,12 +12,19 @@ A shift flushes the pending byte plus a run of deferred bytes, and the run is
 bytes are scattered in place, and carried runs are marked as intervals and
 zeroed once at ``finish``.  Writes past ``outcap`` set a sticky per-lane
 overflow flag instead.
+
+The sort chain (``encode.encode_lanes(engine="sort")``) codes through kernel
+4 instead, which emits one offset-packed record per decision
+(``off<<9 | carry<<8 | head``, ``KP_SILENT`` when no byte is flushed);
+``finish_steps_off`` and ``expand_kp`` turn those records into bytes.
 """
 from __future__ import annotations
 
 import torch
 
 _I32 = 1 << 32
+KP_SILENT = 0x7FFFFFFF    # record of a decision that flushes no byte
+OFF_LIMIT = 1 << 22       # byte offsets below this keep off<<9 in int32
 
 
 def wrap32(x: torch.Tensor) -> torch.Tensor:
@@ -25,6 +32,79 @@ def wrap32(x: torch.Tensor) -> torch.Tensor:
     int64): the wrap-around that int32 arithmetic in the kernels gives."""
     x = x & (_I32 - 1)
     return torch.where(x >= (1 << 31), x - _I32, x)
+
+
+def shift_step(low, rng, pend, run, do):
+    """One renormalising shift on the lanes where ``do`` is set
+    (`llcomp.hpp:38-58`; the JAX package's ``coder.shift_step``).
+
+    -> ((low, rng, pend, run), (emit, carry, head, out_run)): the new state
+    and what the shift flushed: on ``emit``, the byte ``head`` followed by
+    ``out_run`` bytes of 0x00 (``carry``) or 0xFF.
+    """
+    first = pend < 0
+    nocarry = low <= 0xFF00
+    carry = low >= 0x10000
+    emit = do & ~first & (nocarry | carry)
+    defer = do & ~first & ~nocarry & ~carry
+    head = torch.where(carry, pend + 1, pend) & 0xFF
+    pend2 = torch.where(do & ~defer, (low >> 8) & 0xFF, pend)
+    run2 = torch.where(emit, 0, torch.where(defer, run + 1, run))
+    low2 = torch.where(do, (low & 0xFF) << 8, low)
+    rng2 = torch.where(do, rng << 8, rng)
+    return (low2, rng2, pend2, run2), (emit, carry, head, run)
+
+
+def kp_record(emit, carry, head, off) -> torch.Tensor:
+    """Offset-packed byte record ``off<<9 | carry<<8 | head`` where ``emit``,
+    ``KP_SILENT`` elsewhere, as int32."""
+    rec = (off.to(torch.int64) << 9) | (carry.to(torch.int64) << 8) | head
+    return torch.where(emit, rec, KP_SILENT).to(torch.int32)
+
+
+def finish_steps_off(fin: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Final coder carries ``fin`` [5, S] (low, rng, pend, run, off) -> the
+    two forced flush shifts' records ``kp_fin`` [2, S] int32 and the stream
+    lengths [S] int32 (`llcomp.hpp:75-81`: low += 0xFF, two shifts, the
+    pending byte dropped; the JAX package's ``finish_steps_grouped_off``)."""
+    low, rng, pend, run, off = fin.to(torch.int64)
+    low = low + 0xFF
+    every = torch.ones_like(low, dtype=torch.bool)
+    recs = []
+    for _ in range(2):
+        (low, rng, pend, run), (emit, carry, head, out_run) = shift_step(
+            low, rng, pend, run, every)
+        recs.append(kp_record(emit, carry, head, off))
+        off = torch.where(emit, off + 1 + out_run, off)
+    return torch.stack(recs), off.to(torch.int32)
+
+
+def expand_kp(kp: torch.Tensor, kp_fin: torch.Tensor, outcap: int
+              ) -> torch.Tensor:
+    """Offset-packed byte records -> bytes [S, outcap] u8.
+
+    kp [T, S] and kp_fin [2, S] int32: per lane, the records of emitting
+    shifts carry strictly increasing offsets.  The byte at ``off`` is
+    ``head``; the bytes after it, up to the next record, are 0x00 if the
+    record carried and 0xFF if not (the JAX package's
+    ``expand_kp_grouped``, which sorts where this scatters).  Each record
+    (off+1)<<9 | carry<<8 | head lands at row ``off`` of a zeroed [outcap, S]
+    buffer, and a running max down the rows hands every byte position the
+    latest record at or before it.
+    """
+    rec = torch.cat([kp, kp_fin])
+    S = rec.shape[1]
+    off = rec >> 9
+    sel = (rec != KP_SILENT) & (off < outcap)
+    buf = torch.zeros((outcap, S), dtype=torch.int32, device=rec.device)
+    lane = torch.arange(S, device=rec.device).expand_as(rec)
+    buf.index_put_((off[sel].long(), lane[sel]),
+                   ((off[sel] + 1) << 9) | (rec[sel] & 0x1FF))
+    sv = torch.cummax(buf, dim=0).values
+    pos = torch.arange(outcap, device=rec.device, dtype=torch.int32)[:, None]
+    fill = torch.where((sv & 0x100) != 0, 0, 0xFF)
+    byte = torch.where((sv >> 9) - 1 == pos, sv & 0xFF, fill)
+    return byte.t().to(torch.uint8).contiguous()
 
 
 class Encoder:
@@ -47,31 +127,22 @@ class Encoder:
                                       device=device)
 
     def _shift(self, do: torch.Tensor) -> None:
-        """One renormalising shift on the lanes where ``do`` is set
-        (`llcomp.hpp:38-58`)."""
-        first = self.pend < 0
-        nocarry = self.low <= 0xFF00
-        carry = self.low >= 0x10000
-        emit = do & ~first & (nocarry | carry)
-        defer = do & ~first & ~nocarry & ~carry
-        head = torch.where(carry, self.pend + 1, self.pend) & 0xFF
+        """One renormalising shift on the lanes where ``do`` is set, its
+        flushed bytes written (``shift_step``)."""
+        (self.low, self.rng, self.pend, self.run), (emit, carry, head, run) = (
+            shift_step(self.low, self.rng, self.pend, self.run, do))
         cap = self.outcap
         at = torch.where(emit, self.pos.clamp(max=cap), cap)
         self.out.scatter_(1, at[:, None], head.to(torch.uint8)[:, None])
-        zrun = emit & carry & (self.run > 0)
+        zrun = emit & carry & (run > 0)
         start = torch.where(zrun, (self.pos + 1).clamp(max=cap + 1), cap + 1)
-        end = torch.where(zrun, (self.pos + 1 + self.run).clamp(max=cap + 1),
+        end = torch.where(zrun, (self.pos + 1 + run).clamp(max=cap + 1),
                           cap + 1)
         one = zrun.to(torch.int32)[:, None]
         self.zero_edges.scatter_add_(1, start[:, None], one)
         self.zero_edges.scatter_add_(1, end[:, None], -one)
-        self.ovf |= emit & (self.pos + 1 + self.run > cap)
-        self.pos = torch.where(emit, self.pos + 1 + self.run, self.pos)
-        self.pend = torch.where(do & ~defer, (self.low >> 8) & 0xFF, self.pend)
-        self.run = torch.where(emit, 0, torch.where(defer, self.run + 1,
-                                                     self.run))
-        self.low = torch.where(do, (self.low & 0xFF) << 8, self.low)
-        self.rng = torch.where(do, self.rng << 8, self.rng)
+        self.ovf |= emit & (self.pos + 1 + run > cap)
+        self.pos = torch.where(emit, self.pos + 1 + run, self.pos)
 
     def put(self, bit: torch.Tensor, prob: torch.Tensor,
             valid: torch.Tensor) -> None:

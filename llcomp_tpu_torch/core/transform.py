@@ -113,6 +113,24 @@ def ilog2(uv: torch.Tensor, max_bits: int = 16) -> torch.Tensor:
     return e
 
 
+def decision(k: int, d: torch.Tensor, ad: torch.Tensor, e: torch.Tensor):
+    """(ctx, bit) of decision ``k`` of symbols with residual ``d``, ``ad`` =
+    |d| and ``e`` = floor(log2 ad): one slot of ``binarize``, for k below
+    the symbol's decision count (1 if d == 0, else 2e+3)."""
+    if k == 0:
+        return torch.zeros_like(d), (ad == 0).to(d.dtype)
+    in_exp = e >= k
+    is_stop = e + 1 == k
+    in_mant = (e + 2 <= k) & (2 * e + 1 >= k)
+    ctx = torch.where(in_exp, min(k, 4), 7)            # else: the sign slot
+    ctx = torch.where(is_stop, (e + 1).clamp(max=4), ctx)
+    ctx = torch.where(in_mant, (k - e + 3).clamp(max=6), ctx)
+    bit = torch.where(in_exp, 1, (d < 0).to(d.dtype))
+    bit = torch.where(is_stop, 0, bit)
+    bit = torch.where(in_mant, (ad >> (2 * e + 1 - k).clamp(0, 30)) & 1, bit)
+    return ctx, bit
+
+
 def binarize(diff: torch.Tensor, cfg: CodecConfig = REV2):
     """Residuals (any shape, flattened to N) -> (ctx [N, 24], bit [N, 24],
     valid [N, 24] bool), the slot layout of ``putSymbol`` (`llcomp.hpp:166-206`):

@@ -1,27 +1,52 @@
 """Lane encoding: ``[S, H, W, C]`` u8 stripes -> one rev-2 stream per lane.
 
-Port of the fused branch of ``encode_lanes`` in ``llcomp_tpu/encode.py``
-(`encode.py:979-1031`, ``_encode_lanes_fused``, ``_outcap``) and of its
-precompute (``_stage_precompute_g``, ``_apply_rct``, ``_stage_xs_fused``,
-`encode.py:213-290,691-696`).  The precompute runs as torch ops on the lanes'
-device; kernel 1 (``kernels.encode_fused``) codes the streams.  Each lane's
-output is sized at ``outcap`` (raw * 1.5 + 64, the coder's hard bound), so
-the TPU path's overflow fallback, cap ladder and marker expansion have no
-counterpart here.
+Two engines give the same bytes:
+
+* ``"fused"`` (default): port of the fused branch of ``encode_lanes`` in
+  ``llcomp_tpu/encode.py`` (`encode.py:979-1031`, ``_encode_lanes_fused``,
+  ``_outcap``) and of its precompute (``_stage_precompute_g``,
+  ``_apply_rct``, ``_stage_xs_fused``, `encode.py:213-290,691-696`).  The
+  precompute runs as torch ops on the lanes' device; kernel 1
+  (``kernels.encode_fused``) codes the streams.  Each lane's output is sized
+  at ``outcap`` (raw * 1.5 + 64, the coder's hard bound), so the TPU path's
+  overflow fallback, cap ladder and marker expansion have no counterpart.
+* ``"sort"``: the symbol-granular sort chain, the JAX package's
+  ``engine="pallas"`` (`encode.py:1030-1059`, the symbol branch of
+  ``_launch_stage_rest`` with ``_stage_sym_sort``, ``_stage_compact``,
+  ``_collect_bytes``; `encode.py:341-418,546-659`).  Symbols are sorted by
+  context, kernel 3 (``kernels.encode_kernels.walk_symbols``) walks each
+  context's run with a one-row model, a second sort puts the records back in
+  stream order, and kernel 4 (``coder_scan_off_q``) range-codes them.  The
+  sorts are torch ops.  The live-quad count Tq is exact (the JAX bucketing
+  only bounded its recompiles), and the TPU HBM slot budget is part of the
+  lane-chunk budget.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
+from . import coder
 from . import device as devmod
 from .core import tables, transform
 from .core.config import REV2, CodecConfig
 from .kernels.encode_fused import encode_fused
+from .kernels.encode_kernels import coder_scan_off_q, walk_symbols
 
-# Device bytes one chunk of lanes may hold: model rows, packed symbols (two
-# layouts), output rows and precompute temporaries.
+# Device bytes one chunk of lanes may hold (``lane_bytes`` sizes a lane).
 LANE_BUDGET_BYTES = 8 << 30
+ENGINES = ("fused", "sort")
+MAX_SLOTS = 24            # decisions per symbol at most (2 * 10 + 3, rounded)
+# Peak device bytes of the sort chain per decision slot (n_sym * K a lane):
+# the walk's int32 records, their int64 copies, the compact key and its
+# sort's values, indices and scratch.  An H100 peaked at 20.9 B per slot
+# (1,024 lanes x 12,288 symbols, K = 20, the per-symbol arrays included);
+# chip_smoke.py checks a full chunk against ``lane_bytes``.
+SORT_SLOT_BYTES = 22
+SLOT_LIMIT = 1 << 25      # n_sym * 24 below this: the compact key's 23 bits
+OUTCAP_LIMIT = 1 << 21    # outcap below this: the byte offsets' bound
+_DEAD_HASH = 0x1FFF       # symbol padding sorts after every context run
+_INT64_MAX = 0x7FFFFFFFFFFFFFFF
 
 
 def outcap(n_sym: int) -> int:
@@ -29,36 +54,196 @@ def outcap(n_sym: int) -> int:
     return -(-(n_sym + n_sym // 2 + 64) // 1024) * 1024
 
 
+def lane_bytes(n_sym: int, engine: str) -> int:
+    """Device bytes one lane of ``n_sym`` symbols holds at the engine's peak.
+    Fused: model rows, packed symbols (two layouts), output row and
+    precompute temporaries.  Sort: ``SORT_SLOT_BYTES`` per slot at the
+    largest K, the per-symbol arrays and the output row."""
+    if engine == "sort":
+        return SORT_SLOT_BYTES * MAX_SLOTS * n_sym + 64 * n_sym + outcap(n_sym)
+    return REV2.num_states + 56 * n_sym + outcap(n_sym)
+
+
+def _hash_diff(imgs: torch.Tensor, cfg: CodecConfig
+               ) -> tuple[torch.Tensor, torch.Tensor]:
+    """u8 lanes [S, H, W, C] -> folded (hash, diff) int32 [S, H*W*C]."""
+    h, diff = transform.context_and_residual(transform.rct_forward(imgs), cfg)
+    S = imgs.shape[0]
+    return h.reshape(S, -1), diff.reshape(S, -1)
+
+
 def precompute(imgs: torch.Tensor, cfg: CodecConfig = REV2) -> torch.Tensor:
     """u8 lanes [S, H, W, C] -> int32 packed symbols [S, H*W*C] in stream
     order: ``live<<25 | hash<<12 | (diff + 1274)``, hash and diff sign-folded
     (every symbol is live: the port pads no symbols)."""
-    v = transform.rct_forward(imgs)
-    h, diff = transform.context_and_residual(v, cfg)
-    S = imgs.shape[0]
-    return ((1 << 25) | (h << 12) | (diff + 1274)).reshape(S, -1)
+    h, diff = _hash_diff(imgs, cfg)
+    return (1 << 25) | (h << 12) | (diff + 1274)
 
 
 def _start_table(primed: bool, seed):
     """[121, 8] u8 model start table: the stored seed, the static prior, or
-    None (zeros).  A seed promotes ``primed``."""
+    None (zeros).  A seed promotes ``primed``.  A seed must hold states of
+    the 128-state machine: a larger value would index past every state
+    table."""
     if seed is not None:
-        return np.ascontiguousarray(seed, dtype=np.uint8)
+        tab = np.ascontiguousarray(seed, dtype=np.uint8)
+        if tab.shape != (tables.PRIOR_BUCKETS, 8):
+            raise ValueError(f"seed must be [121, 8], got {tab.shape}")
+        if tab.max(initial=0) > 127:
+            raise ValueError(f"seed holds state {tab.max()}, above 127")
+        return tab
     return tables.PRIOR_TAB if primed else None
 
 
+# --- the sort chain ---------------------------------------------------------
+
+
+def check_sort_bounds(n_sym: int) -> None:
+    """Raise ValueError for a stripe outside the sort chain's format bounds
+    (`encode.py:801-812`): n_sym * 24 < 2^25 decision slots per lane and
+    outcap < 2^21 bytes."""
+    if n_sym * MAX_SLOTS >= SLOT_LIMIT:
+        raise ValueError(f"a stripe of {n_sym} symbols breaks the sort "
+                         f"chain's slot bound n_sym*24 < 2^25")
+    if outcap(n_sym) >= OUTCAP_LIMIT:
+        raise ValueError(f"a stripe of {n_sym} symbols breaks the sort "
+                         f"chain's byte bound outcap < 2^21")
+
+
+def stage_count(diff: torch.Tensor) -> tuple[int, int, int]:
+    """Decision counts from residuals ``diff`` [S, n] (`encode.py:293-308`):
+    (most decisions in a lane, most decisions of one symbol, most quads in a
+    lane, where a symbol holds ceil(decisions / 4) quads).  One host sync."""
+    ad = diff.abs()
+    e = transform.ilog2(ad.clamp(min=1), max_bits=12)
+    nb = torch.where(ad != 0, 2 * e + 3, 1).to(torch.int64)
+    counts = torch.stack([nb.sum(dim=1).max(), nb.max(),
+                          ((nb + 3) >> 2).sum(dim=1).max()])
+    total, per_sym, quads = counts.tolist()
+    return total, per_sym, quads
+
+
+def slots_per_symbol(sym_max: int) -> int:
+    """K: decisions walked per symbol, a multiple of 4 (one quad) covering
+    the most any symbol has (`encode.py:566`)."""
+    return min(MAX_SLOTS, max(4, -(-sym_max // 4) * 4))
+
+
+def stage_sym_sort(hash_: torch.Tensor, diff: torch.Tensor, n_sym: int
+                   ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Sort each lane's symbols by (context hash, position)
+    (``_stage_sym_sort``, `encode.py:341-370`).
+
+    hash_, diff [S, n_pad] int32, lane-major; symbols at or past ``n_sym``
+    are padding.  The sort key is the int64 ``hash<<42 | sympos<<12 |
+    diff+1274``, padding with hash 0x1FFF so that it sorts last and is dead.
+    -> (xs [n_pad, S] int32, lane-minor as kernel 3 reads it:
+    ``bucket<<14 | live<<13 | seg<<12 | diff+1274`` with bucket = hash % 121
+    and seg set where a context run starts; origsym [S, n_pad] int32, each
+    sorted symbol's stream position, lane-major as ``stage_compact`` sorts).
+    """
+    n_pad = hash_.shape[1]
+    sym = torch.arange(n_pad, device=hash_.device, dtype=torch.int64)
+    h64 = torch.where(sym < n_sym, hash_.to(torch.int64), _DEAD_HASH)
+    key = (h64 << 42) | (sym << 12) | (diff.to(torch.int64) + 1274)
+    s = torch.sort(key, dim=1).values
+    h_s = s >> 42
+    origsym = ((s >> 12) & ((1 << 30) - 1)).to(torch.int32)
+    prev = torch.cat([torch.full_like(h_s[:, :1], -2), h_s[:, :-1]], dim=1)
+    xs = ((h_s % tables.PRIOR_BUCKETS) << 14
+          | (h_s != _DEAD_HASH).to(torch.int64) << 13
+          | (h_s != prev).to(torch.int64) << 12
+          | (s & 0xFFF))
+    return xs.to(torch.int32).t().contiguous(), origsym
+
+
+def stage_compact(lo: torch.Tensor, hi: torch.Tensor, origsym: torch.Tensor,
+                  K: int, Tq: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Put kernel 3's records back in stream order and front-pack the live
+    quads (``_stage_compact``, `encode.py:373-418`).
+
+    lo, hi [n_pad*K/4, S] int32 (kernel 3's quads, context-sorted);
+    origsym [S, n_pad] the sorted symbols' stream positions.  A symbol's
+    live records are a prefix of its K, so a quad is live when its first
+    record is.  Each quad becomes the int64 key ``slotquad<<40 | hi<<20 |
+    lo`` (slotquad = origsym * K/4 + quad), dead quads INT64_MAX; one sort
+    per lane restores stream order with the live quads in front, and the
+    first ``Tq`` are kept.  -> (qlo, qhi) [Tq, S] int32, lane-minor as
+    kernel 4 reads them, dead quads 0.
+    """
+    S, n_pad = origsym.shape
+    qs = K // 4
+    lo64 = lo.t().reshape(S, n_pad, qs).to(torch.int64)
+    hi64 = hi.t().reshape(S, n_pad, qs).to(torch.int64)
+    quad = torch.arange(qs, device=lo.device, dtype=torch.int64)
+    slotquad = origsym.to(torch.int64)[:, :, None] * qs + quad
+    key = torch.where((lo64 & (1 << 9)) != 0,
+                      (slotquad << 40) | (hi64 << 20) | lo64, _INT64_MAX)
+    del lo64, hi64, slotquad
+    s = torch.sort(key.reshape(S, n_pad * qs), dim=1).values[:, :Tq]
+    dead = s == _INT64_MAX
+    qlo = torch.where(dead, 0, s & 0xFFFFF).to(torch.int32)
+    qhi = torch.where(dead, 0, (s >> 20) & 0xFFFFF).to(torch.int32)
+    return qlo.t().contiguous(), qhi.t().contiguous()
+
+
+def _no_hook(stage: str, *made) -> None:
+    pass
+
+
+def _encode_sort(lanes: torch.Tensor, cfg: CodecConfig, init, cap: int,
+                 stage_done=_no_hook):
+    """The sort chain on one chunk of lanes (the symbol branch of
+    ``_launch_stage_rest`` with ``_collect_bytes``, `encode.py:546-643`):
+    the records are expanded at the longest stream once the lengths are
+    synced.  -> (bytes [S, width] u8, lens [S] int32).
+
+    ``stage_done(stage, *made)`` is called after each of the six stages
+    with what it made; ``chip_smoke.py`` times the stages and holds the
+    kernels against their plain versions through it."""
+    h, diff = _hash_diff(lanes, cfg)
+    _, sym_max, quad_max = stage_count(diff)
+    K = slots_per_symbol(sym_max)
+    stage_done("precompute and counts", K, quad_max)
+    xs, origsym = stage_sym_sort(h, diff, h.shape[1])
+    stage_done("sym sort", xs, origsym)
+    lo, hi = walk_symbols(xs, K, init)
+    stage_done("walk", lo, hi)
+    qlo, qhi = stage_compact(lo, hi, origsym, K, quad_max)
+    stage_done("compact sort", qlo, qhi)
+    kp, fin = coder_scan_off_q(qlo, qhi)
+    stage_done("coder", kp, fin)
+    kp_fin, lens = coder.finish_steps_off(fin)
+    width = int(lens.max())
+    if width > cap:      # cannot happen for the rev-2 coder
+        raise RuntimeError(f"stream overflow: {width} > bound {cap}")
+    out = coder.expand_kp(kp, kp_fin, width)
+    stage_done("finish and expansion", out, lens)
+    return out, lens
+
+
+def _encode_fused(lanes: torch.Tensor, cfg: CodecConfig, init, cap: int):
+    return encode_fused(precompute(lanes, cfg).t().contiguous(), init, cap)
+
+
 def encode_lanes(imgs, cfg: CodecConfig = REV2, primed: bool = False,
-                 seed=None, device="cuda") -> list[bytes]:
+                 seed=None, device="cuda", engine: str = "fused"
+                 ) -> list[bytes]:
     """Encode equal-shaped lanes [S, H, W, C] u8 -> per-lane headerless
     rev-2 streams.
 
     primed: context row h starts at tables.PRIOR_TAB[h % 121] (sliced
     container flag bit 0).  seed: a [121, 8] u8 stored-seed table (flag
-    bit 1) used instead.  device: 'cuda' (kernel 1) or 'cpu' (its plain
-    version).
+    bit 1) used instead.  device: 'cuda' (the kernels) or 'cpu' (their
+    plain versions).  engine: 'fused' (kernel 1) or 'sort', the counterpart
+    of the JAX package's engine='pallas' (kernels 3 and 4; raises
+    ValueError for a stripe past its format bounds).  Both give the same
+    bytes.
     """
     if cfg != REV2:
         raise ValueError("llcomp_tpu_torch supports the rev-2 cfg only")
+    if engine not in ENGINES:
+        raise ValueError(f"engine must be one of {ENGINES}, got {engine!r}")
     dev = devmod.resolve(device)
     imgs = np.ascontiguousarray(imgs, dtype=np.uint8)
     if imgs.ndim != 4:
@@ -67,13 +252,14 @@ def encode_lanes(imgs, cfg: CodecConfig = REV2, primed: bool = False,
     n_sym = int(np.prod(imgs.shape[1:]))
     cap = outcap(n_sym)
     init = _start_table(primed, seed)
-    per_lane = REV2.num_states + 16 * n_sym + cap + 40 * n_sym
-    chunk = max(1, LANE_BUDGET_BYTES // per_lane)
+    if engine == "sort":
+        check_sort_bounds(n_sym)
+    run = _encode_sort if engine == "sort" else _encode_fused
+    chunk = max(1, LANE_BUDGET_BYTES // lane_bytes(n_sym, engine))
     streams: list[bytes] = []
     for c0 in range(0, S, chunk):
         lanes = torch.from_numpy(imgs[c0 : c0 + chunk]).to(dev)
-        xs = precompute(lanes, cfg).t().contiguous()
-        out, lens = encode_fused(xs, init, cap)
+        out, lens = run(lanes, cfg, init, cap)
         lens_h = lens.cpu().numpy()
         width = int(lens_h.max(initial=0))
         out_h = out[:, :width].cpu().numpy()

@@ -64,27 +64,10 @@ def encode_fused_plain(xs: torch.Tensor, init, outcap: int):
     model = _model_start(init, S, dev)
     enc = Encoder(S, outcap, dev)
     for i in range(n_sym):
-        hi, di, adi, ei, nz = h[i], d[i], ad[i], e[i], ad[i] != 0
         for k in range(steps[i]):
-            in_exp = (k >= 1) & (k <= ei)
-            is_stop = ei + 1 == k
-            in_mant = (k >= ei + 2) & (k <= 2 * ei + 1)
-            is_sign = 2 * ei + 2 == k
-            if k == 0:
-                ctx = torch.zeros_like(hi)
-                bit = (~nz).to(torch.int64)
-                valid = live[i]
-            else:
-                ctx = torch.where(in_exp, min(k, 4), 0)
-                ctx = torch.where(is_stop, (ei + 1).clamp(max=4), ctx)
-                ctx = torch.where(in_mant, (k - ei + 3).clamp(max=6), ctx)
-                ctx = torch.where(is_sign, 7, ctx)
-                bit = torch.where(in_exp, 1, 0)
-                mant = (adi >> (2 * ei + 1 - k).clamp(0, 30)) & 1
-                bit = torch.where(in_mant, mant, bit)
-                bit = torch.where(is_sign, (di < 0).to(torch.int64), bit)
-                valid = live[i] & nz & (in_exp | is_stop | in_mant | is_sign)
-            idx = (hi * 8 + ctx)[:, None]
+            ctx, bit = transform.decision(k, d[i], ad[i], e[i])
+            valid = nbins[i] > k
+            idx = (h[i] * 8 + ctx)[:, None]
             st = model.gather(1, idx)[:, 0].to(torch.int64)
             f = fused[st]
             ns = torch.where(bit == 1, f >> 16, f >> 8) & 0xFF

@@ -11,9 +11,11 @@ import numpy as np
 import pytest
 import torch
 
-from llcomp_tpu_torch import api, decode, encode
+from llcomp_tpu_torch import api, coder, decode, encode, seed
+from llcomp_tpu_torch.core.config import REV2
 from llcomp_tpu_torch.kernels import decode_kernel as dk
 from llcomp_tpu_torch.kernels import encode_fused as ef
+from llcomp_tpu_torch.kernels import encode_kernels as ek
 
 pytestmark = pytest.mark.cuda
 
@@ -57,6 +59,79 @@ def test_kernels_equal_plain(dev, shape, primed):
     planes, err = dk.decode(d, ln, *shape, init)
     planes_p, err_p = dk.decode_plain(d, ln, *shape, init)
     assert torch.equal(err, err_p) and torch.equal(planes, planes_p)
+
+
+@pytest.mark.parametrize("shape", [(4, 16, 3), (7, 5, 1), (1, 40, 4),
+                                   (20, 1, 3)])
+@pytest.mark.parametrize("primed", [False, True])
+def test_sort_kernels_equal_plain(dev, shape, primed):
+    """Kernels 3 and 4 on the sort chain's own inputs for these lanes."""
+    init = encode._start_table(primed, None)
+    h, diff = encode._hash_diff(torch.from_numpy(_lanes(shape)).to(dev), REV2)
+    _, sym_max, quad_max = encode.stage_count(diff)
+    K = encode.slots_per_symbol(sym_max)
+    xs, origsym = encode.stage_sym_sort(h, diff, h.shape[1])
+    before = ek.walk_symbols.launches
+    lo, hi = ek.walk_symbols(xs, K, init)
+    assert ek.walk_symbols.launches == before + 1
+    lo_p, hi_p = ek.walk_symbols_plain(xs, K, init)
+    assert torch.equal(lo, lo_p) and torch.equal(hi, hi_p)
+    qlo, qhi = encode.stage_compact(lo, hi, origsym, K, quad_max)
+    before = ek.coder_scan_off_q.launches
+    kp, fin = ek.coder_scan_off_q(qlo, qhi)
+    assert ek.coder_scan_off_q.launches == before + 1
+    kp_p, fin_p = ek.coder_scan_off_q_plain(qlo, qhi)
+    assert torch.equal(kp, kp_p) and torch.equal(fin, fin_p)
+
+
+@pytest.mark.parametrize("K", [4, 8, 24])
+def test_walk_kernel_equal_plain_on_random_symbols(dev, K):
+    """Every field at random, decisions cut at K, a seeded reset table and a
+    ragged last block of lanes."""
+    rng = np.random.default_rng(K)
+    n, S = 48, 100
+    xs = (rng.integers(0, 128, (n, S)) << 14 | rng.integers(0, 2, (n, S)) << 13
+          | (rng.random((n, S)) < 0.3).astype(np.int64) << 12
+          | rng.integers(1274 - 300, 1274 + 301, (n, S)))
+    xs = torch.from_numpy(xs.astype(np.int32)).to(dev)
+    init = rng.integers(0, 128, (121, 8)).astype(np.uint8)
+    lo, hi = ek.walk_symbols(xs, K, init)
+    lo_p, hi_p = ek.walk_symbols_plain(xs, K, init)
+    assert torch.equal(lo, lo_p) and torch.equal(hi, hi_p)
+
+
+def test_coder_kernel_equal_plain_on_skewed_bits(dev):
+    """Skewed bits make long deferred runs and carries."""
+    rng = np.random.default_rng(1)
+    Tq, S = 1500, 70
+    p1 = np.where(np.arange(S) % 2 == 0, 0.97, 0.5)
+    recs = ((rng.random((4 * Tq, S)) < 0.9).astype(np.int64) << 9
+            | (rng.random((4 * Tq, S)) < p1).astype(np.int64) << 8
+            | rng.integers(7, 248, (4 * Tq, S))).reshape(Tq, 2, 2, S)
+    qlo = torch.from_numpy((recs[:, 0, 0] | recs[:, 0, 1] << 10)
+                           .astype(np.int32)).to(dev)
+    qhi = torch.from_numpy((recs[:, 1, 0] | recs[:, 1, 1] << 10)
+                           .astype(np.int32)).to(dev)
+    kp, fin = ek.coder_scan_off_q(qlo, qhi)
+    kp_p, fin_p = ek.coder_scan_off_q_plain(qlo, qhi)
+    assert torch.equal(kp, kp_p) and torch.equal(fin, fin_p)
+    assert bool(((kp != coder.KP_SILENT) & ((kp & 0x100) != 0)).any())
+
+
+@pytest.mark.parametrize("mode", ["unprimed", "primed", "seeded"])
+def test_sort_engine_cuda_bytes_equal_cpu_and_fused(dev, mode):
+    lanes = _lanes((6, 16, 3), 6)
+    kw = {"primed": mode == "primed",
+          "seed": seed.derive(lanes[0], device=dev) if mode == "seeded"
+          else None}
+    walks, coders = ek.walk_symbols.launches, ek.coder_scan_off_q.launches
+    fused = ef.encode_fused.launches
+    got = encode.encode_lanes(lanes, device="cuda", engine="sort", **kw)
+    assert ek.walk_symbols.launches == walks + 1
+    assert ek.coder_scan_off_q.launches == coders + 1
+    assert ef.encode_fused.launches == fused
+    assert got == encode.encode_lanes(lanes, device="cpu", engine="sort", **kw)
+    assert got == encode.encode_lanes(lanes, device="cuda", **kw)
 
 
 def test_api_cuda_bytes_equal_cpu(dev):
