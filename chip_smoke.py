@@ -10,7 +10,8 @@ Phases (each prints one line; any failure exits non-zero without the final
 ``"ok": true`` line):
 
 1. device: CUDA must be available; prints the card's name and power limit;
-2. build: compiles all four kernels from ``llcomp_tpu_torch/csrc``;
+2. build: compiles the six kernel sources of ``llcomp_tpu_torch/csrc`` (the
+   eight kernels), one nvcc each, in parallel;
 3. kernel vs plain: each CUDA kernel against its plain PyTorch version on
    small lane batches (photo, flat, noise, grayscale, RGBA, 1-row, 1-column,
    odd stride; unprimed, primed, seeded; corrupted and truncated streams),
@@ -31,9 +32,22 @@ Phases (each prints one line; any failure exits non-zero without the final
    the unprimed batch and a worst-case batch byte-equal to the fused
    engine's, both kernels launched (and kernel 1 not), peak device memory
    within ``encode.lane_bytes``; timed end to end beside the fused engine,
-   its device idle share under ``torch.profiler``, split by stage; each
-   kernel held exactly against its plain version on the inputs the engine
-   gave it at this shape, and both timed.
+   its device idle share and its ten largest device ops under
+   ``torch.profiler``, split by stage; each kernel held exactly against its
+   plain version on the inputs the engine gave it at this shape, and both
+   timed;
+7. the decision variant (``encode_lanes(engine="sort",
+   variant="decision")``, kernels 5, 6 and 7) on the unprimed bench batch:
+   streams equal to the fused engine's and the symbol variant's, also on
+   the worst-case batch, an exact round trip through kernel 2, kernels 5-7
+   launched (and 1, 3 and 4 not), peak device memory of a chunk within
+   ``encode.lane_bytes``; timed end to end beside both other encodes on the
+   same batches, its device idle share and largest ops, split by stage; on
+   all 1,024 lanes in one chunk, kernels 5-8 held exactly against their
+   plain versions on the inputs the engine gave them, and timed; kernel 8
+   (``coder_scan``, the slot-record coder) run on its own path on the
+   variant's coder records, through ``coder.finish_steps`` and
+   ``coder.expand_slots``, must give the variant's streams.
 
 The last two lines are the per-kernel JSON record and
 ``{"ok": true, "device": {...}}``.  Test images use integer arithmetic only
@@ -53,7 +67,7 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 
 KERNEL_SOURCES = ("encode_fused", "decode_kernel", "walk_symbols",
-                  "coder_scan")
+                  "coder_scan", "build_stream", "walk_probs")
 
 # sha256 of the test images (generator check) and of the expected bytes
 IMAGE_SHA = {
@@ -154,11 +168,12 @@ def _max_err(a, b) -> int:
     return int((a.long() - b.long()).abs().max()) if a.numel() else 0
 
 
-def _sort_run(torch, lanes_t, init, keep: bool = False):
-    """One sort-engine encode of device lanes [S, H, W, C] u8 through
-    ``encode._encode_sort``, with a CUDA event after each stage:
-    (ms per stage, the stages' outputs by stage name if ``keep``,
-    (bytes [S, width] u8, lens [S]))."""
+def _stage_run(torch, run, lanes_t, init, keep: bool = False):
+    """One encode of device lanes [S, H, W, C] u8 through a sort-engine
+    chain ``run`` (``encode._encode_sort`` or ``encode._encode_decision``)
+    in one chunk, with a CUDA event after each stage: (ms per stage, the
+    stages' outputs by stage name if ``keep``, (bytes [S, width] u8,
+    lens [S]))."""
     from llcomp_tpu_torch import encode
     from llcomp_tpu_torch.core.config import REV2
 
@@ -173,8 +188,8 @@ def _sort_run(torch, lanes_t, init, keep: bool = False):
 
     start = torch.cuda.Event(enable_timing=True)
     start.record()
-    res = encode._encode_sort(lanes_t, REV2, init,
-                              encode.outcap(lanes_t[0].numel()), stage_done)
+    res = run(lanes_t, REV2, init, encode.outcap(lanes_t[0].numel()),
+              stage_done)
     torch.cuda.synchronize()
     ms, prev = {}, start
     for stage, ev in marks:
@@ -193,7 +208,7 @@ def _coder_err(qlo, qhi) -> int:
 
 
 def _sort_kernels_vs_plain(torch, made, init) -> dict:
-    """Kernels 3 and 4, as the engine ran them (``_sort_run(keep=True)``),
+    """Kernels 3 and 4, as the engine ran them (``_stage_run(keep=True)``),
     against their plain versions on the same inputs: max_abs_err of the
     walk's records and of the coder's kp and fin, and the plain versions'
     milliseconds."""
@@ -302,8 +317,9 @@ def phase_kernels_vs_plain(torch, log) -> dict:
               f"{name} {mode}: clean lanes did not round-trip")
         check(err_enc == 0 and err_dec == 0,
               f"{name} {mode}: kernel != plain (enc {err_enc}, dec {err_dec})")
-        _, made, _ = _sort_run(torch, torch.from_numpy(lanes).to(dev), init,
-                               keep=True)
+        _, made, _ = _stage_run(torch, encode._encode_sort,
+                                torch.from_numpy(lanes).to(dev), init,
+                                keep=True)
         e = _sort_kernels_vs_plain(torch, made, init)
         e_walk, e_coder = e["walk"], e["coder"]
         err_walk, err_coder = max(err_walk, e_walk), max(err_coder, e_coder)
@@ -471,11 +487,13 @@ def phase_bench(torch, log, card: str) -> dict:
             "subset": subset}
 
 
-def _device_busy(torch, fn) -> tuple[float, float | None]:
+def _device_busy(torch, fn) -> tuple[float, float | None, str]:
     """One synchronised ``fn()`` under ``torch.profiler``: (host ms, ms in
-    which the device ran a kernel or a copy, the union of their intervals;
-    None when the profiler recorded no device activity).  The profiler's
-    own buffer request is not the program's work and is left out."""
+    which the device ran a kernel or a copy, the union of their intervals,
+    None when the profiler recorded no device activity; the ten device ops
+    that took the most device time, from ``key_averages()``).  The
+    profiler's own buffer request is not the program's work and is left
+    out of both."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -494,7 +512,28 @@ def _device_busy(torch, fn) -> tuple[float, float | None]:
     for a, b in spans:
         busy += max(0.0, b - max(a, end))
         end = max(end, b)
-    return wall, busy / 1e3 if spans else None
+    ops = sorted((e for e in prof.key_averages()
+                  if e.device_type == DeviceType.CUDA
+                  and e.key != "Activity Buffer Request"),
+                 key=lambda e: e.self_device_time_total, reverse=True)[:10]
+    top = "; ".join(f"{e.key[:70]} x{e.count} "
+                    f"{e.self_device_time_total / 1e3:.2f} ms" for e in ops)
+    return wall, busy / 1e3 if spans else None, top or "not measured"
+
+
+def _idle(name: str, wall: float, busy: float | None) -> str:
+    return f"{name} {wall:.2f} ms, " + (
+        f"busy {busy:.2f} ms, idle {100 * (1 - busy / wall):.1f}%"
+        if busy is not None else "device time not measured")
+
+
+def _worst_lanes(shape) -> np.ndarray:
+    """The most decisions a rev-2 symbol can hold: every channel 0 or 255 at
+    random gives residuals up to +-510, 19 decisions, and streams near the
+    byte bound."""
+    n = int(np.prod(shape))
+    return ((_hash64(31, n) >> np.uint64(7)) % np.uint64(2)
+            * np.uint64(255)).astype(np.uint8).reshape(shape)
 
 
 def phase_sort(torch, log, card: str) -> dict:
@@ -553,11 +592,7 @@ def phase_sort(torch, log, card: str) -> dict:
           "unprimed batch: sort engine != fused engine")
     log("phase 6 unprimed batch: sort engine bytes == fused engine bytes")
 
-    # the most decisions a rev-2 symbol can hold: every channel 0 or 255 at
-    # random gives residuals up to +-510, 19 decisions (K 20), and streams
-    # near the byte bound
-    worst = ((_hash64(31, lanes.size) >> np.uint64(7)) % np.uint64(2)
-             * np.uint64(255)).astype(np.uint8).reshape(lanes.shape)
+    worst = _worst_lanes(lanes.shape)      # 19 decisions a symbol: K 20
     got, peak_w = peak_per_lane(
         lambda: encode.encode_lanes(worst, device=dev, engine="sort"))
     check(got == encode.encode_lanes(worst, device=dev),
@@ -589,19 +624,21 @@ def phase_sort(torch, log, card: str) -> dict:
         f"= {mp / med['sort']:.2f} MP/s, fused {med['fused']:.4f} s = "
         f"{mp / med['fused']:.2f} MP/s")
 
-    prof = []
+    prof, tops = [], {}
     for eng in ("sort", "fused", "sort", "fused"):
-        wall, busy = _device_busy(torch, lambda: encode.encode_lanes(
+        wall, busy, tops[eng] = _device_busy(torch, lambda: encode.encode_lanes(
             lanes, seed=tab, device=dev, engine=eng))
-        prof.append(f"{eng} {wall:.2f} ms, " + (
-            f"busy {busy:.2f} ms, idle {100 * (1 - busy / wall):.1f}%"
-            if busy is not None else "device time not measured"))
+        prof.append(_idle(eng, wall, busy))
     log("phase 6 device idle share under torch.profiler (one seeded batch "
         "encode, host numpy in, bytes out; busy = union of the device's "
         "kernel and copy intervals): " + "; ".join(prof))
+    log("phase 6 sort engine, ten largest device ops by device time "
+        "(torch.profiler key_averages, second profiled encode): "
+        + tops["sort"])
 
     lanes_t = torch.from_numpy(lanes).to(dev)
-    splits = [_sort_run(torch, lanes_t, tab)[0] for _ in range(4)][1:]
+    splits = [_stage_run(torch, encode._encode_sort, lanes_t, tab)[0]
+              for _ in range(4)][1:]
     split = {n: statistics.median(s[n] for s in splits) for n in splits[0]}
     log("phase 6 sort engine split (encode._encode_sort's stages), device "
         "lanes in, bytes on device out, median of 3 after a warm-up: "
@@ -609,7 +646,8 @@ def phase_sort(torch, log, card: str) -> dict:
         + f"; sum {sum(split.values()):.2f} ms")
 
     # the engine's own kernel inputs and outputs at the main path's shape
-    _, made, (out_b, lens) = _sort_run(torch, lanes_t, tab, keep=True)
+    _, made, (out_b, lens) = _stage_run(torch, encode._encode_sort, lanes_t,
+                                        tab, keep=True)
     lens = lens.cpu().numpy()
     out_b = out_b.cpu().numpy()
     check([out_b[s, : lens[s]].tobytes() for s in range(S)] == streams,
@@ -630,6 +668,173 @@ def phase_sort(torch, log, card: str) -> dict:
         f"coder kernel {coder_ms:.3f} ms vs plain {e['coder_plain_ms']:.1f} "
         f"ms; lo/hi, kp and fin exact")
     return {"counts": counts, "walk_ms": walk_ms, "coder_ms": coder_ms, **e}
+
+
+def phase_decision(torch, log, card: str) -> dict:
+    """Phase 7: the decision variant on the unprimed bench batch: bytes
+    against both other encodes (also on a worst-case batch), round trip,
+    launches, memory against the lane budget, timings; on one chunk of all
+    lanes, kernels 5-8 against their plain versions on the inputs the engine
+    gave them, and kernel 8's own path to the variant's streams."""
+    from llcomp_tpu_torch import coder, decode, encode
+    from llcomp_tpu_torch.kernels import decode_kernel as dk
+    from llcomp_tpu_torch.kernels import encode_fused as ef
+    from llcomp_tpu_torch.kernels import encode_kernels as ek
+
+    dev = torch.device("cuda")
+    lanes = bench_lanes(bench_images(100))
+    check(sha(lanes) == IMAGE_SHA["batch"], "bench images drifted")
+    S, H, W, C = lanes.shape
+    n = H * W * C
+    mp = BENCH_IMAGES * BENCH_SIZE * BENCH_SIZE / 1e6
+    kw = {"device": dev, "engine": "sort", "variant": "decision"}
+    chunk = min(S, encode.lanes_per_chunk(n, "sort", "decision"))
+    budget = encode.lane_bytes(n, "sort", "decision")
+
+    def peak_per_lane(fn):
+        """fn()'s result and its peak device bytes a lane of one chunk."""
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        out = fn()
+        return out, (torch.cuda.max_memory_allocated() - base) / chunk
+
+    # the main path: unprimed encode through kernels 5-7, decode (kernel 2)
+    path = {"build_stream": ek.build_stream, "walk_probs": ek.walk_probs,
+            "coder_scan_off": ek.coder_scan_off, "decode_kernel": dk.decode,
+            "walk_symbols": ek.walk_symbols,
+            "coder_scan_off_q": ek.coder_scan_off_q,
+            "encode_fused": ef.encode_fused}
+    for k in path.values():
+        k.launches = 0
+    t0 = time.perf_counter()
+    streams, peak = peak_per_lane(lambda: encode.encode_lanes(lanes, **kw))
+    t1 = time.perf_counter()
+    out = decode.decode_lanes(streams, (H, W, C), device=dev)
+    t2 = time.perf_counter()
+    counts = {name: k.launches for name, k in path.items()}
+    on = ("build_stream", "walk_probs", "coder_scan_off", "decode_kernel")
+    check(all(counts[k] for k in on)
+          and not any(counts[k] for k in counts if k not in on),
+          f"decision path launches wrong: {counts}")
+    check(np.array_equal(out, lanes), "decision variant: round trip not exact")
+    check(streams == encode.encode_lanes(lanes, device=dev),
+          "unprimed batch: decision variant != fused engine")
+    check(streams == encode.encode_lanes(lanes, device=dev, engine="sort"),
+          "unprimed batch: decision variant != symbol variant")
+    log(f"phase 7 decision variant: {S} lanes x {n} symbols unprimed, "
+        f"{-(-S // chunk)} chunk(s) of {chunk} lanes, bytes == fused engine "
+        f"== symbol variant, exact through kernel 2; first run encode "
+        f"{t1 - t0:.3f} s, decode {t2 - t1:.3f} s; launches on this path "
+        f"{counts}")
+
+    worst = _worst_lanes(lanes.shape)
+    got, peak_w = peak_per_lane(lambda: encode.encode_lanes(worst, **kw))
+    check(got == encode.encode_lanes(worst, device=dev),
+          "worst-case batch: decision variant != fused engine")
+    check(got == encode.encode_lanes(worst, device=dev, engine="sort"),
+          "worst-case batch: decision variant != symbol variant")
+    check(max(peak, peak_w) <= budget, f"decision variant peak "
+          f"{max(peak, peak_w)} B a lane, above encode.lane_bytes {budget} B")
+    log(f"phase 7 worst-case batch (channels 0/255 at random): decision "
+        f"variant bytes == fused engine == symbol variant, "
+        f"{sum(map(len, got))} B; peak device memory a lane of a chunk: "
+        f"bench batch {peak / 1e6:.3f} MB, worst case {peak_w / 1e6:.3f} MB, "
+        f"budget {budget / 1e6:.3f} MB (encode.lane_bytes)")
+
+    runs = {"decision": kw, "symbol": {"device": dev, "engine": "sort"},
+            "fused": {"device": dev}}
+    times = {name: [] for name in runs}
+    for rep in range(3):
+        fresh = bench_lanes(bench_images(5000 + 97 * rep))
+        order = list(runs)[rep:] + list(runs)[:rep]
+        got = {}
+        for name in order:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            got[name] = encode.encode_lanes(fresh, **runs[name])
+            torch.cuda.synchronize()
+            times[name].append(time.perf_counter() - t0)
+        check(got["decision"] == got["symbol"] == got["fused"],
+              f"fresh batch {rep}: the three encodes differ")
+    med = {name: statistics.median(t) for name, t in times.items()}
+    log(f"phase 7 end to end (host numpy in, bytes out), median of 3 fresh "
+        f"unprimed batches, same batches, on {card}: " + ", ".join(
+            f"{name} {med[name]:.4f} s = {mp / med[name]:.2f} MP/s"
+            for name in runs))
+
+    wall, busy, top = _device_busy(
+        torch, lambda: encode.encode_lanes(lanes, **kw))
+    log("phase 7 decision variant under torch.profiler (one unprimed batch "
+        "encode, host numpy in, bytes out): " + _idle("decision", wall, busy)
+        + "; ten largest device ops: " + top)
+
+    lanes_t = torch.from_numpy(lanes).to(dev)
+    splits = [_stage_run(torch, encode._encode_decision, lanes_t, None)[0]
+              for _ in range(4)][1:]
+    split = {name: statistics.median(s[name] for s in splits)
+             for name in splits[0]}
+    log(f"phase 7 decision variant split (encode._encode_decision's stages), "
+        f"all {S} lanes in one chunk, device lanes in, bytes on device out, "
+        f"median of 3 after a warm-up: "
+        + ", ".join(f"{name} {ms:.2f} ms" for name, ms in split.items())
+        + f"; sum {sum(split.values()):.2f} ms")
+
+    # the engine's own kernel inputs and outputs at the full shape
+    _, made, (out_b, lens) = _stage_run(torch, encode._encode_decision,
+                                        lanes_t, None, keep=True)
+    lens_h = lens.cpu().numpy()
+    out_h = out_b.cpu().numpy()
+    check([out_h[s, : lens_h[s]].tobytes() for s in range(S)] == streams,
+          "the split's decision run != encode_lanes(variant='decision')")
+    K, Tc, h, diff = made["precompute and counts"]
+    (stream,), (xs,), (probs,) = made["build"], made["walk xs"], made["walk"]
+    (cx,), (kp, fin) = made["back sort"], made["coder"]
+    res = {}
+    cases = {
+        "build_stream": (lambda: ek.build_stream(h, diff, n, K),
+                         lambda: ek.build_stream_plain(h, diff, n, K),
+                         (stream,)),
+        "walk_probs": (lambda: ek.walk_probs(xs),
+                       lambda: ek.walk_probs_plain(xs), (probs,)),
+        "coder_scan_off": (lambda: ek.coder_scan_off(cx),
+                           lambda: ek.coder_scan_off_plain(cx), (kp, fin)),
+        "coder_scan": (lambda: ek.coder_scan(cx),
+                       lambda: ek.coder_scan_plain(cx), None),
+    }
+    for name, (kernel, plain, want) in cases.items():
+        ms = _time_cuda(torch, kernel)
+        if want is None:          # kernel 8 is off the path: its own output
+            want = kernel()
+        plain_ms, got = _time_plain(torch, plain)
+        got = got if isinstance(got, tuple) else (got,)
+        err = max(_max_err(a, b) for a, b in zip(want, got))
+        check(err == 0, f"{name}: kernel != plain on the engine's inputs "
+              f"({err})")
+        res[name] = {"ms": ms, "plain_ms": plain_ms, "err": err}
+    log(f"phase 7 kernels vs plain on the engine's inputs, {S} lanes x {n} "
+        f"symbols (K {K}, Tc {Tc} decisions), exact: " + ", ".join(
+            f"{name} kernel {r['ms']:.3f} ms vs plain {r['plain_ms']:.1f} ms"
+            for name, r in res.items()))
+
+    # kernel 8's own path: the slot-record coder on the variant's records
+    ek.coder_scan.launches = 0
+    meta, runs_, fin4 = ek.coder_scan(cx)
+    meta_f, runs_f = coder.finish_steps(fin4)
+    by, ln = coder.expand_slots(torch.cat([meta, meta_f]),
+                                torch.cat([runs_, runs_f]), encode.outcap(n))
+    res["coder_scan"]["launches"] = ek.coder_scan.launches
+    ln_h, by_h = ln.cpu().numpy(), by.cpu().numpy()
+    check(res["coder_scan"]["launches"] == 1 and np.array_equal(ln_h, lens_h)
+          and [by_h[s, : ln_h[s]].tobytes() for s in range(S)] == streams,
+          "coder_scan + finish_steps + expand_slots != the variant's streams")
+    log(f"phase 7 slot-record path (coder_scan, coder.finish_steps, "
+        f"coder.expand_slots) on the variant's coder records: streams and "
+        f"lengths == the variant's; coder_scan launches on this path "
+        f"{res['coder_scan']['launches']}")
+    for name in ("build_stream", "walk_probs", "coder_scan_off"):
+        res[name]["launches"] = counts[name]
+    return res
 
 
 def main() -> int:
@@ -669,6 +874,7 @@ def main() -> int:
         counts = phase_main_path(torch, log)
         bench = phase_bench(torch, log, card)
         sort = phase_sort(torch, log, card)
+        decision = phase_decision(torch, log, card)
         if "jax" in sys.modules or "llcomp_tpu" in sys.modules:
             raise Failed("the port imported JAX or llcomp_tpu")
     except Failed as e:
@@ -700,6 +906,17 @@ def main() -> int:
             "launches": sort["counts"][name],
             "max_abs_err": max(errs[err], sort[err]),
             "ms": sort[f"{err}_ms"], "plain_ms": sort[f"{err}_plain_ms"]})
+    for name, src, line in (("build_stream", "build_stream", 74),
+                            ("walk_probs", "walk_probs", 356),
+                            ("coder_scan_off", "coder_scan", 475),
+                            ("coder_scan", "coder_scan", 416)):
+        r = decision[name]
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": f"llcomp_tpu_torch/csrc/{src}.cu",
+            "replaces": f"llcomp_tpu/pallas/encode_kernels.py:{line}",
+            "launches": r["launches"], "max_abs_err": r["err"],
+            "ms": r["ms"], "plain_ms": r["plain_ms"]})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

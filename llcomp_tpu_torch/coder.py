@@ -14,9 +14,12 @@ zeroed once at ``finish``.  Writes past ``outcap`` set a sticky per-lane
 overflow flag instead.
 
 The sort chain (``encode.encode_lanes(engine="sort")``) codes through kernel
-4 instead, which emits one offset-packed record per decision
-(``off<<9 | carry<<8 | head``, ``KP_SILENT`` when no byte is flushed);
-``finish_steps_off`` and ``expand_kp`` turn those records into bytes.
+4 (symbol variant) or 7 (decision variant) instead, which emit one
+offset-packed record per decision (``off<<9 | carry<<8 | head``,
+``KP_SILENT`` when no byte is flushed); ``finish_steps_off`` and
+``expand_kp`` turn those records into bytes.  Kernel 8 emits slot records
+(``meta = emit | carry<<1 | head<<8`` and the run before each step), which
+``finish_steps`` and ``expand_slots`` turn into bytes.
 """
 from __future__ import annotations
 
@@ -62,21 +65,69 @@ def kp_record(emit, carry, head, off) -> torch.Tensor:
     return torch.where(emit, rec, KP_SILENT).to(torch.int32)
 
 
+def slot_meta(emit, carry, head) -> torch.Tensor:
+    """Slot record ``emit | carry<<1 | head<<8`` as int32 (the JAX
+    package's ``coder.pack_slot``)."""
+    meta = (emit.to(torch.int64) | (carry.to(torch.int64) << 1)
+            | (head.to(torch.int64) << 8))
+    return meta.to(torch.int32)
+
+
+def _flush_shifts(low, rng, pend, run) -> list[tuple]:
+    """The two forced shifts of the coder's finish (`llcomp.hpp:75-81`: low
+    += 0xFF, two shifts, the pending byte dropped) on final carries (int64
+    [S] each) -> each shift's (emit, carry, head, out_run)."""
+    low = low + 0xFF
+    every = torch.ones_like(low, dtype=torch.bool)
+    flushed = []
+    for _ in range(2):
+        (low, rng, pend, run), rec = shift_step(low, rng, pend, run, every)
+        flushed.append(rec)
+    return flushed
+
+
+def finish_steps(fin: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Final coder carries ``fin`` [4, S] (low, rng, pend, run) -> the two
+    forced flush shifts' slot records (meta, runs), each [2, S] int32 (the
+    JAX package's ``coder.finish_steps``)."""
+    recs = _flush_shifts(*fin.to(torch.int64))
+    meta = torch.stack([slot_meta(e, c, h) for e, c, h, _ in recs])
+    runs = torch.stack([r for *_, r in recs]).to(torch.int32)
+    return meta, runs
+
+
 def finish_steps_off(fin: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """Final coder carries ``fin`` [5, S] (low, rng, pend, run, off) -> the
     two forced flush shifts' records ``kp_fin`` [2, S] int32 and the stream
-    lengths [S] int32 (`llcomp.hpp:75-81`: low += 0xFF, two shifts, the
-    pending byte dropped; the JAX package's ``finish_steps_grouped_off``)."""
-    low, rng, pend, run, off = fin.to(torch.int64)
-    low = low + 0xFF
-    every = torch.ones_like(low, dtype=torch.bool)
+    lengths [S] int32 (the JAX package's ``finish_steps_grouped_off``)."""
+    fin = fin.to(torch.int64)
+    off = fin[4]
     recs = []
-    for _ in range(2):
-        (low, rng, pend, run), (emit, carry, head, out_run) = shift_step(
-            low, rng, pend, run, every)
+    for emit, carry, head, out_run in _flush_shifts(*fin[:4]):
         recs.append(kp_record(emit, carry, head, off))
         off = torch.where(emit, off + 1 + out_run, off)
     return torch.stack(recs), off.to(torch.int32)
+
+
+def expand_slots(meta: torch.Tensor, runs: torch.Tensor, outcap: int
+                 ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Slot records -> (bytes [S, outcap] u8, stream lengths [S] int32).
+
+    meta, runs [T, S] int32, a lane's steps in order, the two flush steps
+    of ``finish_steps`` included (the counterpart of the JAX package's
+    ``expand_slots_on_device``, lane-minor).  An emitting slot flushes
+    ``1 + run`` bytes, so the byte offsets are an exclusive cumsum down the
+    steps; the emitting slots become offset-packed records
+    ``off<<9 | carry<<8 | head`` and go through ``expand_kp``.
+    """
+    emit = (meta & 1) != 0
+    length = torch.where(emit, 1 + runs.to(torch.int64), 0)
+    ends = length.cumsum(dim=0)
+    offs = ends - length
+    rec = (offs << 9) | ((meta & 2).to(torch.int64) << 7) | ((meta >> 8) & 0xFF)
+    kp = torch.where(emit & (offs < outcap), rec, KP_SILENT).to(torch.int32)
+    # the flush records are already rows of ``kp``
+    return expand_kp(kp, kp[:0], outcap), ends[-1].to(torch.int32)
 
 
 def expand_kp(kp: torch.Tensor, kp_fin: torch.Tensor, outcap: int

@@ -20,6 +20,17 @@ Two engines give the same bytes:
   sorts are torch ops.  The live-quad count Tq is exact (the JAX bucketing
   only bounded its recompiles), and the TPU HBM slot budget is part of the
   lane-chunk budget.
+
+  Its second variant, ``variant="decision"`` (the JAX package's
+  ``LLCT_ENCODE_VARIANT=decision``, the else branch of
+  ``_launch_stage_rest``, `encode.py:557-601`, with ``_stage_fwd_sort``,
+  ``_stage_walk_xs``, ``_stage_back_sort``; `encode.py:311-338,421-442`),
+  sorts decisions instead of symbols: kernel 5 (``build_stream``) expands
+  each symbol into K decision slots, a sort orders them by (context,
+  position), kernel 6 (``walk_probs``) walks each context's run with one
+  state, a second sort restores stream order, and kernel 7
+  (``coder_scan_off``) range-codes them.  It takes unprimed lanes only, and
+  its decision prefix Tc is the exact count.
 """
 from __future__ import annotations
 
@@ -31,11 +42,14 @@ from . import device as devmod
 from .core import tables, transform
 from .core.config import REV2, CodecConfig
 from .kernels.encode_fused import encode_fused
-from .kernels.encode_kernels import coder_scan_off_q, walk_symbols
+from .kernels.encode_kernels import (build_stream, coder_scan_off,
+                                     coder_scan_off_q, walk_probs,
+                                     walk_symbols)
 
 # Device bytes one chunk of lanes may hold (``lane_bytes`` sizes a lane).
 LANE_BUDGET_BYTES = 8 << 30
 ENGINES = ("fused", "sort")
+VARIANTS = ("symbol", "decision")     # the sort engine's two chains
 MAX_SLOTS = 24            # decisions per symbol at most (2 * 10 + 3, rounded)
 # Peak device bytes of the sort chain per decision slot (n_sym * K a lane):
 # the walk's int32 records, their int64 copies, the compact key and its
@@ -43,9 +57,17 @@ MAX_SLOTS = 24            # decisions per symbol at most (2 * 10 + 3, rounded)
 # (1,024 lanes x 12,288 symbols, K = 20, the per-symbol arrays included);
 # chip_smoke.py checks a full chunk against ``lane_bytes``.
 SORT_SLOT_BYTES = 22
+# Peak device bytes of the decision variant per decision slot (n_sym * K a
+# lane), set by the forward sort: the int32 stream, its int64 key and the
+# sort's int64 values, int64 indices and scratch.  An H100 peaked at 52.3 B
+# per slot (256 and 1,024 lanes x 12,288 symbols, K = 24); chip_smoke.py
+# checks a full chunk against ``lane_bytes``.
+DECISION_SLOT_BYTES = 54
 SLOT_LIMIT = 1 << 25      # n_sym * 24 below this: the compact key's 23 bits
+POS_LIMIT = 1 << 20       # decision variant: n_sym * K below this (20-bit pos)
 OUTCAP_LIMIT = 1 << 21    # outcap below this: the byte offsets' bound
 _DEAD_HASH = 0x1FFF       # symbol padding sorts after every context run
+_BIG = 1 << 22            # forward-sort context of a padding slot
 _INT64_MAX = 0x7FFFFFFFFFFFFFFF
 
 
@@ -54,14 +76,23 @@ def outcap(n_sym: int) -> int:
     return -(-(n_sym + n_sym // 2 + 64) // 1024) * 1024
 
 
-def lane_bytes(n_sym: int, engine: str) -> int:
+def lane_bytes(n_sym: int, engine: str, variant: str = "symbol") -> int:
     """Device bytes one lane of ``n_sym`` symbols holds at the engine's peak.
     Fused: model rows, packed symbols (two layouts), output row and
-    precompute temporaries.  Sort: ``SORT_SLOT_BYTES`` per slot at the
-    largest K, the per-symbol arrays and the output row."""
+    precompute temporaries.  Sort: ``SORT_SLOT_BYTES`` (symbol variant) or
+    ``DECISION_SLOT_BYTES`` (decision variant) per slot at the largest K,
+    the per-symbol arrays and the output row."""
     if engine == "sort":
-        return SORT_SLOT_BYTES * MAX_SLOTS * n_sym + 64 * n_sym + outcap(n_sym)
+        per_slot = (DECISION_SLOT_BYTES if variant == "decision"
+                    else SORT_SLOT_BYTES)
+        return per_slot * MAX_SLOTS * n_sym + 64 * n_sym + outcap(n_sym)
     return REV2.num_states + 56 * n_sym + outcap(n_sym)
+
+
+def lanes_per_chunk(n_sym: int, engine: str, variant: str = "symbol") -> int:
+    """Lanes of ``n_sym`` symbols that one chunk of ``encode_lanes`` codes
+    at once: as many as ``LANE_BUDGET_BYTES`` holds, at least one."""
+    return max(1, LANE_BUDGET_BYTES // lane_bytes(n_sym, engine, variant))
 
 
 def _hash_diff(imgs: torch.Tensor, cfg: CodecConfig
@@ -187,8 +218,93 @@ def stage_compact(lo: torch.Tensor, hi: torch.Tensor, origsym: torch.Tensor,
     return qlo.t().contiguous(), qhi.t().contiguous()
 
 
+def decision_slots(sym_max: int) -> int:
+    """K of the decision variant: 8, 16 or 24 slots per symbol, the first
+    covering the most decisions any symbol has (`encode.py:568`)."""
+    return 8 if sym_max <= 8 else 16 if sym_max <= 16 else 24
+
+
+def check_decision_bounds(n_sym: int, K: int) -> None:
+    """Raise ValueError for a stripe whose ``n_sym * K`` decision slots
+    reach 2^20: the forward sort keeps a slot's position in 20 bits
+    (`encode.py:330-336`), and a larger one would run into its context.
+    The JAX package is kept inside only by its default slot budget
+    (``fits_pallas_budget``, `encode.py:809-812`)."""
+    if n_sym * K >= POS_LIMIT:
+        raise ValueError(f"a stripe of {n_sym} symbols at K {K} breaks the "
+                         f"decision variant's position bound n_sym*K < 2^20")
+
+
+def stage_fwd_sort(stream: torch.Tensor, Tc: int
+                   ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Sort each lane's decision slots by (context, position) and keep the
+    first ``Tc`` (``_stage_fwd_sort`` and the Tc cut, `encode.py:311-338,
+    596-597`).
+
+    stream [S, T] int32 lane-major (``build_stream``, padding -1), T < 2^20.
+    Each slot becomes the int64 key ``ctx<<21 | pos<<1 | bit`` with ctx =
+    stream >> 1 (hash*8 + substate) and 2^40 for padding, which sorts last;
+    keys are unique, so the order is total.  -> (skey, spay) [S, Tc] int32,
+    lane-major: the context (``_BIG`` for padding) and ``bit<<20 | pos``.
+    """
+    T = stream.shape[1]
+    key = (stream >> 1).to(torch.int64)
+    key.masked_fill_(stream < 0, 1 << 40)
+    key <<= 21
+    key |= torch.arange(T, device=stream.device, dtype=torch.int64) << 1
+    key |= stream & 1
+    s = torch.sort(key, dim=1).values[:, :Tc]
+    del key
+    ctx = s >> 21
+    skey = torch.where(ctx >= POS_LIMIT, _BIG, ctx).to(torch.int32)
+    spay = (((s & 1) << 20) | ((s >> 1) & (POS_LIMIT - 1))).to(torch.int32)
+    return skey, spay
+
+
+def stage_walk_xs(skey: torch.Tensor, spay: torch.Tensor) -> torch.Tensor:
+    """Kernel 6's input (``_stage_walk_xs``, `encode.py:421-427`): ``bit |
+    seg<<1`` per sorted slot, seg set where the context differs from the
+    slot before (always on the first).  skey, spay [S, Tc] -> [Tc, S] int32,
+    lane-minor."""
+    prev = torch.cat([torch.full_like(skey[:, :1], -2), skey[:, :-1]], dim=1)
+    xs = ((spay >> 20) & 1) | ((skey != prev).to(torch.int32) << 1)
+    return xs.t().contiguous()
+
+
+def stage_back_sort(skey: torch.Tensor, spay: torch.Tensor,
+                    probs: torch.Tensor) -> torch.Tensor:
+    """Put the walked slots back in stream order, live slots in front
+    (``_stage_back_sort``, `encode.py:430-442`).
+
+    skey, spay [S, Tc] lane-major; probs [Tc, S] (kernel 6's output).  Each
+    live slot becomes the int32 key ``pos<<9 | bit<<8 | prob``, padding
+    ``1<<30``; one sort per lane.  -> the coder's records [Tc, S] int32,
+    lane-minor: ``valid<<9 | bit<<8 | prob``, dead records 0.
+    """
+    pay = (probs.t() & 0xFF) | (((spay >> 20) & 1) << 8)
+    key = torch.where(skey < _BIG, ((spay & (POS_LIMIT - 1)) << 9) | pay,
+                      1 << 30)
+    s = torch.sort(key, dim=1).values
+    return torch.where(s < (1 << 30), (s & 0x1FF) | (1 << 9), 0).t().contiguous()
+
+
 def _no_hook(stage: str, *made) -> None:
     pass
+
+
+def _finish_bytes(kp: torch.Tensor, fin: torch.Tensor, cap: int, stage_done
+                  ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Offset-packed records and final carries -> (bytes [S, width] u8,
+    lens [S] int32), expanded at the longest stream once the lengths are
+    synced (``_stage_finish``, ``_collect_bytes``, `encode.py:445-461,
+    626-643`)."""
+    kp_fin, lens = coder.finish_steps_off(fin)
+    width = int(lens.max())
+    if width > cap:      # cannot happen for the rev-2 coder
+        raise RuntimeError(f"stream overflow: {width} > bound {cap}")
+    out = coder.expand_kp(kp, kp_fin, width)
+    stage_done("finish and expansion", out, lens)
+    return out, lens
 
 
 def _encode_sort(lanes: torch.Tensor, cfg: CodecConfig, init, cap: int,
@@ -213,13 +329,42 @@ def _encode_sort(lanes: torch.Tensor, cfg: CodecConfig, init, cap: int,
     stage_done("compact sort", qlo, qhi)
     kp, fin = coder_scan_off_q(qlo, qhi)
     stage_done("coder", kp, fin)
-    kp_fin, lens = coder.finish_steps_off(fin)
-    width = int(lens.max())
-    if width > cap:      # cannot happen for the rev-2 coder
-        raise RuntimeError(f"stream overflow: {width} > bound {cap}")
-    out = coder.expand_kp(kp, kp_fin, width)
-    stage_done("finish and expansion", out, lens)
-    return out, lens
+    return _finish_bytes(kp, fin, cap, stage_done)
+
+
+def _encode_decision(lanes: torch.Tensor, cfg: CodecConfig, init, cap: int,
+                     stage_done=_no_hook):
+    """The decision variant of the sort chain on one chunk of unprimed lanes
+    (``init`` is None; the else branch of ``_launch_stage_rest`` with
+    ``_collect_bytes``, `encode.py:557-601,626-643`).  The decision prefix
+    Tc is the exact count: JAX buckets it only to bound its recompiles, and
+    the dead entries past the count code as silent.  Raises ValueError past
+    ``check_decision_bounds``.  -> (bytes [S, width] u8, lens [S] int32).
+
+    ``stage_done`` as in ``_encode_sort``, after each of the eight stages."""
+    h, diff = _hash_diff(lanes, cfg)
+    total, sym_max, _ = stage_count(diff)
+    K = decision_slots(sym_max)
+    n_sym = h.shape[1]
+    check_decision_bounds(n_sym, K)
+    stage_done("precompute and counts", K, total, h, diff)
+    stream = build_stream(h, diff, n_sym, K)
+    stage_done("build", stream)
+    skey, spay = stage_fwd_sort(stream, total)
+    del stream
+    stage_done("fwd sort", skey, spay)
+    xs = stage_walk_xs(skey, spay)
+    stage_done("walk xs", xs)
+    probs = walk_probs(xs)
+    del xs
+    stage_done("walk", probs)
+    coder_xs = stage_back_sort(skey, spay, probs)
+    del skey, spay, probs
+    stage_done("back sort", coder_xs)
+    kp, fin = coder_scan_off(coder_xs)
+    del coder_xs
+    stage_done("coder", kp, fin)
+    return _finish_bytes(kp, fin, cap, stage_done)
 
 
 def _encode_fused(lanes: torch.Tensor, cfg: CodecConfig, init, cap: int):
@@ -227,8 +372,8 @@ def _encode_fused(lanes: torch.Tensor, cfg: CodecConfig, init, cap: int):
 
 
 def encode_lanes(imgs, cfg: CodecConfig = REV2, primed: bool = False,
-                 seed=None, device="cuda", engine: str = "fused"
-                 ) -> list[bytes]:
+                 seed=None, device="cuda", engine: str = "fused",
+                 variant: str = "symbol") -> list[bytes]:
     """Encode equal-shaped lanes [S, H, W, C] u8 -> per-lane headerless
     rev-2 streams.
 
@@ -238,12 +383,22 @@ def encode_lanes(imgs, cfg: CodecConfig = REV2, primed: bool = False,
     plain versions).  engine: 'fused' (kernel 1) or 'sort', the counterpart
     of the JAX package's engine='pallas' (kernels 3 and 4; raises
     ValueError for a stripe past its format bounds).  Both give the same
-    bytes.
+    bytes.  variant: the sort engine's chain, 'symbol' (kernels 3 and 4) or
+    'decision' (kernels 5-7), the counterpart of the JAX package's
+    LLCT_ENCODE_VARIANT=decision, for unprimed, unseeded lanes only (raises
+    ValueError otherwise); same bytes.
     """
     if cfg != REV2:
         raise ValueError("llcomp_tpu_torch supports the rev-2 cfg only")
     if engine not in ENGINES:
         raise ValueError(f"engine must be one of {ENGINES}, got {engine!r}")
+    if variant not in VARIANTS:
+        raise ValueError(f"variant must be one of {VARIANTS}, got {variant!r}")
+    if variant == "decision" and engine != "sort":
+        raise ValueError("variant='decision' is a chain of engine='sort'")
+    if variant == "decision" and (primed or seed is not None):
+        raise ValueError("variant='decision' walks every context from state "
+                         "0: it takes no primed or seeded lanes")
     dev = devmod.resolve(device)
     imgs = np.ascontiguousarray(imgs, dtype=np.uint8)
     if imgs.ndim != 4:
@@ -254,8 +409,11 @@ def encode_lanes(imgs, cfg: CodecConfig = REV2, primed: bool = False,
     init = _start_table(primed, seed)
     if engine == "sort":
         check_sort_bounds(n_sym)
-    run = _encode_sort if engine == "sort" else _encode_fused
-    chunk = max(1, LANE_BUDGET_BYTES // lane_bytes(n_sym, engine))
+    if engine == "fused":
+        run = _encode_fused
+    else:
+        run = _encode_sort if variant == "symbol" else _encode_decision
+    chunk = lanes_per_chunk(n_sym, engine, variant)
     streams: list[bytes] = []
     for c0 in range(0, S, chunk):
         lanes = torch.from_numpy(imgs[c0 : c0 + chunk]).to(dev)

@@ -1,19 +1,26 @@
-"""Kernels 3 and 4: the sort chain's symbol walk and quad range coder (CUDA),
-and their plain versions.
+"""Kernels 3-8: the sort chain's walks, stream builder and range coders
+(CUDA), and their plain versions.
 
-Replace ``llcomp_tpu/pallas/encode_kernels.py::_make_symwalk_kernel``
-(``walk_symbols``, `encode_kernels.py:175`) and ``::_coder_kernel_off_q``
-(``coder_scan_off_q``, `encode_kernels.py:574`).  Both are serial recurrences
-per lane: on the GPU one thread owns one lane, and arrays are lane-minor
-``[T, S]`` (step-major) so that a warp's 32 lanes read and write one line per
-step.  The TPU's [G, T, 8, 128] lane groups, grid chunks and scratch carries
-have no counterpart.  The source notes in ``csrc/walk_symbols.cu`` and
-``csrc/coder_scan.cu`` say what bounds each kernel on the H100.
+Replace, in ``llcomp_tpu/pallas/encode_kernels.py``: the symbol variant's
+``_make_symwalk_kernel`` (``walk_symbols``, `encode_kernels.py:175`) and
+``_coder_kernel_off_q`` (``coder_scan_off_q``, `:574`), kernels 3 and 4; the
+decision variant's ``_make_build_kernel`` (``build_stream``, `:74`),
+``_walk_kernel`` (``walk_probs``, `:356`) and ``_coder_kernel_off``
+(``coder_scan_off``, `:475`), kernels 5, 6 and 7; and the slot-record coder
+``_coder_kernel`` (``coder_scan``, `:416`), kernel 8.  The walks and coders
+are serial recurrences per lane: on the GPU one thread owns one lane, and
+arrays are lane-minor ``[T, S]`` (step-major) so that a warp's 32 lanes read
+and write one line per step.  The stream builder is elementwise, one thread
+per slot, and writes lane-major ``[S, n*K]`` for the forward sort.  The
+TPU's [G, T, 8, 128] lane groups, grid chunks and scratch carries have no
+counterpart.  The source notes in ``csrc/`` say what bounds each kernel on
+the H100.
 
 A CUDA tensor launches the kernel (and counts the launch on the wrapper); a
-CPU tensor runs the plain version.  Records are 10 bits,
-``valid<<9 | bit<<8 | prob``, pair-packed: quad q's records 4q, 4q+1 sit in
-``lo`` (``rec_{4q+1}<<10 | rec_{4q}``) and 4q+2, 4q+3 in ``hi``.
+CPU tensor runs the plain version.  Coder records are 10 bits,
+``valid<<9 | bit<<8 | prob``; kernels 3 and 4 pair-pack them: quad q's
+records 4q, 4q+1 sit in ``lo`` (``rec_{4q+1}<<10 | rec_{4q}``) and 4q+2,
+4q+3 in ``hi``.
 """
 from __future__ import annotations
 
@@ -31,10 +38,19 @@ _I = ctypes.c_int
 RESET_ROWS = 128        # 121 prior/seed buckets, padded as the 7-bit field
 
 
-def _check_i32(t: torch.Tensor, what: str) -> None:
+def _check_i32(t: torch.Tensor, what: str, layout: str = "[T, S]") -> None:
     if t.dim() != 2 or t.dtype != torch.int32:
-        raise ValueError(f"{what} must be [T, S] int32, got {tuple(t.shape)} "
-                         f"{t.dtype}")
+        raise ValueError(f"{what} must be {layout} int32, got "
+                         f"{tuple(t.shape)} {t.dtype}")
+
+
+def _stream(dev) -> int:
+    return torch.cuda.current_stream(dev).cuda_stream
+
+
+def _fused_table(dev) -> torch.Tensor:
+    """tables.FUSED (``prob | next0<<8 | next1<<16``) as int32 on ``dev``."""
+    return torch.from_numpy(tables.FUSED).to(dev)
 
 
 def reset_rows(init, device) -> torch.Tensor:
@@ -111,14 +127,14 @@ def walk_symbols(xs: torch.Tensor, K: int = 24, init=None
     xs = xs.contiguous()
     n, S = xs.shape
     dev = xs.device
-    fused = torch.from_numpy(tables.FUSED).to(dev)
+    fused = _fused_table(dev)
     rows = reset_rows(init, dev)
     lo = torch.empty((n * K // 4, S), dtype=torch.int32, device=dev)
     hi = torch.empty_like(lo)
     fn = build.load("walk_symbols", "llct_walk_symbols",
                     [_P] * 5 + [_I] * 3 + [_P])
     rc = fn(xs.data_ptr(), fused.data_ptr(), rows.data_ptr(), lo.data_ptr(),
-            hi.data_ptr(), n, S, K, torch.cuda.current_stream(dev).cuda_stream)
+            hi.data_ptr(), n, S, K, _stream(dev))
     build.check(rc, "walk_symbols")
     walk_symbols.launches += 1
     return lo, hi
@@ -127,31 +143,171 @@ def walk_symbols(xs: torch.Tensor, K: int = 24, init=None
 walk_symbols.launches = 0
 
 
-def coder_scan_off_q_plain(qlo: torch.Tensor, qhi: torch.Tensor
-                           ) -> tuple[torch.Tensor, torch.Tensor]:
-    """The quad coder in plain torch, vectorised over lanes, with a Python
-    loop over decisions (``coder.shift_step`` for each renormalisation)."""
-    Tq, S = qlo.shape
-    dev = qlo.device
+def build_stream_plain(hash_: torch.Tensor, diff: torch.Tensor, n_sym: int,
+                       K: int) -> torch.Tensor:
+    """The stream builder in plain torch: elementwise over (lane, symbol),
+    one ``transform.decision`` per slot."""
+    S, n_pad = hash_.shape
+    ad = diff.abs()
+    e = transform.ilog2(ad.clamp(min=1), max_bits=12)
+    live = torch.arange(n_pad, device=hash_.device) < n_sym
+    nb = torch.where(live, torch.where(ad != 0, 2 * e + 3, 1), 0)
+    slots = []
+    for k in range(K):
+        ctx, bit = transform.decision(k, diff, ad, e)
+        slots.append(torch.where(nb > k, (hash_ * 8 + ctx) * 2 + bit, -1)
+                     .to(torch.int32))
+    return torch.stack(slots, dim=2).reshape(S, n_pad * K)
+
+
+def build_stream(hash_: torch.Tensor, diff: torch.Tensor, n_sym: int,
+                 K: int = 24) -> torch.Tensor:
+    """Expand each lane's symbols into K decision slots: ``hash_``, ``diff``
+    [S, n_pad] int32 lane-major (folded context hash and residual; symbols
+    at or past ``n_sym`` are padding) -> [S, n_pad*K] int32 lane-major, slot
+    k of symbol j at ``j*K + k``: ``(hash*8 + ctx)*2 + bit`` of the symbol's
+    decision k, -1 past its last decision (so K below its count cuts it
+    short) and on padding symbols.
+
+    A CUDA ``hash_`` launches kernel 5 (counted in ``build_stream.launches``);
+    a CPU ``hash_`` runs ``build_stream_plain``.
+    """
+    _check_i32(hash_, "hash", "[S, n]")
+    _check_i32(diff, "diff", "[S, n]")
+    if hash_.shape != diff.shape or hash_.device != diff.device:
+        raise ValueError("hash and diff must match in shape and device")
+    if K < 1:
+        raise ValueError(f"K must be positive, got {K}")
+    if not hash_.is_cuda:
+        return build_stream_plain(hash_, diff, n_sym, K)
+    hash_, diff = hash_.contiguous(), diff.contiguous()
+    S, n_pad = hash_.shape
+    dev = hash_.device
+    out = torch.empty((S, n_pad * K), dtype=torch.int32, device=dev)
+    fn = build.load("build_stream", "llct_build_stream",
+                    [_P] * 3 + [_I] * 4 + [_P])
+    rc = fn(hash_.data_ptr(), diff.data_ptr(), out.data_ptr(), S, n_pad,
+            n_sym, K, _stream(dev))
+    build.check(rc, "build_stream")
+    build_stream.launches += 1
+    return out
+
+
+build_stream.launches = 0
+
+
+def walk_probs_plain(xs: torch.Tensor) -> torch.Tensor:
+    """The state walk in plain torch, vectorised over lanes, with a Python
+    loop over decisions."""
+    T, S = xs.shape
+    dev = xs.device
+    fused = torch.from_numpy(tables.FUSED.astype(np.int64)).to(dev)
+    st = torch.zeros(S, dtype=torch.int64, device=dev)
+    probs = torch.empty((T, S), dtype=torch.int32, device=dev)
+    for t in range(T):
+        x = xs[t]
+        st = torch.where((x & 2) != 0, 0, st)
+        f = fused[st]
+        probs[t] = f & 0xFF
+        st = torch.where((x & 1) != 0, f >> 16, f >> 8) & 0xFF
+    return probs
+
+
+def walk_probs(xs: torch.Tensor) -> torch.Tensor:
+    """Walk each lane's context-sorted decisions through the 128-state
+    machine: ``xs`` [T, S] int32 (``bit | seg<<1``, ``encode.stage_walk_xs``)
+    -> the coding probability of every entry, [T, S] int32.  The state
+    resets to 0 where ``seg`` is set (a new context).
+
+    A CUDA ``xs`` launches kernel 6 (counted in ``walk_probs.launches``); a
+    CPU ``xs`` runs ``walk_probs_plain``.
+    """
+    _check_i32(xs, "xs")
+    if not xs.is_cuda:
+        return walk_probs_plain(xs)
+    xs = xs.contiguous()
+    T, S = xs.shape
+    dev = xs.device
+    fused = _fused_table(dev)
+    probs = torch.empty((T, S), dtype=torch.int32, device=dev)
+    fn = build.load("walk_probs", "llct_walk_probs", [_P] * 3 + [_I] * 2 + [_P])
+    rc = fn(xs.data_ptr(), fused.data_ptr(), probs.data_ptr(), T, S,
+            _stream(dev))
+    build.check(rc, "walk_probs")
+    walk_probs.launches += 1
+    return probs
+
+
+walk_probs.launches = 0
+
+
+# --- the range coders (kernels 4, 7 and 8) ----------------------------------
+
+
+def _plain_start(S: int, dev) -> tuple[torch.Tensor, ...]:
+    """(low, rng, pend, run) of ``S`` fresh coders, int64."""
     z = torch.zeros(S, dtype=torch.int64, device=dev)
-    low, rng, pend, run, off = z, z + 0xFF00, z - 1, z, z
+    return z, z + 0xFF00, z - 1, z
+
+
+def _plain_step(state, x: torch.Tensor):
+    """Code one record ``valid<<9 | bit<<8 | prob`` per lane (``x`` [S]):
+    -> (new state, (emit, carry, head, run before the step)), the flush
+    record of ``coder.shift_step``."""
+    low, rng, pend, run = state
+    prob, one, valid = x & 0xFF, (x & 0x100) != 0, (x & 0x200) != 0
+    range1 = (rng * prob) >> 8
+    low = torch.where(one & valid, low + rng - range1, low)
+    rng = torch.where(valid, torch.where(one, range1, rng - range1), rng)
+    return coder.shift_step(low, rng, pend, run, valid & (rng < 0x100))
+
+
+def _raise_on_offsets(bad: torch.Tensor, what: str) -> None:
+    if bool(bad.any()):
+        raise RuntimeError(f"{what}: a byte offset reached 2^22")
+
+
+def _plain_off(record, T: int, S: int, dev, what: str
+               ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Kernels 4 and 7 in plain torch, vectorised over lanes, with a Python
+    loop over decisions: ``record(t)`` gives decision t's records [S]."""
+    state = _plain_start(S, dev)
+    off = torch.zeros(S, dtype=torch.int64, device=dev)
     bad = torch.zeros(S, dtype=torch.bool, device=dev)
-    kp = torch.empty((4 * Tq, S), dtype=torch.int32, device=dev)
-    words = (qlo.to(torch.int64), qhi.to(torch.int64))
-    for t in range(4 * Tq):
-        x = (words[(t >> 1) & 1][t >> 2] >> (10 * (t & 1))) & 0x3FF
-        prob, one, valid = x & 0xFF, (x & 0x100) != 0, (x & 0x200) != 0
-        range1 = (rng * prob) >> 8
-        low = torch.where(one & valid, low + rng - range1, low)
-        rng = torch.where(valid, torch.where(one, range1, rng - range1), rng)
-        (low, rng, pend, run), (emit, carry, head, flushed) = (
-            coder.shift_step(low, rng, pend, run, valid & (rng < 0x100)))
+    kp = torch.empty((T, S), dtype=torch.int32, device=dev)
+    for t in range(T):
+        state, (emit, carry, head, flushed) = _plain_step(state, record(t))
         kp[t] = coder.kp_record(emit, carry, head, off)
         bad |= emit & (off >= coder.OFF_LIMIT)
         off = torch.where(emit, off + 1 + flushed, off)
-    if bool(bad.any()):
-        raise RuntimeError("coder_scan_off_q: a byte offset reached 2^22")
-    return kp, torch.stack([low, rng, pend, run, off]).to(torch.int32)
+    _raise_on_offsets(bad, what)
+    return kp, torch.stack([*state, off]).to(torch.int32)
+
+
+def _launch_off(entry: str, inputs: tuple, steps: int, T: int, S: int, dev
+                ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Launch kernel 4 or 7 (the C entry ``entry``) over ``steps`` input
+    rows -> (kp [T, S], fin [5, S], per-lane offset error flags)."""
+    kp = torch.empty((T, S), dtype=torch.int32, device=dev)
+    fin = torch.empty((5, S), dtype=torch.int32, device=dev)
+    bad = torch.empty(S, dtype=torch.int32, device=dev)
+    fn = build.load("coder_scan", entry,
+                    [_P] * (len(inputs) + 3) + [_I] * 2 + [_P])
+    rc = fn(*(t.data_ptr() for t in inputs), kp.data_ptr(), fin.data_ptr(),
+            bad.data_ptr(), steps, S, _stream(dev))
+    build.check(rc, entry)
+    return kp, fin, bad
+
+
+def coder_scan_off_q_plain(qlo: torch.Tensor, qhi: torch.Tensor
+                           ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The quad coder in plain torch (``coder.shift_step`` for each
+    renormalisation)."""
+    Tq, S = qlo.shape
+    words = (qlo.to(torch.int64), qhi.to(torch.int64))
+    return _plain_off(
+        lambda t: (words[(t >> 1) & 1][t >> 2] >> (10 * (t & 1))) & 0x3FF,
+        4 * Tq, S, qlo.device, "coder_scan_off_q")
 
 
 def coder_scan_off_q(qlo: torch.Tensor, qhi: torch.Tensor
@@ -175,19 +331,94 @@ def coder_scan_off_q(qlo: torch.Tensor, qhi: torch.Tensor
         return coder_scan_off_q_plain(qlo, qhi)
     qlo, qhi = qlo.contiguous(), qhi.contiguous()
     Tq, S = qlo.shape
-    dev = qlo.device
-    kp = torch.empty((4 * Tq, S), dtype=torch.int32, device=dev)
-    fin = torch.empty((5, S), dtype=torch.int32, device=dev)
-    bad = torch.empty(S, dtype=torch.int32, device=dev)
-    fn = build.load("coder_scan", "llct_coder_scan_off_q",
-                    [_P] * 5 + [_I] * 2 + [_P])
-    rc = fn(qlo.data_ptr(), qhi.data_ptr(), kp.data_ptr(), fin.data_ptr(),
-            bad.data_ptr(), Tq, S, torch.cuda.current_stream(dev).cuda_stream)
-    build.check(rc, "coder_scan_off_q")
+    kp, fin, bad = _launch_off("llct_coder_scan_off_q", (qlo, qhi), Tq,
+                               4 * Tq, S, qlo.device)
     coder_scan_off_q.launches += 1
-    if bool(bad.any()):
-        raise RuntimeError("coder_scan_off_q: a byte offset reached 2^22")
+    _raise_on_offsets(bad, "coder_scan_off_q")
     return kp, fin
 
 
 coder_scan_off_q.launches = 0
+
+
+def coder_scan_off_plain(xs: torch.Tensor
+                         ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The record coder in plain torch (``coder.shift_step`` for each
+    renormalisation)."""
+    T, S = xs.shape
+    return _plain_off(lambda t: xs[t].to(torch.int64), T, S, xs.device,
+                      "coder_scan_off")
+
+
+def coder_scan_off(xs: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Range-code each lane's records in stream order, one per word: ``xs``
+    [T, S] int32 (``valid<<9 | bit<<8 | prob``, dead records 0,
+    ``encode.stage_back_sort``) -> (kp [T, S] int32 and fin [5, S] int32, as
+    ``coder_scan_off_q`` gives them).
+
+    Raises if a byte offset reaches 2^22.  A CUDA ``xs`` launches kernel 7
+    (counted in ``coder_scan_off.launches``); a CPU ``xs`` runs
+    ``coder_scan_off_plain``.
+    """
+    _check_i32(xs, "xs")
+    if not xs.is_cuda:
+        return coder_scan_off_plain(xs)
+    xs = xs.contiguous()
+    T, S = xs.shape
+    kp, fin, bad = _launch_off("llct_coder_scan_off", (xs,), T, T, S,
+                               xs.device)
+    coder_scan_off.launches += 1
+    _raise_on_offsets(bad, "coder_scan_off")
+    return kp, fin
+
+
+coder_scan_off.launches = 0
+
+
+def coder_scan_plain(xs: torch.Tensor
+                     ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The slot-record coder in plain torch (``coder.shift_step`` for each
+    renormalisation)."""
+    T, S = xs.shape
+    dev = xs.device
+    state = _plain_start(S, dev)
+    meta = torch.empty((T, S), dtype=torch.int32, device=dev)
+    runs = torch.empty_like(meta)
+    for t in range(T):
+        state, (emit, carry, head, flushed) = _plain_step(
+            state, xs[t].to(torch.int64))
+        meta[t] = coder.slot_meta(emit, carry, head)
+        runs[t] = flushed
+    return meta, runs, torch.stack(state).to(torch.int32)
+
+
+def coder_scan(xs: torch.Tensor
+               ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Range-code each lane's records in stream order into slot records:
+    ``xs`` [T, S] int32 (as ``coder_scan_off`` reads it) -> (meta [T, S]
+    int32, ``emit | carry<<1 | head<<8`` of each step's shift; runs [T, S]
+    int32, the deferred run before each step, emitting or not; fin [4, S]
+    int32, the final low, rng, pend and run).  ``coder.finish_steps`` and
+    ``coder.expand_slots`` turn them into bytes.
+
+    A CUDA ``xs`` launches kernel 8 (counted in ``coder_scan.launches``); a
+    CPU ``xs`` runs ``coder_scan_plain``.
+    """
+    _check_i32(xs, "xs")
+    if not xs.is_cuda:
+        return coder_scan_plain(xs)
+    xs = xs.contiguous()
+    T, S = xs.shape
+    dev = xs.device
+    meta = torch.empty((T, S), dtype=torch.int32, device=dev)
+    runs = torch.empty_like(meta)
+    fin = torch.empty((4, S), dtype=torch.int32, device=dev)
+    fn = build.load("coder_scan", "llct_coder_scan", [_P] * 4 + [_I] * 2 + [_P])
+    rc = fn(xs.data_ptr(), meta.data_ptr(), runs.data_ptr(), fin.data_ptr(),
+            T, S, _stream(dev))
+    build.check(rc, "coder_scan")
+    coder_scan.launches += 1
+    return meta, runs, fin
+
+
+coder_scan.launches = 0

@@ -134,6 +134,94 @@ def test_sort_engine_cuda_bytes_equal_cpu_and_fused(dev, mode):
     assert got == encode.encode_lanes(lanes, device="cuda", **kw)
 
 
+@pytest.mark.parametrize("shape", [(4, 16, 3), (7, 5, 1), (1, 40, 4),
+                                   (20, 1, 3)])
+def test_decision_kernels_equal_plain(dev, shape):
+    """Kernels 5-8 on the decision variant's own inputs for these lanes."""
+    h, diff = encode._hash_diff(torch.from_numpy(_lanes(shape)).to(dev), REV2)
+    total, sym_max, _ = encode.stage_count(diff)
+    K = encode.decision_slots(sym_max)
+    n = h.shape[1]
+    counts = [k.launches for k in (ek.build_stream, ek.walk_probs,
+                                   ek.coder_scan_off, ek.coder_scan)]
+    stream = ek.build_stream(h, diff, n, K)
+    assert torch.equal(stream, ek.build_stream_plain(h, diff, n, K))
+    skey, spay = encode.stage_fwd_sort(stream, total)
+    xs = encode.stage_walk_xs(skey, spay)
+    probs = ek.walk_probs(xs)
+    assert torch.equal(probs, ek.walk_probs_plain(xs))
+    cx = encode.stage_back_sort(skey, spay, probs)
+    kp, fin = ek.coder_scan_off(cx)
+    kp_p, fin_p = ek.coder_scan_off_plain(cx)
+    assert torch.equal(kp, kp_p) and torch.equal(fin, fin_p)
+    meta, runs, fin4 = ek.coder_scan(cx)
+    meta_p, runs_p, fin4_p = ek.coder_scan_plain(cx)
+    assert torch.equal(meta, meta_p) and torch.equal(runs, runs_p)
+    assert torch.equal(fin4, fin4_p)
+    assert [k.launches for k in (ek.build_stream, ek.walk_probs,
+                                 ek.coder_scan_off, ek.coder_scan)] \
+        == [c + 1 for c in counts]
+
+
+@pytest.mark.parametrize("K", [1, 8, 24])
+def test_build_kernel_equal_plain_on_random_symbols(dev, K):
+    """Residuals up to +-4095 (the exponent's 11-bit clip), padding symbols
+    past n_sym, and a lane count off the warp size."""
+    rng = np.random.default_rng(K)
+    S, n_pad, n_sym = 37, 50, 44
+    h = torch.from_numpy(rng.integers(0, 8000, (S, n_pad), dtype=np.int32))
+    d = torch.from_numpy(rng.integers(-4095, 4096, (S, n_pad), dtype=np.int32))
+    d[:, ::7] = 0
+    got = ek.build_stream(h.to(dev), d.to(dev), n_sym, K)
+    assert torch.equal(got.cpu(), ek.build_stream_plain(h, d, n_sym, K))
+
+
+def test_walk_and_coders_equal_plain_on_random_records(dev):
+    """Random walk inputs (seg at random) and coder records with skewed
+    bits: long deferred runs and carries; slot records expand to the
+    offset coder's bytes."""
+    rng = np.random.default_rng(2)
+    T, S = 3000, 70
+    xs = (rng.integers(0, 2, (T, S)) | (rng.random((T, S)) < 0.1) << 1)
+    xs = torch.from_numpy(xs.astype(np.int32)).to(dev)
+    assert torch.equal(ek.walk_probs(xs), ek.walk_probs_plain(xs))
+    p1 = np.where(np.arange(S) % 2 == 0, 0.97, 0.5)
+    recs = ((rng.random((T, S)) < 0.9).astype(np.int64) << 9
+            | (rng.random((T, S)) < p1).astype(np.int64) << 8
+            | rng.integers(7, 248, (T, S)))
+    cx = torch.from_numpy(recs.astype(np.int32)).to(dev)
+    kp, fin = ek.coder_scan_off(cx)
+    kp_p, fin_p = ek.coder_scan_off_plain(cx)
+    assert torch.equal(kp, kp_p) and torch.equal(fin, fin_p)
+    assert bool(((kp != coder.KP_SILENT) & ((kp & 0x100) != 0)).any())
+    meta, runs, fin4 = ek.coder_scan(cx)
+    meta_p, runs_p, fin4_p = ek.coder_scan_plain(cx)
+    assert torch.equal(meta, meta_p) and torch.equal(runs, runs_p)
+    assert torch.equal(fin4, fin4_p)
+    kp_fin, lens = coder.finish_steps_off(fin)
+    want = coder.expand_kp(kp, kp_fin, int(lens.max()))
+    mf, rf = coder.finish_steps(fin4)
+    got, lens2 = coder.expand_slots(torch.cat([meta, mf]),
+                                    torch.cat([runs, rf]), int(lens.max()))
+    assert torch.equal(lens2, lens) and torch.equal(got, want)
+
+
+def test_decision_variant_cuda_bytes_equal_cpu_and_fused(dev):
+    lanes = _lanes((6, 16, 3), 6)
+    before = {k: k.launches for k in (ek.build_stream, ek.walk_probs,
+                                      ek.coder_scan_off, ek.walk_symbols,
+                                      ek.coder_scan_off_q, ef.encode_fused)}
+    got = encode.encode_lanes(lanes, device="cuda", engine="sort",
+                              variant="decision")
+    moved = {k.__name__: k.launches - n for k, n in before.items()}
+    assert moved == {"build_stream": 1, "walk_probs": 1, "coder_scan_off": 1,
+                     "walk_symbols": 0, "coder_scan_off_q": 0,
+                     "encode_fused": 0}
+    assert got == encode.encode_lanes(lanes, device="cpu", engine="sort",
+                                      variant="decision")
+    assert got == encode.encode_lanes(lanes, device="cuda")
+
+
 def test_api_cuda_bytes_equal_cpu(dev):
     img = _lanes((24, 16, 3), 1)[0]
     blob = api.compress(img, slices="auto", device="cuda")
