@@ -10,8 +10,8 @@ Phases (each prints one line; any failure exits non-zero without the final
 ``"ok": true`` line):
 
 1. device: CUDA must be available; prints the card's name and power limit;
-2. build: compiles the six kernel sources of ``llcomp_tpu_torch/csrc`` (the
-   eight kernels), one nvcc each, in parallel;
+2. build: compiles the ten kernel sources of ``llcomp_tpu_torch/csrc`` (the
+   eight library kernels and the 21 probes), one nvcc each, in parallel;
 3. kernel vs plain: each CUDA kernel against its plain PyTorch version on
    small lane batches (photo, flat, noise, grayscale, RGBA, 1-row, 1-column,
    odd stride; unprimed, primed, seeded; corrupted and truncated streams),
@@ -47,9 +47,20 @@ Phases (each prints one line; any failure exits non-zero without the final
    plain versions on the inputs the engine gave them, and timed; kernel 8
    (``coder_scan``, the slot-record coder) run on its own path on the
    variant's coder records, through ``coder.finish_steps`` and
-   ``coder.expand_slots``, must give the variant's streams.
+   ``coder.expand_slots``, must give the variant's streams;
+8. the probes (``llcomp_tpu_torch.probes``, the 21 TPU probes of
+   ``tools/``): each driven through ``probes.run_probe`` at the TPU probes'
+   shape (128 lanes, a 15,872-row model plane), the stepped ones also at
+   1,024 lanes and pH at T 32, 256 and 512, every wrapper launched; the
+   time a launch and a symbol step, and the one-shot probes' device time;
+   each kernel held exactly against its plain version (outputs and model
+   planes of random words, on inputs where the plain output differs across
+   lanes or a plane changes); the one PyTorch call that computes the same
+   function, where there is one, timed and equal.
 
-The last two lines are the per-kernel JSON record and
+Phases 5-8 compute each kernel's bound (``bound``): the least time the
+card could take for the bytes and integer operations of its work on this
+run's inputs.  The last two lines are the per-kernel JSON record and
 ``{"ok": true, "device": {...}}``.  Test images use integer arithmetic only
 (a counter-based hash, no libm, no NumPy random streams), and their own
 sha256 is pinned so a generator drift is told apart from a codec fault.
@@ -66,8 +77,60 @@ from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
+PROBE_SOURCES = ("probe_mosaic", "probe_mosaic2", "probe_mosaic3",
+                 "probe_reduce")
 KERNEL_SOURCES = ("encode_fused", "decode_kernel", "walk_symbols",
-                  "coder_scan", "build_stream", "walk_probs")
+                  "coder_scan", "build_stream", "walk_probs", *PROBE_SOURCES)
+
+# The least time the card could take for a kernel's work (bound_ms): the
+# larger of its bytes (each input read once, each output written once)
+# over the H100 SXM's 3.35 TB/s, and its 32-bit integer operations over
+# the card's int32 rate: 64 results a clock an SM (the CUDA C++
+# Programming Guide's arithmetic throughput table, compute capability 9.0:
+# add, multiply, shift, logic, compare) x 132 SMs x the SXM part's 1,980
+# MHz boost clock = 16.7 T/s.
+HBM_BYTES_PER_S = 3.35e12
+INT_OPS_PER_S = 64 * 132 * 1.98e9
+# Integer operations a step, estimated from the kernels' loop bodies as
+# floors (no count of the compiled instructions backs them): binarising
+# a decision (its context and bit), the model state's update (byte out,
+# state table, byte in), the coder's put (range split, select, compare), a
+# record's packing; a symbol's unpacking and model-row access in encode,
+# its neighbours, hash and prediction in decode.
+OPS_DECISION, OPS_STATE, OPS_CODER, OPS_RECORD = 6, 6, 8, 4
+OPS_SYMBOL_ENC, OPS_SYMBOL_DEC = 10, 40
+# the probes: a stand-in decision, a staging step's row (multiply, add,
+# modulo), a word staged
+OPS_PROBE_DECISION, OPS_PROBE_ROW, OPS_PROBE_WORD = 12, 8, 2
+
+# Each probe's row in the kernels line: its probe keys (the first one is
+# timed and bounded at the TPU probe's shape for the row) and the Pallas
+# kernel it replaces.
+PROBE_ROWS = {
+    "p0": (("p0",), "tools/probe_mosaic.py:74"),
+    "p1": (("p1",), "tools/probe_mosaic.py:99"),
+    "p2": (("p2",), "tools/probe_mosaic.py:124"),
+    "p3": (("p3",), "tools/probe_mosaic.py:150"),
+    "p4": (("p4",), "tools/probe_mosaic.py:176"),
+    "p5": (("p5",), "tools/probe_mosaic.py:193"),
+    "p6": (("p6",), "tools/probe_mosaic.py:221"),
+    "p7": (("p7",), "tools/probe_mosaic.py:292"),
+    "p8": (("p8",), "tools/probe_mosaic.py:337"),
+    "p9": (("p9",), "tools/probe_mosaic.py:377"),
+    "p10": (("p10",), "tools/probe_mosaic.py:409"),
+    "p11": (("p11",), "tools/probe_mosaic.py:440"),
+    "pA": (("pA",), "tools/probe_mosaic2.py:87"),
+    "pB": (("pB",), "tools/probe_mosaic2.py:120"),
+    "pC": (("pC",), "tools/probe_mosaic2.py:154"),
+    "pD": (("pD8", "pD16"), "tools/probe_mosaic2.py:188"),
+    "pE": (("pE16", "pE32"), "tools/probe_mosaic2.py:210"),
+    "pF": (("pF",), "tools/probe_mosaic2.py:280"),
+    "pG": (("pG",), "tools/probe_mosaic3.py:62"),
+    "pH": (("pHw", "pHn"), "tools/probe_mosaic3.py:127"),
+    "reduce": (("reduce",), "tools/probe_reduce.py:55"),
+}
+PROBE_LANES = (128, 1024)   # the TPU probes' lanes and the bench batch's
+PH_STEPS = (32, 256, 512)
 
 # sha256 of the test images (generator check) and of the expected bytes
 IMAGE_SHA = {
@@ -166,6 +229,31 @@ def _malicious_stream() -> bytes:
 def _max_err(a, b) -> int:
     """Largest absolute difference of two integer tensors."""
     return int((a.long() - b.long()).abs().max()) if a.numel() else 0
+
+
+def bound(n_bytes: float, n_ops: float) -> dict:
+    """bound_ms and bound_by of a kernel that must move ``n_bytes`` and do
+    ``n_ops`` integer operations on this card."""
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = n_ops / INT_OPS_PER_S * 1e3
+    return {"bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bytes": int(n_bytes), "ops": int(n_ops)}
+
+
+def _decisions(torch, diff) -> int:
+    """Decisions the residuals ``diff`` need: 1 for a zero, else 2e + 3
+    (e = floor(log2 |diff|)), summed over every lane and symbol."""
+    from llcomp_tpu_torch.core import transform
+
+    ad = diff.abs()
+    e = transform.ilog2(ad.clamp(min=1), max_bits=12)
+    return int(torch.where(ad != 0, 2 * e + 3, 1).sum())
+
+
+def _valid(q, shifts) -> int:
+    """Valid coder records in ``q``: bit 9 of each record at ``shifts``."""
+    return sum(int(((q >> (s + 9)) & 1).sum()) for s in shifts)
 
 
 def _stage_run(torch, run, lanes_t, init, keep: bool = False):
@@ -376,18 +464,20 @@ def phase_main_path(torch, log) -> dict:
     return counts
 
 
-def _time_cuda(torch, fn, reps: int = 3) -> float:
-    """Median milliseconds of ``fn()`` between CUDA events, after a warm-up."""
+def _time_cuda(torch, fn, reps: int = 3, calls: int = 1) -> float:
+    """Median milliseconds of ``fn()`` between CUDA events, after a warm-up
+    (over ``calls`` calls back to back, divided by ``calls``)."""
     fn()
     times = []
     for _ in range(reps):
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()
-        fn()
+        for _ in range(calls):
+            fn()
         b.record()
         torch.cuda.synchronize()
-        times.append(a.elapsed_time(b))
+        times.append(a.elapsed_time(b) / calls)
     return statistics.median(times)
 
 
@@ -403,6 +493,7 @@ def _time_plain(torch, fn) -> tuple[float, object]:
 def phase_bench(torch, log, card: str) -> dict:
     """Phase 5: the bench-size batch, golden + round trip + timings."""
     from llcomp_tpu_torch import decode, encode, seed
+    from llcomp_tpu_torch.core.config import REV2
     from llcomp_tpu_torch.kernels import decode_kernel as dk
     from llcomp_tpu_torch.kernels import encode_fused as ef
 
@@ -481,10 +572,24 @@ def phase_bench(torch, log, card: str) -> dict:
     log(f"phase 5 subset {subset}: encode kernel {enc_sub_ms:.3f} ms vs "
         f"plain {enc_plain_ms:.1f} ms; decode kernel {dec_sub_ms:.3f} ms vs "
         f"plain {dec_plain_ms:.1f} ms")
+
+    # bounds at the full shape: symbols in, the streams' bytes out (encode)
+    # and the reverse (decode, int32 planes), with this batch's decisions
+    _, diff = encode._hash_diff(torch.from_numpy(lanes).to(dev), REV2)
+    n_dec, n_sym = _decisions(torch, diff), xs.numel()
+    per_dec = OPS_DECISION + OPS_STATE + OPS_CODER
+    bounds = {
+        "encode_fused": bound(4 * n_sym + n_bytes + 4 * S,
+                              n_dec * per_dec + n_sym * OPS_SYMBOL_ENC),
+        "decode_kernel": bound(n_bytes + 4 * S + 4 * n_sym + 4 * S,
+                               n_dec * per_dec + n_sym * OPS_SYMBOL_DEC)}
+    log(f"phase 5 bounds, {n_sym} symbols, {n_dec} decisions: " + ", ".join(
+        f"{k} {b['bound_ms']:.4f} ms by {b['bound_by']} ({b['bytes']} B, "
+        f"{b['ops']} ops)" for k, b in bounds.items()))
     return {"encode_ms": enc_ms, "decode_ms": dec_ms,
             "encode_sub_ms": enc_sub_ms, "decode_sub_ms": dec_sub_ms,
             "encode_plain_ms": enc_plain_ms, "decode_plain_ms": dec_plain_ms,
-            "subset": subset}
+            "subset": subset, "bounds": bounds}
 
 
 def _device_busy(torch, fn) -> tuple[float, float | None, str]:
@@ -667,7 +772,25 @@ def phase_sort(torch, log, card: str) -> dict:
         f"kernel {walk_ms:.3f} ms vs plain {e['walk_plain_ms']:.1f} ms, "
         f"coder kernel {coder_ms:.3f} ms vs plain {e['coder_plain_ms']:.1f} "
         f"ms; lo/hi, kp and fin exact")
-    return {"counts": counts, "walk_ms": walk_ms, "coder_ms": coder_ms, **e}
+
+    # bounds on the engine's own inputs: the decisions are its valid records
+    lo, hi = made["walk"]
+    kp, fin = made["coder"]
+    n_dec = _valid(qlo, (0, 10)) + _valid(qhi, (0, 10))
+    bounds = {
+        "walk_symbols": bound(
+            4 * (xs.numel() + lo.numel() + hi.numel()),
+            n_dec * (OPS_DECISION + OPS_STATE + OPS_RECORD)
+            + xs.numel() * OPS_SYMBOL_ENC),
+        "coder_scan_off_q": bound(
+            4 * (qlo.numel() + qhi.numel() + kp.numel() + fin.numel()),
+            n_dec * (OPS_CODER + OPS_RECORD) + 4 * qlo.numel())}
+    log(f"phase 6 bounds, {xs.numel()} symbols, {n_dec} decisions: "
+        + ", ".join(f"{k} {b['bound_ms']:.4f} ms by {b['bound_by']} "
+                    f"({b['bytes']} B, {b['ops']} ops)"
+                    for k, b in bounds.items()))
+    return {"counts": counts, "walk_ms": walk_ms, "coder_ms": coder_ms,
+            "bounds": bounds, **e}
 
 
 def phase_decision(torch, log, card: str) -> dict:
@@ -834,7 +957,233 @@ def phase_decision(torch, log, card: str) -> dict:
         f"{res['coder_scan']['launches']}")
     for name in ("build_stream", "walk_probs", "coder_scan_off"):
         res[name]["launches"] = counts[name]
+
+    # bounds on the engine's own inputs: the decisions are its valid records
+    n_dec = _valid(cx, (0,))
+    res["build_stream"]["bound"] = bound(
+        4 * (h.numel() + diff.numel() + stream.numel()),
+        stream.numel() * (OPS_DECISION + OPS_RECORD))
+    res["walk_probs"]["bound"] = bound(4 * (xs.numel() + probs.numel()),
+                                       xs.numel() * OPS_STATE)
+    res["coder_scan_off"]["bound"] = bound(
+        4 * (cx.numel() + kp.numel() + fin.numel()),
+        n_dec * (OPS_CODER + OPS_RECORD) + cx.numel())
+    res["coder_scan"]["bound"] = bound(
+        4 * (cx.numel() + meta.numel() + runs_.numel() + fin4.numel()),
+        n_dec * (OPS_CODER + OPS_RECORD) + cx.numel())
+    log(f"phase 7 bounds, {n_dec} decisions in {cx.numel()} records: "
+        + ", ".join(f"{k} {b['bound_ms']:.4f} ms by {b['bound_by']} "
+                    f"({b['bytes']} B, {b['ops']} ops)"
+                    for k, b in ((k, res[k]["bound"]) for k in cases)))
     return res
+
+
+def _library_call(torch, key: str, a: dict):
+    """The one PyTorch call that computes probe ``key``'s function on its
+    arguments ``a`` (index tensors built here, outside any timed window),
+    or None where there is none."""
+    if "idx" not in a:
+        return None
+    idx, lanes = a["idx"][:1], a["idx"].shape[1]
+    if key in ("p1", "p2", "pB", "p5", "pE16", "pE32"):
+        m = {"p5": 32, "pE16": 16, "pE32": 32}.get(key)
+        ix = (idx % m if m else idx).long()
+        return lambda: torch.gather(a["src"], 0, ix)
+    if key in ("p4", "pD8", "pD16"):
+        win = a.get("win", 8)
+        ix = (idx.clamp(max=a["src"].shape[0] - win)
+              + torch.arange(win, device=idx.device)[:, None]).long()
+        return lambda: torch.gather(a["src"], 0, ix)
+    if key in ("p0", "p3", "pC"):
+        rows = 64 if key == "p0" else 8
+        r = idx % rows
+        ix, val = r.long(), r if key == "p0" else a["val"]
+        out = torch.zeros((rows, lanes), dtype=torch.int32, device=idx.device)
+        return lambda: out.scatter_(0, ix, val)
+    if key == "p6":
+        return lambda: torch.add(idx, 1)
+    if key == "pA":
+        one = torch.ones((), dtype=torch.int32, device=idx.device)
+        return lambda: torch.add(one, idx, alpha=2)
+    return None
+
+
+def _device_ms(torch, fn, n: int) -> float | None:
+    """Device milliseconds a call of ``fn``: the kernels' own time under
+    ``torch.profiler`` over ``n`` calls, after a warm-up; None when the
+    profiler recorded no device activity."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.self_device_time_total for e in prof.key_averages()
+             if e.device_type == DeviceType.CUDA
+             and e.key != "Activity Buffer Request")
+    return us / n / 1e3 if us else None
+
+
+def _probe_bound(key: str, a: dict) -> dict:
+    """bound() of probe ``key`` on its arguments ``a``, from their shapes:
+    the words each argument gives the probe read once, its output written
+    once, and a stepped probe's T x lanes x the model words a step stages
+    (a lane rarely meets a row again in 15,872)."""
+    idx = a["idx"] if "idx" in a else a["x"]
+    L, T = idx.shape[1], a.get("T", 0)
+    word = 4
+    one_shot = {"p1": 1, "p2": 1, "pB": 1, "p5": 1, "pE16": 1, "pE32": 1,
+                "p4": 8, "pD8": 8, "pD16": 16}
+    if key in one_shot:                   # idx row in, words gathered, out
+        return bound(word * L * (1 + 2 * one_shot[key]), L)
+    if key in ("p0", "p3", "pC"):         # idx (and val) in, rows out
+        n_out = 64 if key == "p0" else 8
+        return bound(word * L * (1 + (key != "p0") + n_out), L * n_out)
+    if key in ("p6", "pA"):
+        return bound(2 * word * L, L * (1 + (key == "pA")))
+    if key in ("p9", "p10"):
+        return bound(2 * word * L, T * L * 24 * OPS_PROBE_DECISION)
+    if key == "pG":
+        return bound(2 * word * idx.numel(), 2 * idx.numel())
+    if key == "reduce":
+        return bound(word * (idx.numel() + 16 * L), 6 * idx.numel())
+    step = OPS_PROBE_ROW + 2 * OPS_PROBE_WORD
+    if key == "p11":                      # nstage lanes read, no stores
+        k = min(8, L)
+        return bound(word * (2 * L + T * k),
+                     T * k * (OPS_PROBE_ROW + OPS_PROBE_WORD))
+    if key == "p8":                       # one word read and written
+        return bound(word * (2 * L + 2 * T * L), T * L * step)
+    if key in ("p7", "pF"):               # two words read and written
+        return bound(word * (2 * L + 4 * T * L),
+                     T * L * (step + 24 * OPS_PROBE_DECISION))
+    # pH: the idx rows its steps read, two words read and written a step,
+    # with the window 8 data words read a step, out [8, lanes]
+    win = 8 if a["window"] else 0
+    return bound(word * (min(T, idx.shape[0]) * L + (4 + win) * T * L + 8 * L),
+                 T * L * (step + win * OPS_PROBE_WORD))
+
+
+def phase_probes(torch, log, card: str) -> dict:
+    """Phase 8: the 21 probes of ``llcomp_tpu_torch.probes`` (the TPU
+    probes of ``tools/``) on the card.  Their path: every probe through
+    ``probes.run_probe``, as its module's command line runs it, at the TPU
+    probes' shape (128 lanes, a 15,872-row plane), the stepped probes also
+    at 1,024 lanes and pH also at T 32 and 512; each wrapper must launch.
+    Then each probe's kernel against its plain version, exactly (outputs
+    and planes of random words; at 1,024 lanes too for the stepped ones),
+    on inputs where the plain output differs across lanes or a plane
+    changes; the kernels' device time; the one PyTorch call that computes
+    the same function where there is one; and bounds."""
+    from llcomp_tpu_torch import probes
+    from llcomp_tpu_torch.probes import mosaic, mosaic2, mosaic3, reduce
+
+    dev = torch.device("cuda")
+    mods = (mosaic, mosaic2, mosaic3, reduce)
+    allp = {k: p for m in mods for k, p in m.PROBES.items()}
+    source = {k: m.SRC for m in mods for k in m.PROBES}
+    for p in allp.values():
+        p.fn.launches = 0
+    runs = {}
+    for key, p in allp.items():
+        shapes = [(128, p.T)]
+        if p.T:
+            steps = PH_STEPS if key in ("pHw", "pHn") else (p.T,)
+            shapes = [(lanes, T) for lanes in PROBE_LANES for T in steps]
+        for lanes, T in shapes:
+            runs[key, lanes, T] = probes.run_probe(p, dev, lanes=lanes, T=T,
+                                                   check=False)
+    counts = {row: allp[keys[0]].fn.launches
+              for row, (keys, _) in PROBE_ROWS.items()}
+    check(all(counts.values()), f"phase 8: a probe never launched: {counts}")
+    log(f"phase 8 probes: {len(allp)} probes and variants through "
+        f"probes.run_probe, launches on this path {counts}")
+    log(f"phase 8 one-shot probes, 128 lanes, ms a launch (CUDA events, "
+        f"{probes.LAUNCHES} launches back to back through the wrapper, "
+        f"host-bound, median of 3 fresh inputs) on {card}: " + ", ".join(
+            f"{k} {runs[k, 128, 0]['ms']:.5f}" for k, p in allp.items()
+            if not p.T))
+    log(f"phase 8 stepped probes, ns a symbol step (CUDA events, one launch, "
+        f"median of 3 fresh inputs and zeroed planes) at "
+        f"{' | '.join(map(str, PROBE_LANES))} lanes on {card}: " + "; ".join(
+            f"{k} T {T}: " + " | ".join(
+                f"{runs[k, n, T]['ns_step']:.1f}" for n in PROBE_LANES)
+            for k, p in allp.items() if p.T
+            for T in (PH_STEPS if k in ("pHw", "pHn") else (p.T,))))
+
+    errs, plain_ms = {}, {}
+    for key, p in allp.items():
+        for lanes in PROBE_LANES if p.T else (128,):
+            r = probes.run_probe(p, dev, lanes=lanes, reps=0)
+            check(r["telling"], f"probe {key}, {lanes} lanes: the plain "
+                  "output is the same in every lane and no plane changed")
+            check(r["err"] == 0, f"probe {key}, {lanes} lanes: kernel != "
+                  f"plain ({r['err']})")
+            errs[key] = max(errs.get(key, 0), r["err"])
+            plain_ms.setdefault(key, r["plain_ms"])
+    log(f"phase 8 probes vs plain: all {len(allp)} exact at 128 lanes (the "
+        f"stepped ones also at 1,024), outputs and planes of random words, "
+        f"each output differing across lanes or a plane changed; plain ms "
+        f"at 128 lanes: " + ", ".join(f"{k} {v:.1f}"
+                                      for k, v in plain_ms.items()))
+
+    library, library_ev, device, bounds = {}, {}, {}, {}
+    for key, p in allp.items():
+        a = p.make(0, 128, probes.ROWS, dev)
+        if p.T:
+            a["T"] = p.T
+        call = _library_call(torch, key, a)
+        if not p.T:      # the kernels' own time, without the host's
+            device[key] = _device_ms(torch, lambda: p.fn(**a),
+                                     probes.LAUNCHES)
+        if call is not None:
+            check(torch.equal(call(), p.fn(**p.make(0, 128, probes.ROWS,
+                                                      dev))),
+                  f"probe {key}: the library call != the kernel")
+            library_ev[key] = _time_cuda(torch, call, calls=probes.LAUNCHES)
+            library[key] = _device_ms(torch, call, probes.LAUNCHES)
+        bounds[key] = _probe_bound(key, a)
+    log("phase 8 library calls, ms a call (CUDA events, "
+        f"{probes.LAUNCHES} calls back to back, median of 3; host-bound), "
+        "equal to the kernels: " + ", ".join(
+            f"{k} {v:.5f}" for k, v in library_ev.items()))
+    log(f"phase 8 device ms a call (torch.profiler, {probes.LAUNCHES} calls) "
+        "of the one-shot probes' kernels | the library calls: " + ", ".join(
+            f"{k} " + " | ".join(f"{v:.5f}" if v is not None
+                                 else "not measured" for v in pair)
+            for k, pair in ((k, (device[k], library.get(k)))
+                            for k in device)))
+    log("phase 8 bounds at 128 lanes: " + ", ".join(
+        f"{k} {b['bound_ms'] * 1e3:.5g} us by {b['bound_by']} ({b['bytes']} B, "
+        f"{b['ops']} ops)" for k, b in bounds.items()))
+
+    # ms: a stepped probe's one launch (CUDA events); a one-shot probe's
+    # and its library call's device time, where the profiler saw it, else
+    # their host-bound event time (ms_from says which)
+    rows = []
+    for row, (keys, replaces) in PROBE_ROWS.items():
+        k = keys[0]
+        ev_ms = runs[k, 128, allp[k].T]["ms"]
+        on_device = not allp[k].T and device[k] is not None and (
+            k not in library_ev or library[k] is not None)
+        rows.append({
+            "name": row, "route": "cuda",
+            "source": f"llcomp_tpu_torch/csrc/{source[k]}.cu",
+            "replaces": replaces, "launches": counts[row],
+            "max_abs_err": max(errs[key] for key in keys),
+            "ms": device[k] if on_device else ev_ms, "plain_ms": plain_ms[k],
+            "bound_ms": bounds[k]["bound_ms"],
+            "bound_by": bounds[k]["bound_by"],
+            "library_ms": (library if on_device else library_ev).get(k),
+            "ms_from": ("torch.profiler, device" if on_device else
+                        "CUDA events" + ("" if allp[k].T else
+                                         ", through the wrapper")),
+            **({} if allp[k].T else {"wrapper_ms": ev_ms})})
+    return {"rows": rows, "runs": runs}
 
 
 def main() -> int:
@@ -866,7 +1215,7 @@ def main() -> int:
         t0 = time.perf_counter()
         with ThreadPoolExecutor(len(KERNEL_SOURCES)) as pool:
             list(pool.map(build.build, KERNEL_SOURCES))
-        log(f"phase 2 build: {len(KERNEL_SOURCES)} kernels from "
+        log(f"phase 2 build: {len(KERNEL_SOURCES)} kernel sources from "
             f"llcomp_tpu_torch/csrc, one nvcc each in parallel, in "
             f"{time.perf_counter() - t0:.2f} s")
 
@@ -875,11 +1224,16 @@ def main() -> int:
         bench = phase_bench(torch, log, card)
         sort = phase_sort(torch, log, card)
         decision = phase_decision(torch, log, card)
+        probe = phase_probes(torch, log, card)
         if "jax" in sys.modules or "llcomp_tpu" in sys.modules:
             raise Failed("the port imported JAX or llcomp_tpu")
     except Failed as e:
         print(f"chip_smoke FAILED: {e}", file=sys.stderr)
         return 1
+
+    def bound_of(b: dict) -> dict:
+        return {"bound_ms": b["bound_ms"], "bound_by": b["bound_by"],
+                "library_ms": None}
 
     note = f"plain_ms and ms_subset on {bench['subset']}"
     kernels = [
@@ -888,12 +1242,14 @@ def main() -> int:
          "replaces": "llcomp_tpu/pallas/encode_fused.py:150",
          "launches": counts["encode_fused"], "max_abs_err": errs["encode"],
          "ms": bench["encode_ms"], "plain_ms": bench["encode_plain_ms"],
+         **bound_of(bench["bounds"]["encode_fused"]),
          "ms_subset": bench["encode_sub_ms"], "note": note},
         {"name": "decode_kernel", "route": "cuda",
          "source": "llcomp_tpu_torch/csrc/decode_kernel.cu",
          "replaces": "llcomp_tpu/pallas/decode_kernel.py:444",
          "launches": counts["decode_kernel"], "max_abs_err": errs["decode"],
          "ms": bench["decode_ms"], "plain_ms": bench["decode_plain_ms"],
+         **bound_of(bench["bounds"]["decode_kernel"]),
          "ms_subset": bench["decode_sub_ms"], "note": note},
     ]
     for name, src, line, err in (("walk_symbols", "walk_symbols", 175, "walk"),
@@ -905,7 +1261,8 @@ def main() -> int:
             "replaces": f"llcomp_tpu/pallas/encode_kernels.py:{line}",
             "launches": sort["counts"][name],
             "max_abs_err": max(errs[err], sort[err]),
-            "ms": sort[f"{err}_ms"], "plain_ms": sort[f"{err}_plain_ms"]})
+            "ms": sort[f"{err}_ms"], "plain_ms": sort[f"{err}_plain_ms"],
+            **bound_of(sort["bounds"][name])})
     for name, src, line in (("build_stream", "build_stream", 74),
                             ("walk_probs", "walk_probs", 356),
                             ("coder_scan_off", "coder_scan", 475),
@@ -916,7 +1273,8 @@ def main() -> int:
             "source": f"llcomp_tpu_torch/csrc/{src}.cu",
             "replaces": f"llcomp_tpu/pallas/encode_kernels.py:{line}",
             "launches": r["launches"], "max_abs_err": r["err"],
-            "ms": r["ms"], "plain_ms": r["plain_ms"]})
+            "ms": r["ms"], "plain_ms": r["plain_ms"], **bound_of(r["bound"])})
+    kernels += probe["rows"]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,0 +1,149 @@
+// Shared pieces of the probe kernels (probe_mosaic.cu, probe_mosaic2.cu,
+// probe_mosaic3.cu, probe_reduce.cu).
+//
+// Every probe array is [rows, lanes] int32, row-major, lanes the minor
+// dimension (the TPU probes' layout), and one thread owns one lane: thread
+// l reads and writes column l only, so lanes that pick the same row never
+// touch the same word.  Integer arithmetic follows the JAX probes: sums and
+// products wrap around in 32 bits, and `%` is a floor modulo (JAX's and
+// torch's), which agrees with C's on the non-negative values the probes
+// make.
+#pragma once
+
+#include <climits>
+#include <cstdint>
+#include <cuda_runtime.h>
+
+namespace probe {
+
+constexpr int kWarp = 32;
+// Threads a block where lanes are independent: one warp, as the library's
+// serial kernels launch (1,024 lanes spread over 32 SMs).
+constexpr int kLaneBlock = 32;
+
+__device__ __forceinline__ int32_t wadd(int32_t a, int32_t b) {
+  return static_cast<int32_t>(static_cast<uint32_t>(a) +
+                              static_cast<uint32_t>(b));
+}
+
+__device__ __forceinline__ int32_t wmul(int32_t a, int32_t b) {
+  return static_cast<int32_t>(static_cast<uint32_t>(a) *
+                              static_cast<uint32_t>(b));
+}
+
+__device__ __forceinline__ int32_t fmod_floor(int32_t a, int32_t m) {
+  const int32_t r = a % m;
+  return r < 0 ? r + m : r;
+}
+
+// The staging probes' per-lane model row at step s: (x*(s+1) + s*40503)
+// mod m (probe_mosaic.py:242, probe_mosaic2.py:230).
+__device__ __forceinline__ int32_t step_row(int32_t x, int s, int32_t m) {
+  return fmod_floor(wadd(wmul(x, s + 1), wmul(s, 40503)), m);
+}
+
+// One stand-in decision (probe_mosaic.py:258-266): ctx = (acc + d) & 7
+// picks byte ctx of the lane's 8-byte model row, acc = (acc*5 + byte + 1)
+// & 0x7FFF, and the byte steps to (byte + 1) & 0xFF.  The row stays in two
+// 32-bit registers (bytes 0-3 in lo, 4-7 in hi), read and written with
+// shifts: an int[8] indexed by ctx would live in local memory.
+__device__ __forceinline__ void decide(uint32_t& lo, uint32_t& hi,
+                                       int32_t& acc, int d) {
+  const int ctx = (acc + d) & 7;
+  const int sh = (ctx & 3) * 8;
+  const bool up = ctx >= 4;
+  uint32_t w = up ? hi : lo;
+  const uint32_t b = (w >> sh) & 0xFFu;
+  acc = (acc * 5 + static_cast<int32_t>(b) + 1) & 0x7FFF;
+  w = (w & ~(0xFFu << sh)) | (((b + 1) & 0xFFu) << sh);
+  if (up) {
+    hi = w;
+  } else {
+    lo = w;
+  }
+}
+
+// 24 decisions, the loop kept (Unroll false) or unrolled (true).
+template <bool Unroll>
+__device__ __forceinline__ void decide24(uint32_t& lo, uint32_t& hi,
+                                         int32_t& acc) {
+  if constexpr (Unroll) {
+#pragma unroll
+    for (int d = 0; d < 24; ++d) decide(lo, hi, acc, d);
+  } else {
+#pragma unroll 1
+    for (int d = 0; d < 24; ++d) decide(lo, hi, acc, d);
+  }
+}
+
+// Per-lane window gather: out[i, l] = src[r + i, l] for i < win, where
+// r = idx[0, l] mod m (m > 0) or idx[0, l] (m == 0), clamped into
+// [0, rows - win].  Probes p1, p2, p4, p5 and pB, pD, pE.
+__global__ void __launch_bounds__(kLaneBlock)
+window_gather(const int32_t* __restrict__ idx, const int32_t* __restrict__ src,
+              int32_t* __restrict__ out, int lanes, int rows, int win, int m) {
+  const int l = blockIdx.x * blockDim.x + threadIdx.x;
+  if (l >= lanes) return;
+  int32_t r = idx[l];
+  if (m > 0) r = fmod_floor(r, m);
+  r = min(max(r, 0), rows - win);
+  const size_t n = static_cast<size_t>(lanes);
+  for (int i = 0; i < win; ++i) out[i * n + l] = src[(r + i) * n + l];
+}
+
+// Per-lane row store (the TPU's row read-modify-write): model[idx[0, l]
+// mod 8, l] = val[0, l]; out = model[0:8].  Probes p3 and pC.
+__global__ void __launch_bounds__(kLaneBlock)
+row_store(const int32_t* __restrict__ idx, const int32_t* __restrict__ val,
+          int32_t* __restrict__ model, int32_t* __restrict__ out, int lanes) {
+  const int l = blockIdx.x * blockDim.x + threadIdx.x;
+  if (l >= lanes) return;
+  const size_t n = static_cast<size_t>(lanes);
+  model[fmod_floor(idx[l], 8) * n + l] = val[l];
+  for (int i = 0; i < 8; ++i) out[i * n + l] = model[i * n + l];
+}
+
+// Elementwise out[0, l] = idx[0, l] * a + b.  Probes p6 (1, 1) and pA (2, 1).
+__global__ void __launch_bounds__(kLaneBlock)
+affine(const int32_t* __restrict__ idx, int32_t* __restrict__ out, int lanes,
+       int32_t a, int32_t b) {
+  const int l = blockIdx.x * blockDim.x + threadIdx.x;
+  if (l < lanes) out[l] = wadd(wmul(idx[l], a), b);
+}
+
+// Block-wide reductions for a block of whole warps, every thread taking
+// part: the warp's redux (sm_80+), then one word a warp in shared memory
+// (`red`, 32 words), read back by every thread.  Both __syncthreads keep
+// `red` safe to reuse by the next call.
+__device__ __forceinline__ int32_t block_max(int32_t v, int32_t* red) {
+  v = __reduce_max_sync(0xFFFFFFFFu, v);
+  if ((threadIdx.x & (kWarp - 1)) == 0) red[threadIdx.x / kWarp] = v;
+  __syncthreads();
+  int32_t r = red[0];
+  for (int w = 1; w < blockDim.x / kWarp; ++w) r = max(r, red[w]);
+  __syncthreads();
+  return r;
+}
+
+__device__ __forceinline__ int32_t block_sum(int32_t v, int32_t* red) {
+  v = static_cast<int32_t>(
+      __reduce_add_sync(0xFFFFFFFFu, static_cast<uint32_t>(v)));
+  if ((threadIdx.x & (kWarp - 1)) == 0) red[threadIdx.x / kWarp] = v;
+  __syncthreads();
+  int32_t r = red[0];
+  for (int w = 1; w < blockDim.x / kWarp; ++w) r = wadd(r, red[w]);
+  __syncthreads();
+  return r;
+}
+
+inline int lane_blocks(int lanes) {
+  return (lanes + kLaneBlock - 1) / kLaneBlock;
+}
+
+inline int whole_warps(int n) {
+  return (n + kWarp - 1) / kWarp * kWarp;
+}
+
+inline int done(void) { return static_cast<int>(cudaGetLastError()); }
+
+}  // namespace probe

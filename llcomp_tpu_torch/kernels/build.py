@@ -2,7 +2,8 @@
 
 Each kernel is one ``csrc/*.cu`` file with a plain C entry point, compiled on
 first use for Hopper (``sm_90a``) into ``llcomp_tpu_torch/_build/`` (listed in
-``.gitignore``), keyed by a hash of its source, and loaded with ctypes.  No
+``.gitignore``), keyed by a hash of its source and of the shared headers
+(``csrc/*.cuh``), and loaded with ctypes.  No
 PyTorch headers are compiled, so a build takes seconds.  Sources are read
 only from the package's ``csrc/`` directory.
 """
@@ -43,10 +44,11 @@ def nvcc() -> str:
 
 
 def build(name: str) -> pathlib.Path:
-    """Compile ``csrc/<name>.cu`` unless a build of this exact source and
-    these flags exists."""
+    """Compile ``csrc/<name>.cu`` unless a build of this exact source,
+    these headers and these flags exists."""
     src = CSRC / f"{name}.cu"
-    key = src.read_bytes() + " ".join(NVCC_FLAGS).encode()
+    headers = b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
+    key = src.read_bytes() + headers + " ".join(NVCC_FLAGS).encode()
     out = BUILD_DIR / f"lib{name}_{hashlib.sha256(key).hexdigest()[:16]}.so"
     if out.exists():
         return out

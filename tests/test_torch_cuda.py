@@ -11,13 +11,16 @@ import numpy as np
 import pytest
 import torch
 
-from llcomp_tpu_torch import api, coder, decode, encode, seed
+from llcomp_tpu_torch import api, coder, decode, encode, probes, seed
 from llcomp_tpu_torch.core.config import REV2
 from llcomp_tpu_torch.kernels import decode_kernel as dk
 from llcomp_tpu_torch.kernels import encode_fused as ef
 from llcomp_tpu_torch.kernels import encode_kernels as ek
+from llcomp_tpu_torch.probes import mosaic, mosaic2, mosaic3, reduce
 
 pytestmark = pytest.mark.cuda
+PROBES = {k: p for m in (mosaic, mosaic2, mosaic3, reduce)
+          for k, p in m.PROBES.items()}
 
 
 @pytest.fixture
@@ -227,3 +230,31 @@ def test_api_cuda_bytes_equal_cpu(dev):
     blob = api.compress(img, slices="auto", device="cuda")
     assert blob == api.compress(img, slices="auto", device="cpu")
     np.testing.assert_array_equal(api.decompress(blob, device="cuda"), img)
+
+
+@pytest.mark.parametrize("key", list(PROBES))
+def test_probe_kernel_equals_plain(dev, key):
+    """Each probe at the TPU probes' shape (128 lanes, a 15,872-row plane
+    of random words, its own T): outputs and planes exact, on a case that
+    tells (the output differs across lanes or a plane changes), one launch
+    counted."""
+    p = PROBES[key]
+    before = p.fn.launches
+    r = probes.run_probe(p, dev, reps=0)
+    assert r["err"] == 0 and p.fn.launches == before + 1 and r["telling"]
+
+
+@pytest.mark.parametrize("key", ["p7", "p8", "p11", "pF", "pHw", "pHn"])
+def test_staging_probes_equal_plain_on_random_planes(dev, key):
+    """Planes of random words over the whole int32 range (wrapping sums),
+    100 lanes (a ragged warp), a 300-row plane so that rows repeat."""
+    p = PROBES[key]
+    a = p.make(3, 100, 300, dev)
+    a["T"] = 64
+    rng = np.random.default_rng(len(key))
+    a["model"] = torch.from_numpy(rng.integers(
+        -2**31, 2**31, a["model"].shape, dtype=np.int32)).to(dev)
+    ref = {k: v.clone() if isinstance(v, torch.Tensor) else v
+           for k, v in a.items()}
+    assert torch.equal(p.fn(**a), p.plain(**ref))
+    assert torch.equal(a["model"], ref["model"])

@@ -1,0 +1,279 @@
+"""The GPU probes (``llcomp_tpu_torch.probes``) against the TPU probes in
+``tools/``, on the CPU: the plain versions against the Pallas kernels in
+interpret mode, on the same numpy inputs, exactly (int32).
+
+The TPU probes zero only part of their model planes; interpret mode is
+given ``uninitialized_memory="zero"`` (the port's planes start at zero) or
+``"nan"`` (int32 max), and the port's plane is filled to match.  The plane
+is cut to ``ROWS`` rows so that a lane meets a row again within a few
+steps and the outputs differ across lanes.
+"""
+from __future__ import annotations
+
+import functools
+import importlib.util
+import pathlib
+import types
+import zlib
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from jax.experimental import pallas as pl
+from jax.experimental.pallas import tpu as pltpu
+
+from llcomp_tpu_torch import probes
+from llcomp_tpu_torch.probes import mosaic, mosaic2, mosaic3, reduce
+
+TOOLS = pathlib.Path(__file__).resolve().parents[1] / "tools"
+LANES = 128
+ROWS = 41
+T = 6
+INT32_MAX = 2**31 - 1
+MODULES = (mosaic, mosaic2, mosaic3, reduce)
+
+
+@functools.lru_cache(maxsize=None)
+def _tpu_probes(name: str, fill: str):
+    """``tools/<name>.py`` loaded afresh; its ``pallas_call`` runs in
+    interpret mode with uninitialised memory ``fill`` (the reduce probe
+    chooses interpret mode itself)."""
+    spec = importlib.util.spec_from_file_location(f"_tpu_{name}_{fill}",
+                                                  TOOLS / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    if name != "probe_reduce":
+        patched = types.SimpleNamespace(
+            **{k: getattr(pl, k) for k in dir(pl) if not k.startswith("_")})
+        patched.pallas_call = functools.partial(
+            pl.pallas_call,
+            interpret=pltpu.InterpretParams(uninitialized_memory=fill))
+        mod.pl = patched
+    return mod
+
+
+def _ints(rng, high, shape):
+    return rng.integers(0, high, shape, dtype=np.int32)
+
+
+def _planes(fill, planes=0):
+    """The port's plane as the TPU probe left it: zeros, or int32 max
+    outside the rows 0:8 that the probe zeroes."""
+    shape = (planes, ROWS, LANES) if planes else (ROWS, LANES)
+    if fill == "zero":
+        return {"model": torch.zeros(shape, dtype=torch.int32)}
+    m = torch.full(shape, INT32_MAX, dtype=torch.int32)
+    m[..., :8, :] = 0
+    return {"model": m}
+
+
+def _idx_src(rng, lo_rows=1, high=ROWS):
+    return [_ints(rng, high, (lo_rows, LANES)),
+            _ints(rng, 1 << 20, (ROWS, LANES))]
+
+
+# case: (tools module, uninitialised memory, the TPU probe's fn from the
+# loaded module, the port's function, inputs from a generator, the port's
+# keyword arguments)
+CASES = {
+    "p0": ("probe_mosaic", "zero", lambda m: m.p0_scalar_store()[0],
+           mosaic.p0_scalar_store, lambda r: [_ints(r, 1000, (8, LANES))],
+           lambda: {}),
+    "p1": ("probe_mosaic", "zero", lambda m: m.p1_scalar_load()[0],
+           mosaic.p1_scalar_load, lambda r: _idx_src(r, 8), lambda: {}),
+    "p2": ("probe_mosaic", "zero", lambda m: m.p2_row_load_blend()[0],
+           mosaic.p2_row_load_blend, lambda r: _idx_src(r, 8), lambda: {}),
+    "p3": ("probe_mosaic", "zero", lambda m: m.p3_row_rmw()[0],
+           mosaic.p3_row_rmw,
+           lambda r: [_ints(r, 1000, (8, LANES)),
+                      _ints(r, 1 << 20, (1, LANES))],
+           lambda: _planes("zero")),
+    "p4": ("probe_mosaic", "zero", lambda m: m.p4_window_load()[0],
+           mosaic.p4_window_load, lambda r: _idx_src(r, 8), lambda: {}),
+    "p5": ("probe_mosaic", "zero", lambda m: m.p5_sublane_gather32()[0],
+           mosaic.p5_sublane_gather32,
+           lambda r: _idx_src(r, 8, 1000), lambda: {}),
+    "p6": ("probe_mosaic", "zero", lambda m: m.p6_smem_staging()[0],
+           mosaic.p6_smem_staging, lambda r: [_ints(r, 1000, (8, LANES))],
+           lambda: {}),
+    "p7": ("probe_mosaic", "zero",
+           lambda m: m.p7_symbol_step_cost(T=T)[0],
+           functools.partial(mosaic.p7_symbol_step_cost, T=T),
+           lambda r: [_ints(r, ROWS - 2, (8, LANES))],
+           lambda: _planes("zero", 2)),
+    "p7 nan": ("probe_mosaic", "nan",
+               lambda m: m.p7_symbol_step_cost(T=T)[0],
+               functools.partial(mosaic.p7_symbol_step_cost, T=T),
+               lambda r: [_ints(r, ROWS - 2, (8, LANES))],
+               lambda: _planes("nan", 2)),
+    "p8": ("probe_mosaic", "zero", lambda m: m.p8_stage_only_cost(T=T)[0],
+           functools.partial(mosaic.p8_stage_only_cost, T=T),
+           lambda r: [_ints(r, ROWS - 2, (8, LANES))],
+           lambda: _planes("zero")),
+    "p8 nan": ("probe_mosaic", "nan",
+               lambda m: m.p8_stage_only_cost(T=T)[0],
+               functools.partial(mosaic.p8_stage_only_cost, T=T),
+               lambda r: [_ints(r, ROWS - 2, (8, LANES))],
+               lambda: _planes("nan")),
+    "p9": ("probe_mosaic", "zero",
+           lambda m: m.p9_decision_only_cost(T=T)[0],
+           functools.partial(mosaic.p9_decision_only_cost, T=T),
+           lambda r: [_ints(r, 1000, (8, LANES))], lambda: {}),
+    "p10": ("probe_mosaic", "zero",
+            lambda m: m.p10_decision_unrolled(T=T)[0],
+            functools.partial(mosaic.p10_decision_unrolled, T=T),
+            lambda r: [_ints(r, 1000, (8, LANES))], lambda: {}),
+    "p11 nan": ("probe_mosaic", "nan", lambda m: m.p11_stage_few(T=T)[0],
+                functools.partial(mosaic.p11_stage_few, T=T),
+                lambda r: [_ints(r, ROWS - 2, (8, LANES))],
+                lambda: _planes("nan")),
+    "pA": ("probe_mosaic2", "zero", lambda m: m.pA_dma_bridge()[0],
+           mosaic2.pA_dma_bridge, lambda r: [_ints(r, 1000, (1, LANES))],
+           lambda: {}),
+    "pB": ("probe_mosaic2", "zero", lambda m: m.pB_dyn_row_load()[0],
+           mosaic2.pB_dyn_row_load, lambda r: _idx_src(r), lambda: {}),
+    "pC": ("probe_mosaic2", "zero", lambda m: m.pC_dyn_row_rmw()[0],
+           mosaic2.pC_dyn_row_rmw,
+           lambda r: [_ints(r, 1000, (1, LANES)),
+                      _ints(r, 1 << 20, (1, LANES))],
+           lambda: _planes("zero")),
+    "pD8": ("probe_mosaic2", "zero", lambda m: m.pD_window_load(8)[0],
+            functools.partial(mosaic2.pD_window_load, win=8),
+            lambda r: _idx_src(r), lambda: {}),
+    "pD16": ("probe_mosaic2", "zero", lambda m: m.pD_window_load(16)[0],
+             functools.partial(mosaic2.pD_window_load, win=16),
+             lambda r: _idx_src(r), lambda: {}),
+    "pE16": ("probe_mosaic2", "zero", lambda m: m.pE_taa(16)[0],
+             functools.partial(mosaic2.pE_taa, rows=16),
+             lambda r: _idx_src(r, 1, 1000), lambda: {}),
+    "pE32": ("probe_mosaic2", "zero", lambda m: m.pE_taa(32)[0],
+             functools.partial(mosaic2.pE_taa, rows=32),
+             lambda r: _idx_src(r, 1, 1000), lambda: {}),
+    "pF": ("probe_mosaic2", "zero", lambda m: m.pF_symbol_step(T=T)[0],
+           functools.partial(mosaic2.pF_symbol_step, T=T),
+           lambda r: [_ints(r, ROWS - 16, (1, LANES))],
+           lambda: _planes("zero")),
+    "pF nan": ("probe_mosaic2", "nan", lambda m: m.pF_symbol_step(T=T)[0],
+               functools.partial(mosaic2.pF_symbol_step, T=T),
+               lambda r: [_ints(r, ROWS - 16, (1, LANES))],
+               lambda: _planes("nan")),
+    "pG low": ("probe_mosaic3", "zero", lambda m: m.pG_scalar_gate()()[0],
+               mosaic3.pG_scalar_gate, lambda r: [_ints(r, 101, (8, LANES))],
+               lambda: {}),
+    "pG high": ("probe_mosaic3", "zero", lambda m: m.pG_scalar_gate()()[0],
+                mosaic3.pG_scalar_gate,
+                lambda r: [_ints(r, 200, (8, LANES))], lambda: {}),
+    "pH window": ("probe_mosaic3", "zero",
+                  lambda m: m.pH_stage(T=T, window=True)()[0],
+                  functools.partial(mosaic3.pH_stage, T=T, window=True),
+                  lambda r: [_ints(r, ROWS - 16, (64, LANES)),
+                             _ints(r, 1 << 20, (1024, LANES))],
+                  lambda: _planes("zero")),
+    "pH no window": ("probe_mosaic3", "zero",
+                     lambda m: m.pH_stage(T=T, window=False)()[0],
+                     functools.partial(mosaic3.pH_stage, T=T, window=False),
+                     lambda r: [_ints(r, ROWS - 16, (64, LANES)),
+                                _ints(r, 1 << 20, (1024, LANES))],
+                     lambda: _planes("zero")),
+    "reduce": ("probe_reduce", "zero", lambda m: m.run, reduce.run,
+               lambda r: [_ints(r, 4, (64, LANES))], lambda: {}),
+}
+
+
+@pytest.mark.parametrize("case", list(CASES))
+def test_plain_equals_tpu_probe(case, monkeypatch):
+    source, fill, tpu_fn, port_fn, make, kw = CASES[case]
+    mod = _tpu_probes(source, fill)
+    monkeypatch.setattr(mod, "ROWS", ROWS, raising=False)
+    args = make(np.random.default_rng(zlib.crc32(case.encode())))
+    want = np.asarray(jax.jit(tpu_fn(mod))(*map(jnp.asarray, args)))
+    wrapper = getattr(port_fn, "func", port_fn)
+    before = wrapper.launches
+    got = port_fn(*map(torch.from_numpy, args), **kw())
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert wrapper.launches == before   # the CPU ran the plain version
+    if case.startswith("pH"):   # one scalar carry, broadcast to every lane
+        assert want.any() == (case == "pH window")
+    else:
+        assert (want != want[:, :1]).any(), "the same output in every lane"
+
+
+@pytest.mark.parametrize("module", MODULES, ids=lambda m: m.__name__)
+def test_main_runs_every_probe_on_the_cpu(module, capsys):
+    assert module.main(["--device", "cpu", "--steps", "4"]) == 0
+    out = capsys.readouterr().out
+    assert out.count("PASS ") == len(module.PROBES) and "FAIL" not in out
+    assert out.splitlines()[0].startswith("device: cpu")
+
+
+@pytest.mark.parametrize("module", MODULES, ids=lambda m: m.__name__)
+def test_cuda_request_without_cuda_raises(module, monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        module.main(["--device", "cuda"])
+    probe = next(iter(module.PROBES.values()))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        probes.run_probe(probe, "cuda")
+
+
+@pytest.mark.parametrize("window", [True, False])
+def test_pH_stages_two_words_a_lane_a_step(window):
+    """pH's plane is not in its output: each step adds 1 to two words of
+    each lane's column, at an even row and the one after it."""
+    rng = np.random.default_rng(5)
+    idx = torch.from_numpy(_ints(rng, ROWS - 16, (64, LANES)))
+    data = torch.from_numpy(_ints(rng, 1 << 20, (1024, LANES)))
+    model = torch.zeros((ROWS, LANES), dtype=torch.int32)
+    mosaic3.pH_stage(idx, data, T, window, model)
+    assert (model.sum(0) == 2 * T).all()
+    assert torch.equal(model[0::2][: ROWS // 2], model[1::2])
+
+
+def test_bad_arguments_raise():
+    idx = torch.zeros((1, LANES), dtype=torch.int32)
+    with pytest.raises(ValueError, match="int32"):
+        mosaic.p1_scalar_load(idx.long(), torch.zeros((8, LANES)))
+    with pytest.raises(ValueError, match="lanes"):
+        mosaic.p1_scalar_load(idx, torch.zeros((8, 64), dtype=torch.int32))
+    with pytest.raises(ValueError, match="planes"):
+        mosaic.p7_symbol_step_cost(idx, 1, torch.zeros(
+            (1, 8, LANES), dtype=torch.int32))
+    with pytest.raises(ValueError, match="1024 lanes"):
+        mosaic3.pH_stage(torch.zeros((64, 2048), dtype=torch.int32),
+                         torch.zeros((1024, 2048), dtype=torch.int32), 1)
+    with pytest.raises(ValueError, match="at least 32 rows"):
+        reduce.run(torch.zeros((16, LANES), dtype=torch.int32))
+
+
+def test_run_probe_on_the_cpu_times_nothing():
+    """A CPU run reports its outputs and the host time of its one call,
+    and no device time."""
+    r = probes.run_probe(mosaic.PROBES["p9"], "cpu", T=3)
+    assert r["T"] == 3 and r["out"].shape == (1, LANES)
+    assert r["host_s"] >= 0
+    assert r["ms"] is r["ns_step"] is r["err"] is r["plain_ms"] is None
+    assert r["telling"] is None
+    torch.testing.assert_close(
+        r["out"], mosaic.p9_decision_only_cost(
+            mosaic.PROBES["p9"].make(0, LANES, probes.ROWS, "cpu")["idx"],
+            T=3),
+        rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("key, fill, tells", [
+    ("p11", "zero", False), ("p11", "words", True), ("pHn", "zero", True)])
+def test_a_check_tells_only_on_a_plane_that_moves_it(key, fill, tells):
+    """At the full plane height, p11 from a zero plane gives 0 in every
+    lane and writes nothing, so a kernel check on it tells nothing; from
+    random words (the planes ``run_probe`` gives a kernel check) it does.
+    pHn's output is 0 in every lane, but its plane changes."""
+    p = {**mosaic.PROBES, **mosaic3.PROBES}[key]
+    a = p.make(0, LANES, probes.ROWS, "cpu")
+    if fill == "words":
+        a["model"] = probes.words(0, a["model"].shape, "cpu")
+    before = {"model": a["model"].clone()}
+    out = p.plain(**a, T=T)
+    assert probes.telling(out, before, {"model": a["model"]}) is tells
