@@ -11,13 +11,19 @@ Phases (each prints one line; any failure exits non-zero without the final
 
 1. device: CUDA must be available; prints the card's name and power limit;
 2. build: compiles the ten kernel sources of ``llcomp_tpu_torch/csrc`` (the
-   eight library kernels and the 21 probes), one nvcc each, in parallel;
+   eight library kernels and the 21 probes), one nvcc each, in parallel,
+   beside the copies of kernels 1 and 2 that phase 5 times (``VARIANTS``);
+   prints the registers a thread of kernels 1 and 2 from the compiler's
+   ``-Xptxas -v`` report (a spill fails);
 3. kernel vs plain: each CUDA kernel against its plain PyTorch version on
-   small lane batches (photo, flat, noise, grayscale, RGBA, 1-row, 1-column,
-   odd stride; unprimed, primed, seeded; corrupted and truncated streams),
-   and the sort chain's coder on random records with skewed bits; the
-   tolerance is exact equality of bytes, lengths, planes, error flags,
-   walk records, coder records and final carries;
+   small lane batches (photo, flat, noise, grayscale, RGBA, C = 2 and 5,
+   1-row, 1-column, odd stride, context hashes repeating every 1 to 5
+   symbols, 1, 33 and 130 lanes; unprimed, primed, seeded; dead symbol
+   tails; flipped streams, streams cut inside a 16-byte word, garbage past
+   every length), every instantiation of kernel 2 (C1-C4 and generic) must
+   launch, and the sort chain's coder on random records with
+   skewed bits; the tolerance is exact equality of bytes, lengths, planes,
+   error flags, walk records, coder records and final carries;
 4. main path: ``api.compress(img, slices="auto")`` + ``api.decompress`` on a
    512x512x3 and a 2048x2048x3 image; the ``.llct`` sha256 must equal the
    pinned golden (the bytes of ``llcomp_tpu``'s native backend) and the
@@ -25,8 +31,13 @@ Phases (each prints one line; any failure exits non-zero without the final
 5. bench-size batch: 16 images of 512x512x3 in 8-row stripes (1,024 lanes x
    12,288 symbols), seeded from the first 8 images; the sha256 of the
    concatenated streams must equal the golden and the round trip be exact;
-   encode and decode are timed (median of 3 fresh batches after a warm-up),
-   and each kernel is timed beside its plain version on a stated subset;
+   encode and decode are timed (median of 3 fresh batches after a warm-up)
+   with their host share, kernels 1 and 2 alone (us a symbol), beside
+   copies of them built with other lanes a block (kernel 1 also with other
+   look-ahead depths; at 1,024 lanes, and 2 lanes a block at 2,048) and
+   kernel 1 without its decisions, each copy's output equal to the
+   shipped kernel's; kernel 2 at C = 1 on channel 0, and each kernel
+   beside its plain version on a stated subset;
 6. the sort engine (``encode_lanes(engine="sort")``, kernels 3 and 4) on the
    same seeded batch: the same golden, an exact round trip through kernel 2,
    the unprimed batch and a worst-case batch byte-equal to the fused
@@ -67,8 +78,12 @@ sha256 is pinned so a generator drift is told apart from a codec fault.
 """
 from __future__ import annotations
 
+import contextlib
+import ctypes
 import hashlib
 import json
+import pathlib
+import re
 import statistics
 import subprocess
 import sys
@@ -81,6 +96,28 @@ PROBE_SOURCES = ("probe_mosaic", "probe_mosaic2", "probe_mosaic3",
                  "probe_reduce")
 KERNEL_SOURCES = ("encode_fused", "decode_kernel", "walk_symbols",
                   "coder_scan", "build_stream", "walk_probs", *PROBE_SOURCES)
+# the main path's kernels: phase 2 reads their registers and spills
+PTXAS_SOURCES = ("encode_fused", "decode_kernel")
+# Copies of kernels 1 and 2 that phase 5 times beside the shipped ones,
+# each built from the shipped source with one edit (old, new): other lanes
+# a block (kernel 1's constant, kernel 2's rule) and other look-ahead
+# depths of kernel 1 (the measurements behind those choices), and kernel 1
+# with each symbol's decisions replaced by one byte out (the split of a
+# symbol's time).
+_BLOCK, _DEPTH = "constexpr int kBlock = 1;", "constexpr int kDepth = 2;"
+_RULE = "  return e;\n"       # the end of kernel 2's lanes_a_block
+VARIANTS = {
+    **{("encode_fused", f"{n} lanes"): (_BLOCK, f"constexpr int kBlock = {n};")
+       for n in (32, 16, 8, 4, 2)},
+    **{("decode_kernel", f"{n} lanes"): (_RULE, f"  *lanes = {n};\n{_RULE}")
+       for n in (32, 16, 8, 4, 2, 1)},
+    **{("encode_fused", f"depth {d}"): (_DEPTH, f"constexpr int kDepth = {d};")
+       for d in (4, 8)},
+    ("encode_fused", "no decisions"): (
+        "code_symbol(c, w, xv[k], s_fused);",
+        "w += static_cast<uint32_t>(xv[k]); "
+        "c.put_byte(static_cast<uint32_t>(w));"),
+}
 
 # The least time the card could take for a kernel's work (bound_ms): the
 # larger of its bytes (each input read once, each output written once)
@@ -226,9 +263,81 @@ def _malicious_stream() -> bytes:
     return out[0, : int(lens[0])].numpy().tobytes()
 
 
+def registers(report: str) -> dict:
+    """``-Xptxas -v`` report -> {kernel: (registers, spill bytes)}, each
+    kernel named by its template argument where it has one (kernel 2's
+    channels C, C0 the generic one)."""
+    out, fn, spill = {}, None, 0
+    for line in report.splitlines():
+        if m := re.search(r"Function properties for (\S+)", line):
+            fn = m[1]
+        elif m := re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                            r"loads", line):
+            spill = int(m[1]) + int(m[2])
+        elif (m := re.search(r"Used (\d+) registers", line)) and fn:
+            arg = re.search(r"kernelILi(\d+)E", fn)
+            out[f"C{arg[1]}" if arg else "kernel"] = (int(m[1]), spill)
+    check(bool(out), "ptxas -v printed no registers")
+    return out
+
+
+def build_variant(key: tuple[str, str]) -> tuple[pathlib.Path, str]:
+    """The copy ``VARIANTS[key]`` of ``csrc/<key[0]>.cu``, built with the
+    port's flags: (its library, the compiler's report)."""
+    from llcomp_tpu_torch.kernels import build
+
+    name, tag = key
+    old, new = VARIANTS[key]
+    src = (build.CSRC / f"{name}.cu").read_text()
+    check(src.count(old) == 1, f"{name}.cu: the line of variant {tag!r} moved")
+    build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    cu = build.BUILD_DIR / f"variant_{name}_{tag.replace(' ', '_')}.cu"
+    cu.write_text(src.replace(old, new))
+    so = cu.with_suffix(".so")
+    r = subprocess.run([build.nvcc(), *build.NVCC_FLAGS, "-o", str(so),
+                        str(cu)], capture_output=True, text=True, check=True)
+    return so, r.stderr
+
+
+@contextlib.contextmanager
+def running(name: str, so: pathlib.Path):
+    """Inside the block, the wrapper of kernel ``name`` launches the library
+    ``so`` (a ``build_variant``) in place of the shipped build."""
+    from llcomp_tpu_torch.kernels import build
+
+    build._libs[name] = ctypes.CDLL(str(so))
+    try:
+        yield
+    finally:
+        del build._libs[name]      # the next launch loads the shipped build
+
+
+def repeat_lanes(shape) -> list[np.ndarray]:
+    """Lanes of ``shape`` (H, W, C) whose context hash repeats at short
+    distances: a constant lane (every symbol) and columns of period 2 to 5
+    (every period x C symbols past the first rows)."""
+    h, w, c = shape
+    x = np.arange(w)[None, :, None]
+    ch = 10 * np.arange(c)[None, None, :]
+    return [np.full(shape, 77, np.uint8)] + [
+        np.broadcast_to(30 + 40 * (x % p) + ch, shape).astype(np.uint8)
+        for p in (2, 3, 4, 5)]
+
+
 def _max_err(a, b) -> int:
     """Largest absolute difference of two integer tensors."""
     return int((a.long() - b.long()).abs().max()) if a.numel() else 0
+
+
+def _stream_err(out, lens, out_p, lens_p) -> int:
+    """Largest absolute difference of two encodes' lengths and of their
+    bytes up to each lane's length."""
+    import torch
+
+    cut = (torch.arange(out.shape[1], device=out.device)[None, :]
+           >= torch.minimum(lens, lens_p)[:, None])
+    return max(_max_err(lens, lens_p), _max_err(out.masked_fill(cut, 0),
+                                                out_p.masked_fill(cut, 0)))
 
 
 def bound(n_bytes: float, n_ops: float) -> dict:
@@ -335,6 +444,7 @@ def _skewed_records(torch, Tq: int, S: int, dev):
 def phase_kernels_vs_plain(torch, log) -> dict:
     """Phase 3: each kernel against its plain version, exact."""
     from llcomp_tpu_torch import decode, encode, seed
+    from llcomp_tpu_torch.core import transform
     from llcomp_tpu_torch.kernels import decode_kernel as dk
     from llcomp_tpu_torch.kernels import encode_fused as ef
 
@@ -344,6 +454,10 @@ def phase_kernels_vs_plain(torch, log) -> dict:
     t_kernel = t_plain = 0.0
     mal = _malicious_stream()
     photo = [make_image(4, 16, 3, s) for s in range(5)]
+
+    def cycle(imgs, S):                  # S lanes taken in turn from imgs
+        return np.stack([imgs[i % len(imgs)] for i in range(S)])
+
     batches = {
         "rgb 4x16x3": np.stack(photo + [
             np.full((4, 16, 3), 77, np.uint8),
@@ -354,17 +468,32 @@ def phase_kernels_vs_plain(torch, log) -> dict:
         "row 1x64x3": np.stack([make_image(1, 64, 3, s) for s in range(5)]),
         "col 24x1x3": np.stack([make_image(24, 1, 3, s) for s in range(5)]),
         "odd 7x5x1": np.stack([make_image(7, 5, 1, s) for s in range(5)]),
+        # hash repeats (kernel 1's and 2's forwarding), C = 2 and C = 5
+        # (kernel 2's last templated and its generic instantiation), lane
+        # counts off every block size
+        "repeats 6x24x1": np.stack([make_image(6, 24, 1, s) for s in range(3)]
+                                   + repeat_lanes((6, 24, 1))),
+        "c2 5x12x2 S33": cycle([make_image(5, 12, 2, s) for s in range(3)]
+                               + repeat_lanes((5, 12, 2)), 33),
+        "c5 4x6x5 S130": cycle([make_image(4, 6, 5, s) for s in range(3)]
+                               + repeat_lanes((4, 6, 5)), 130),
+        "S1 5x8x3": make_image(5, 8, 3, 3)[None],
     }
     tab = seed.derive(make_image(64, 64, 3, 5), device=dev)
     runs = [(name, lanes, mode) for name, lanes in batches.items()
             for mode in (("unprimed", "primed", "seeded")
                          if name == "rgb 4x16x3" else ("unprimed",))]
     runs.append(("rgb 4x16x3", batches["rgb 4x16x3"], "primed"))
+    runs.append(("c5 4x6x5 S130", batches["c5 4x6x5 S130"], "seeded"))
+    for k in dk.decode.instances:
+        dk.decode.instances[k] = 0
     for name, lanes, mode in runs:
         init = encode._start_table(mode == "primed",
                                    tab if mode == "seeded" else None)
         S, H, W, C = lanes.shape
         xs = encode.precompute(torch.from_numpy(lanes).to(dev)).t().contiguous()
+        # a dead tail (live bit clear), which codes nothing
+        xs = torch.cat([xs, xs[:5] & ~(1 << 25)])
         cap = encode.outcap(xs.shape[0])
         t0 = time.perf_counter()
         out_k, len_k = ef.encode_fused(xs, init, cap)
@@ -375,33 +504,33 @@ def phase_kernels_vs_plain(torch, log) -> dict:
         t2 = time.perf_counter()
         t_kernel += t1 - t0
         t_plain += t2 - t1
-        err_enc = max(err_enc, int((len_k - len_p).abs().max()))
-        for s in range(S):
-            n = int(len_k[s])
-            diff = out_k[s, :n].int() - out_p[s, :n].int()
-            err_enc = max(err_enc, int(diff.abs().max()) if n else 0)
+        err_enc = max(err_enc, _stream_err(out_k, len_k, out_p, len_p))
         streams = [out_k[s, : int(len_k[s])].cpu().numpy().tobytes()
                    for s in range(S)]
-        # corruptions: flipped bytes, a truncation, and (unprimed) a stream
-        # that must trip the error flag
-        streams[0] = bytes(b ^ 0x5A for b in streams[0])
-        streams[1] = streams[1][: len(streams[1]) // 2]
-        if mode == "unprimed":
-            streams[2] = mal
+        # corruptions: flipped bytes, a truncation inside a 16-byte word,
+        # and (unprimed) a stream that must trip the error flag; garbage
+        # past every lane's length, which must read as zeros
+        n_bad = 3 if S > 3 else 0
+        if n_bad:
+            streams[0] = bytes(b ^ 0x5A for b in streams[0])
+            streams[1] = streams[1][: min(len(streams[1]) - 1,
+                                          16 * (len(streams[1]) // 32) + 7)]
+            if mode == "unprimed":
+                streams[2] = mal
         data, lens = decode._pack(streams)
+        data[np.arange(data.shape[1])[None, :] >= lens[:, None]] = 0xA5
         d = torch.from_numpy(data).to(dev)
         ln = torch.from_numpy(lens).to(dev)
         p_k, e_k = dk.decode(d, ln, H, W, C, init)
         torch.cuda.synchronize()
         p_p, e_p = dk.decode_plain(d, ln, H, W, C, init)
         check(torch.equal(e_k, e_p), f"{name} {mode}: decode err flags differ")
-        if mode == "unprimed":
+        if n_bad and mode == "unprimed":
             check(int(e_k[2]) == 1, f"{name}: corrupt lane not flagged")
         n_err_lanes += int(e_k.sum())
-        err_dec = max(err_dec, int((p_k.long() - p_p.long()).abs().max()))
-        from llcomp_tpu_torch.core import transform
+        err_dec = max(err_dec, _max_err(p_k, p_p))
         imgs = transform.rct_inverse(p_k.t().reshape(S, H, W, C)).cpu().numpy()
-        check(np.array_equal(imgs[3:], lanes[3:]),
+        check(np.array_equal(imgs[n_bad:], lanes[n_bad:]),
               f"{name} {mode}: clean lanes did not round-trip")
         check(err_enc == 0 and err_dec == 0,
               f"{name} {mode}: kernel != plain (enc {err_enc}, dec {err_dec})")
@@ -416,10 +545,13 @@ def phase_kernels_vs_plain(torch, log) -> dict:
     e_coder = _coder_err(*_skewed_records(torch, 1024, 256, dev))
     err_coder = max(err_coder, e_coder)
     check(e_coder == 0, f"skewed records: coder kernel != plain ({e_coder})")
+    inst = dict(dk.decode.instances)
+    check(all(inst.values()), f"a kernel 2 instantiation never ran: {inst}")
     log(f"phase 3 kernel vs plain: {len(runs)} batches exact "
         f"(max_abs_err encode {err_enc}, decode {err_dec}, walk {err_walk}, "
         f"coder {err_coder}, also on 1024 x 256 skewed coder records; "
-        f"{n_err_lanes} flagged lanes agree) "
+        f"{n_err_lanes} flagged lanes agree; kernel 2 launches by "
+        f"instantiation {inst}) "
         f"kernel {t_kernel:.3f} s, plain encode {t_plain:.1f} s")
     return {"encode": err_enc, "decode": err_dec, "walk": err_walk,
             "coder": err_coder}
@@ -490,8 +622,10 @@ def _time_plain(torch, fn) -> tuple[float, object]:
     return (time.perf_counter() - t0) * 1e3, out
 
 
-def phase_bench(torch, log, card: str) -> dict:
-    """Phase 5: the bench-size batch, golden + round trip + timings."""
+def phase_bench(torch, log, card: str, variants: dict) -> dict:
+    """Phase 5: the bench-size batch, golden + round trip + timings; kernels
+    1 and 2 beside their copies ``variants`` ({VARIANTS key: library}),
+    and kernel 2 at C = 1."""
     from llcomp_tpu_torch import decode, encode, seed
     from llcomp_tpu_torch.core.config import REV2
     from llcomp_tpu_torch.kernels import decode_kernel as dk
@@ -538,15 +672,94 @@ def phase_bench(torch, log, card: str) -> dict:
         f"{mp / enc_s:.2f} MP/s, decode {dec_s:.4f} s = {mp / dec_s:.2f} MP/s")
 
     # kernel-only times at the main path's shape (CUDA events)
+    n_sym = H * W * C
     xs = encode.precompute(torch.from_numpy(lanes).to(dev)).t().contiguous()
     cap = encode.outcap(xs.shape[0])
     enc_ms = _time_cuda(torch, lambda: ef.encode_fused(xs, tab, cap))
     data, lens = decode._pack(streams)
     d, ln = torch.from_numpy(data).to(dev), torch.from_numpy(lens).to(dev)
     dec_ms = _time_cuda(torch, lambda: dk.decode(d, ln, H, W, C, tab))
-    log(f"phase 5 kernels alone, {S} lanes x {H * W * C} symbols: "
-        f"encode_fused {enc_ms:.3f} ms ({mp / enc_ms * 1e3:.1f} MP/s), "
-        f"decode {dec_ms:.3f} ms ({mp / dec_ms * 1e3:.1f} MP/s)")
+    log(f"phase 5 kernels alone, {S} lanes x {n_sym} symbols: encode_fused "
+        f"{enc_ms:.3f} ms ({mp / enc_ms * 1e3:.1f} MP/s, "
+        f"{enc_ms * 1e3 / n_sym:.4f} us a symbol), decode {dec_ms:.3f} ms "
+        f"({mp / dec_ms * 1e3:.1f} MP/s, {dec_ms * 1e3 / n_sym:.4f} us a "
+        f"symbol)")
+    log(f"phase 5 host share of the end-to-end medians (one launch each): "
+        f"encode {enc_s * 1e3 - enc_ms:.2f} ms of {enc_s * 1e3:.2f} "
+        f"({100 * (1 - enc_ms / (enc_s * 1e3)):.1f}%), decode "
+        f"{dec_s * 1e3 - dec_ms:.2f} ms of {dec_s * 1e3:.2f} "
+        f"({100 * (1 - dec_ms / (dec_s * 1e3)):.1f}%)")
+
+    # the copies: other lanes a block and look-ahead depths, each output
+    # equal to the shipped kernel's, and kernel 1 without its decisions;
+    # then 1 against 2 lanes a block at twice the lanes
+    ref_o, ref_l = ef.encode_fused(xs, tab, cap)
+    ref_p, ref_e = dk.decode(d, ln, H, W, C, tab)
+
+    def enc_run(xs, ref=None):
+        def run():
+            return ef.encode_fused(xs, tab, cap)
+        if ref is not None:
+            check(_stream_err(*run(), *ref) == 0, "encode copy != shipped")
+        return run
+
+    def dec_run(d, ln, ref=None):
+        def run():
+            return dk.decode(d, ln, H, W, C, tab)
+        if ref is not None:
+            p, e = run()
+            check(torch.equal(p, ref[0]) and torch.equal(e, ref[1]),
+                  "decode copy != shipped")
+        return run
+
+    times = {}
+    for (name, tag), so in variants.items():
+        with running(name, so):
+            if name == "decode_kernel":
+                times[name, tag] = _time_cuda(
+                    torch, dec_run(d, ln, (ref_p, ref_e)))
+            else:
+                times[name, tag] = _time_cuda(torch, enc_run(
+                    xs, None if tag == "no decisions" else (ref_o, ref_l)))
+    xs2 = torch.cat([xs, xs], 1).contiguous()
+    d2, ln2 = torch.cat([d, d]), torch.cat([ln, ln])
+    ref2 = ef.encode_fused(xs2, tab, cap), dk.decode(d2, ln2, H, W, C, tab)
+    wide = {"encode_fused": [_time_cuda(torch, enc_run(xs2))],
+            "decode_kernel": [_time_cuda(torch, dec_run(d2, ln2))]}
+    for name, tag, run in (
+            ("encode_fused", "2 lanes", lambda: enc_run(xs2, ref2[0])),
+            ("decode_kernel", "1 lanes", lambda: dec_run(d2, ln2, ref2[1]))):
+        with running(name, variants[name, tag]):
+            wide[name] += [tag, _time_cuda(torch, run())]
+    abl_ms = times.pop(("encode_fused", "no decisions"))
+    for name, ms in (("encode_fused", enc_ms), ("decode_kernel", dec_ms)):
+        shipped, copy, copy_ms = wide[name]
+        log(f"phase 5 {name} ms beside its copies, same output: shipped "
+            f"{ms:.3f}; " + "; ".join(
+                f"{tag} {t:.3f}" for (n, tag), t in times.items()
+                if n == name) + f"; at {2 * S} lanes, shipped {shipped:.3f}, "
+            f"{copy} {copy_ms:.3f}")
+    log(f"phase 5 kernel 1 split: {enc_ms:.3f} ms whole, {abl_ms:.3f} ms "
+        f"with each symbol's decisions replaced by one byte out, so the "
+        f"decisions take {enc_ms - abl_ms:.3f} ms "
+        f"({100 * (1 - abl_ms / enc_ms):.1f}%)")
+
+    # grayscale: no model word can be loaded ahead (C = 1)
+    gray = np.ascontiguousarray(lanes[..., :1])
+    xg = encode.precompute(torch.from_numpy(gray).to(dev)).t().contiguous()
+    og, lg = ef.encode_fused(xg, tab, encode.outcap(xg.shape[0]))
+    dg, lng = decode._pack([og[s, : int(lg[s])].cpu().numpy().tobytes()
+                            for s in range(S)])
+    dg, lng = torch.from_numpy(dg).to(dev), torch.from_numpy(lng).to(dev)
+    pg, eg = dk.decode(dg, lng, H, W, 1, tab)
+    check(not eg.any() and torch.equal(pg.t().reshape(S, H, W).cpu(),
+                                       torch.from_numpy(gray[..., 0]).int()),
+          "grayscale batch did not round-trip")
+    gray_ms = _time_cuda(torch, lambda: dk.decode(dg, lng, H, W, 1, tab))
+    log(f"phase 5 kernel 2 on channel 0 of the batch (C = 1, {H * W} "
+        f"symbols a lane, exact round trip): {gray_ms:.3f} ms, "
+        f"{gray_ms * 1e3 / (H * W):.4f} us a symbol against "
+        f"{dec_ms * 1e3 / n_sym:.4f} at C = 3")
 
     # plain versions are Python loops over symbols: time them, and the
     # kernels again, on the first PLAIN_SUBSET_ROWS row(s) of every stripe
@@ -576,17 +789,17 @@ def phase_bench(torch, log, card: str) -> dict:
     # bounds at the full shape: symbols in, the streams' bytes out (encode)
     # and the reverse (decode, int32 planes), with this batch's decisions
     _, diff = encode._hash_diff(torch.from_numpy(lanes).to(dev), REV2)
-    n_dec, n_sym = _decisions(torch, diff), xs.numel()
+    n_dec, n_all = _decisions(torch, diff), xs.numel()
     per_dec = OPS_DECISION + OPS_STATE + OPS_CODER
     bounds = {
-        "encode_fused": bound(4 * n_sym + n_bytes + 4 * S,
-                              n_dec * per_dec + n_sym * OPS_SYMBOL_ENC),
-        "decode_kernel": bound(n_bytes + 4 * S + 4 * n_sym + 4 * S,
-                               n_dec * per_dec + n_sym * OPS_SYMBOL_DEC)}
-    log(f"phase 5 bounds, {n_sym} symbols, {n_dec} decisions: " + ", ".join(
+        "encode_fused": bound(4 * n_all + n_bytes + 4 * S,
+                              n_dec * per_dec + n_all * OPS_SYMBOL_ENC),
+        "decode_kernel": bound(n_bytes + 4 * S + 4 * n_all + 4 * S,
+                               n_dec * per_dec + n_all * OPS_SYMBOL_DEC)}
+    log(f"phase 5 bounds, {n_all} symbols, {n_dec} decisions: " + ", ".join(
         f"{k} {b['bound_ms']:.4f} ms by {b['bound_by']} ({b['bytes']} B, "
         f"{b['ops']} ops)" for k, b in bounds.items()))
-    return {"encode_ms": enc_ms, "decode_ms": dec_ms,
+    return {"encode_ms": enc_ms, "decode_ms": dec_ms, "n_sym": n_sym,
             "encode_sub_ms": enc_sub_ms, "decode_sub_ms": dec_sub_ms,
             "encode_plain_ms": enc_plain_ms, "decode_plain_ms": dec_plain_ms,
             "subset": subset, "bounds": bounds}
@@ -1187,6 +1400,7 @@ def phase_probes(torch, log, card: str) -> dict:
 
 
 def main() -> int:
+    t_start = time.perf_counter()
     try:
         import torch
     except ImportError:
@@ -1213,15 +1427,31 @@ def main() -> int:
         from llcomp_tpu_torch.kernels import build
 
         t0 = time.perf_counter()
-        with ThreadPoolExecutor(len(KERNEL_SOURCES)) as pool:
+        with ThreadPoolExecutor(len(KERNEL_SOURCES) + len(VARIANTS)) as pool:
+            variants = dict(zip(VARIANTS, pool.map(build_variant, VARIANTS)))
             list(pool.map(build.build, KERNEL_SOURCES))
         log(f"phase 2 build: {len(KERNEL_SOURCES)} kernel sources from "
-            f"llcomp_tpu_torch/csrc, one nvcc each in parallel, in "
+            f"llcomp_tpu_torch/csrc and {len(VARIANTS)} copies of kernels 1 "
+            f"and 2, one nvcc each in parallel, in "
             f"{time.perf_counter() - t0:.2f} s")
+        regs = {name: registers(build.compiler_log(name))
+                for name in PTXAS_SOURCES}
+        spills = {f"{name} {k}": v for name, r in regs.items()
+                  for k, v in r.items() if v[1]}
+        check(not spills, f"ptxas reports spills: {spills}")
+        log("phase 2 ptxas -v (sm_90a), registers a thread, no spills: "
+            + "; ".join(f"{name} " + ", ".join(f"{k} {v[0]}"
+                                               for k, v in r.items())
+                        for name, r in regs.items())
+            + "; copies: " + ", ".join(
+                f"{name} {tag} {registers(rep)['kernel'][0]}"
+                for (name, tag), (_, rep) in variants.items()
+                if name == "encode_fused"))
+        variants = {k: so for k, (so, _) in variants.items()}
 
         errs = phase_kernels_vs_plain(torch, log)
         counts = phase_main_path(torch, log)
-        bench = phase_bench(torch, log, card)
+        bench = phase_bench(torch, log, card, variants)
         sort = phase_sort(torch, log, card)
         decision = phase_decision(torch, log, card)
         probe = phase_probes(torch, log, card)
@@ -1230,6 +1460,8 @@ def main() -> int:
     except Failed as e:
         print(f"chip_smoke FAILED: {e}", file=sys.stderr)
         return 1
+    log(f"chip_smoke: phases 1-8 passed in "
+        f"{time.perf_counter() - t_start:.1f} s")
 
     def bound_of(b: dict) -> dict:
         return {"bound_ms": b["bound_ms"], "bound_by": b["bound_by"],
@@ -1242,6 +1474,7 @@ def main() -> int:
          "replaces": "llcomp_tpu/pallas/encode_fused.py:150",
          "launches": counts["encode_fused"], "max_abs_err": errs["encode"],
          "ms": bench["encode_ms"], "plain_ms": bench["encode_plain_ms"],
+         "us_symbol": bench["encode_ms"] * 1e3 / bench["n_sym"],
          **bound_of(bench["bounds"]["encode_fused"]),
          "ms_subset": bench["encode_sub_ms"], "note": note},
         {"name": "decode_kernel", "route": "cuda",
@@ -1249,6 +1482,7 @@ def main() -> int:
          "replaces": "llcomp_tpu/pallas/decode_kernel.py:444",
          "launches": counts["decode_kernel"], "max_abs_err": errs["decode"],
          "ms": bench["decode_ms"], "plain_ms": bench["decode_plain_ms"],
+         "us_symbol": bench["decode_ms"] * 1e3 / bench["n_sym"],
          **bound_of(bench["bounds"]["decode_kernel"]),
          "ms_subset": bench["decode_sub_ms"], "note": note},
     ]

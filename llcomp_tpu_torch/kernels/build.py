@@ -5,7 +5,9 @@ first use for Hopper (``sm_90a``) into ``llcomp_tpu_torch/_build/`` (listed in
 ``.gitignore``), keyed by a hash of its source and of the shared headers
 (``csrc/*.cuh``), and loaded with ctypes.  No
 PyTorch headers are compiled, so a build takes seconds.  Sources are read
-only from the package's ``csrc/`` directory.
+only from the package's ``csrc/`` directory.  Each build keeps the
+compiler's ``-Xptxas -v`` report (registers and spills of every kernel)
+beside its library: ``compiler_log``.
 """
 from __future__ import annotations
 
@@ -22,7 +24,7 @@ _PKG = pathlib.Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC"]
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _libs: dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()
@@ -45,7 +47,8 @@ def nvcc() -> str:
 
 def build(name: str) -> pathlib.Path:
     """Compile ``csrc/<name>.cu`` unless a build of this exact source,
-    these headers and these flags exists."""
+    these headers and these flags exists; the compiler's report goes to the
+    library's path with suffix ``.log``."""
     src = CSRC / f"{name}.cu"
     headers = b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
     key = src.read_bytes() + headers + " ".join(NVCC_FLAGS).encode()
@@ -58,18 +61,25 @@ def build(name: str) -> pathlib.Path:
                                      delete=False) as tmp:
         tmp_path = pathlib.Path(tmp.name)
     try:
-        subprocess.run([compiler, *NVCC_FLAGS, "-o", str(tmp_path), str(src)],
-                       check=True, capture_output=True)
+        r = subprocess.run([compiler, *NVCC_FLAGS, "-o", str(tmp_path),
+                            str(src)], check=True, capture_output=True)
+        out.with_suffix(".log").write_bytes(r.stderr)
         tmp_path.replace(out)  # atomic within the directory
     except subprocess.CalledProcessError as e:
         tmp_path.unlink(missing_ok=True)
         raise KernelCompileError(
             f"nvcc failed on {src.name}:\n{e.stderr.decode(errors='replace')}"
         ) from e
-    for old in BUILD_DIR.glob(f"lib{name}_*.so"):
-        if old != out:
+    for old in BUILD_DIR.glob(f"lib{name}_*"):
+        if old.stem != out.stem:
             old.unlink(missing_ok=True)
     return out
+
+
+def compiler_log(name: str) -> str:
+    """The compiler's report (``-Xptxas -v``) of the build of
+    ``csrc/<name>.cu``, built on first use."""
+    return build(name).with_suffix(".log").read_text()
 
 
 def load(name: str, entry: str, argtypes: list):

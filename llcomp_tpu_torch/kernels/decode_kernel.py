@@ -5,10 +5,21 @@ per-symbol twin ``::_make_kernel``: one kernel takes every geometry, odd
 strides (``W*C % 8 != 0``) and ``C > 8`` included.  The TPU kernels'
 workarounds (the NSUB lane-group packing, the 3-row VMEM line ring, the
 per-symbol byte windows, the SMEM scalar bridge, the deferred write-back)
-have no counterpart: one thread owns one lane, reads its stream bytes
-directly and reads neighbours back from its own output planes.  The source
-note in ``csrc/decode_kernel.cu`` says what bounds the kernel on the H100 and
-what its design does about it.
+have no counterpart: one thread owns one lane and reads neighbours back from
+its own output planes.
+
+The kernel is bound by each lane's serial chain.  Only the model load stays
+on it, and only for C = 1: a symbol's hash is known once the sample C
+symbols back is, so its model word is loaded C - 1 symbols ahead (with
+equal-hash forwarding, as in kernel 1); the rows above are loaded a ring
+turn ahead and the lane's own last samples stay in registers; a symbol's 8
+state-table entries are looked up together; stream bytes are read 16 at a
+time; a block holds one lane up to 8 blocks a SM and the fewest lanes
+(a power of two) that keep 8 a SM past that: a warp runs the union of its
+lanes' decisions, yet at 2,048 lanes 2 lanes a block ran faster.  The
+kernel is templated on C in {1, 2, 3, 4}; any other C launches its generic
+instantiation.  ``decode.instances`` counts launches by instantiation.  The
+source note in ``csrc/decode_kernel.cu`` has the details and what is left.
 
 Output planes are symbol-major ``[n_sym, S]`` int32 post-RCT values (the
 caller applies ``transform.rct_inverse``), and ``err [S]`` int32 is the
@@ -115,14 +126,21 @@ def decode_plain(data: torch.Tensor, lens: torch.Tensor, H: int, W: int,
     return planes.to(torch.int32), err.to(torch.int32)
 
 
+def instance(C: int) -> str:
+    """The kernel instantiation that decodes ``C`` channels."""
+    return f"C{C}" if C <= 4 else "generic"
+
+
 def decode(data: torch.Tensor, lens: torch.Tensor, H: int, W: int, C: int,
            init) -> tuple[torch.Tensor, torch.Tensor]:
     """Decode ``S`` lanes of ``H x W x C`` samples from zero-padded stream
     bytes ``data`` [S, cap] u8 with lengths ``lens`` [S] int32 ->
-    (planes [n_sym, S] int32, err [S] int32).
+    (planes [n_sym, S] int32, err [S] int32).  Bytes at or past
+    ``min(len, cap)`` read as 0.
 
-    CUDA tensors launch the kernel (counted in ``decode.launches``); CPU
-    tensors run ``decode_plain``.
+    CUDA tensors launch the kernel, counted in ``decode.launches`` and, by
+    instantiation, in ``decode.instances``; CPU tensors run
+    ``decode_plain``.
     """
     if data.dim() != 2 or data.dtype != torch.uint8:
         raise ValueError(f"data must be [S, cap] uint8, got "
@@ -132,9 +150,16 @@ def decode(data: torch.Tensor, lens: torch.Tensor, H: int, W: int, C: int,
         raise ValueError("lens must be [S] int32")
     if not data.is_cuda:
         return decode_plain(data, lens, H, W, C, init)
+    if C < 1:
+        raise ValueError(f"C must be at least 1, got {C}")
     data = data.contiguous()
     lens = lens.contiguous()
     dev = data.device
+    if cap % 16 or data.data_ptr() % 16:   # rows of aligned 16-byte words
+        wide = torch.zeros((S, -(-cap // 16) * 16), dtype=torch.uint8,
+                           device=dev)
+        wide[:, :cap] = data
+        lens, data, cap = lens.clamp(max=cap), wide, wide.shape[1]
     tabs = [torch.from_numpy(t.astype(np.int32)).to(dev)
             for t in (tables.FUSED, tables.QUANT11, tables.QUANT5)]
     init_t = (None if init is None else
@@ -149,7 +174,9 @@ def decode(data: torch.Tensor, lens: torch.Tensor, H: int, W: int, C: int,
             torch.cuda.current_stream(dev).cuda_stream)
     build.check(rc, "decode")
     decode.launches += 1
+    decode.instances[instance(C)] += 1
     return planes, err
 
 
 decode.launches = 0
+decode.instances = dict.fromkeys(["C1", "C2", "C3", "C4", "generic"], 0)

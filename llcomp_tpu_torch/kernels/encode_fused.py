@@ -6,9 +6,17 @@ adaptive model and the carry-less range coder, and the coded bytes land in
 the lane's row of the output.  The TPU kernel's workarounds (NSUB sublane
 packing, the SMEM scalar bridge, the register marker FIFO and its flushes,
 ``FusedOverflow``) have no counterpart: on the GPU one thread owns one lane,
-its model row lives in device memory and it writes its own bytes.  The
-source note in ``csrc/encode_fused.cu`` says what bounds the kernel on the
-H100 and what its design does about it.
+its model row lives in device memory and it writes its own bytes.
+
+The kernel is bound by each lane's serial chain, not by bytes.  It keeps
+every global load off that chain: packed symbols are loaded two ring turns
+ahead and model words two symbols ahead into an unrolled register ring,
+with equal-hash forwarding so that each symbol codes with the word a
+sequential walk reads; a symbol's 8 state-table entries are looked up
+together; bytes leave 32 bits at a time; a block holds one lane, so a warp
+runs one lane's decisions, not the union of 32.  The source note in
+``csrc/encode_fused.cu`` has the details, the measurements behind the
+look-ahead depth and the lanes a block, and what is left.
 
 Input ``xs`` is the packed word ``live<<25 | hash<<12 | (diff+1274)`` per
 symbol (``encode.precompute``), symbol-major ``[n_sym, S]``.  ``init`` is the
@@ -82,9 +90,10 @@ def encode_fused(xs: torch.Tensor, init, outcap: int
     """Encode ``S`` lanes: ``xs`` [n_sym, S] int32 -> (bytes [S, outcap] u8,
     lengths [S] int32).
 
-    A CUDA ``xs`` launches the kernel (and counts the launch in
-    ``encode_fused.launches``); a CPU ``xs`` runs ``encode_fused_plain``.
-    Raises if a lane's bytes overflow ``outcap``.
+    A CUDA ``xs`` launches the kernel (``outcap`` a multiple of 4: it stores
+    32-bit words) and counts the launch in ``encode_fused.launches``; a CPU
+    ``xs`` runs ``encode_fused_plain``.  Raises if a lane's bytes overflow
+    ``outcap``.
     """
     if xs.dim() != 2 or xs.dtype != torch.int32:
         raise ValueError(f"xs must be [n_sym, S] int32, got {tuple(xs.shape)} "
@@ -93,6 +102,8 @@ def encode_fused(xs: torch.Tensor, init, outcap: int
     if not xs.is_cuda:
         out, lens, ovf = encode_fused_plain(xs, init, outcap)
     else:
+        if outcap % 4:
+            raise ValueError(f"outcap must be a multiple of 4, got {outcap}")
         xs = xs.contiguous()
         dev = xs.device
         fused = torch.from_numpy(tables.FUSED).to(dev)

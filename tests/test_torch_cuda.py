@@ -11,6 +11,7 @@ import numpy as np
 import pytest
 import torch
 
+from chip_smoke import repeat_lanes
 from llcomp_tpu_torch import api, coder, decode, encode, probes, seed
 from llcomp_tpu_torch.core.config import REV2
 from llcomp_tpu_torch.kernels import decode_kernel as dk
@@ -62,6 +63,60 @@ def test_kernels_equal_plain(dev, shape, primed):
     planes, err = dk.decode(d, ln, *shape, init)
     planes_p, err_p = dk.decode_plain(d, ln, *shape, init)
     assert torch.equal(err, err_p) and torch.equal(planes, planes_p)
+
+
+@pytest.mark.parametrize("shape,S", [((6, 24, 1), 1), ((5, 12, 2), 33),
+                                     ((4, 6, 5), 130), ((1, 40, 3), 33),
+                                     ((20, 1, 4), 130), ((2, 8, 3), 1101)])
+def test_kernels_equal_plain_on_special_lanes(dev, shape, S):
+    """Kernels 1 and 2 on hash-repeating lanes, C from 1 to 5 (every
+    instantiation of kernel 2), ragged lane counts (1,101: past 8 one-lane
+    blocks a SM, kernel 2 packs 2 lanes a block), a dead tail on every
+    lane, a stream cut inside a 16-byte word and bytes past every length
+    that are not zero."""
+    imgs = list(_lanes(shape, 3)) + repeat_lanes(shape)
+    lanes = np.stack([imgs[i % len(imgs)] for i in range(S)])
+    init = encode._start_table(True, None)
+    xs = encode.precompute(torch.from_numpy(lanes).to(dev)).t().contiguous()
+    xs = torch.cat([xs, xs[:7] & ~(1 << 25)])
+    cap = encode.outcap(xs.shape[0])
+    out_p, lens_p, ovf = ef.encode_fused_plain(xs, init, cap)
+    assert not ovf.any()
+    out, lens = ef.encode_fused(xs, init, cap)
+    assert torch.equal(lens, lens_p)
+    for s in range(S):
+        assert torch.equal(out[s, : lens[s]], out_p[s, : lens[s]])
+    streams = [out_p[s, : lens_p[s]].cpu().numpy().tobytes()
+               for s in range(S)]
+    streams[0] = streams[0][: 16 * (len(streams[0]) // 32) + 7]
+    data, n = decode._pack(streams)
+    data[np.arange(data.shape[1])[None, :] >= n[:, None]] = 0xA5
+    d, ln = torch.from_numpy(data).to(dev), torch.from_numpy(n).to(dev)
+    inst = dk.instance(shape[2])
+    before = dk.decode.instances[inst]
+    planes, err = dk.decode(d, ln, *shape, init)
+    assert dk.decode.instances[inst] == before + 1
+    planes_p, err_p = dk.decode_plain(d, ln, *shape, init)
+    assert torch.equal(err, err_p) and torch.equal(planes, planes_p)
+    if S > 1:
+        assert not err[1:].any()
+
+
+def test_decode_takes_unaligned_rows(dev):
+    """Rows whose width is not a multiple of 16 (copied into aligned rows)
+    and a length past the row, which reads as the row's end."""
+    lanes = _lanes((4, 8, 3), 4)
+    xs = encode.precompute(torch.from_numpy(lanes).to(dev)).t().contiguous()
+    out, lens = ef.encode_fused(xs, None, encode.outcap(xs.shape[0]))
+    width = int(lens.max()) - 5
+    d = out[:, :width]
+    ln = lens.clone()
+    ln[0] = width + 100
+    planes, err = dk.decode(d, ln, 4, 8, 3, None)
+    planes_p, err_p = dk.decode_plain(d, ln, 4, 8, 3, None)
+    assert torch.equal(err, err_p) and torch.equal(planes, planes_p)
+    with pytest.raises(ValueError, match="multiple of 4"):
+        ef.encode_fused(xs, None, 1026)
 
 
 @pytest.mark.parametrize("shape", [(4, 16, 3), (7, 5, 1), (1, 40, 4),

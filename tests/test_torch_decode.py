@@ -8,6 +8,7 @@ import numpy as np
 import pytest
 import torch
 
+from chip_smoke import repeat_lanes
 from llcomp_tpu import decode as jdec
 from llcomp_tpu import oracle
 from llcomp_tpu import seed as jseed
@@ -86,6 +87,28 @@ def test_roundtrip_equals_oracle(shape):
     with pytest.raises(ValueError, match="lanes \\[1\\]"):
         decode.decode_lanes([streams[0], _malicious_stream()], shape,
                             device="cpu")
+
+
+# C = 1 (no model word ahead in kernel 2), C = 2 and C = 5 (its last
+# templated and its generic instantiation), a one-row and a one-column stripe
+SPECIAL_SHAPES = [(6, 40, 1), (5, 24, 2), (4, 12, 5), (1, 96, 3), (80, 1, 3)]
+
+
+@pytest.mark.parametrize("shape", SPECIAL_SHAPES)
+def test_special_lanes_equal_jax_kernels(shape, monkeypatch):
+    """Hash-repeating lanes (model-word forwarding), C = 2 and C = 5, one
+    row and one column, and streams cut inside a 16-byte word; the JAX
+    blocked kernel where the stride allows it, else its per-symbol one."""
+    monkeypatch.setenv("LLCT_DECODE_FORCE_BLOCKED", "1")
+    lanes = [make_photo(*shape, seed=5), make_noise(*shape, seed=6)] + \
+        repeat_lanes(shape)
+    streams = [oracle.encode(x)[6:] for x in lanes]
+    streams[0] = streams[0][: 16 * (len(streams[0]) // 32) + 7]
+    streams[1] = streams[1][:45]
+    assert all(len(s) % 16 for s in streams[:2])
+    got, _ = _compare(streams, shape)
+    for i in range(2, len(lanes)):
+        np.testing.assert_array_equal(got[i], lanes[i])
 
 
 def test_lane_chunking_identical(monkeypatch):

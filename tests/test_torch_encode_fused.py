@@ -7,6 +7,7 @@ import numpy as np
 import pytest
 import torch
 
+from chip_smoke import repeat_lanes
 from llcomp_tpu import encode as jenc
 from llcomp_tpu import oracle
 from llcomp_tpu import seed as jseed
@@ -49,6 +50,31 @@ def test_equals_oracle(shape, mode, stored_seed):
         want = oracle.encode_planes(oracle.rct_forward(lane),
                                     primed=mode == "primed", seed=seed)
         assert stream == want
+
+
+# the geometries kernels 1 and 2 treat specially: C = 1 (no model word
+# ahead in decode), C = 2 and C = 5 (decode's last templated and its generic
+# instantiation), a one-row and a one-column stripe
+SPECIAL_SHAPES = [(6, 40, 1), (5, 24, 2), (4, 12, 5), (1, 96, 3), (80, 1, 3)]
+
+
+@pytest.mark.parametrize("shape", SPECIAL_SHAPES)
+def test_special_lanes_equal_jax_fused_engine(shape):
+    """Photo, noise and hash-repeating lanes: unprimed through
+    ``encode_lanes``, primed straight through the plain version with a dead
+    tail on every lane, which codes nothing."""
+    lanes = np.stack([make_photo(*shape, seed=5), make_noise(*shape, seed=6)]
+                     + repeat_lanes(shape))
+    want = jenc.encode_lanes(lanes, engine="fused")
+    assert encode.encode_lanes(lanes, device="cpu") == want
+    want = jenc.encode_lanes(lanes, engine="fused", primed=True)
+    xs = encode.precompute(torch.from_numpy(lanes)).t().contiguous()
+    dead = torch.cat([xs, xs[:9] & ~(1 << 25)])
+    out, lens, ovf = ef.encode_fused_plain(
+        dead, encode._start_table(True, None), encode.outcap(dead.shape[0]))
+    assert not ovf.any()
+    assert [out[s, : lens[s]].numpy().tobytes()
+            for s in range(len(lanes))] == want
 
 
 def test_lane_chunking_byte_identical(monkeypatch):
