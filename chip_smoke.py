@@ -12,17 +12,20 @@ Phases (each prints one line; any failure exits non-zero without the final
 1. device: CUDA must be available; prints the card's name and power limit;
 2. build: compiles the ten kernel sources of ``llcomp_tpu_torch/csrc`` (the
    eight library kernels and the 21 probes), one nvcc each, in parallel,
-   beside the copies of kernels 1 and 2 that phase 5 times (``VARIANTS``);
-   prints the registers a thread of kernels 1 and 2 from the compiler's
-   ``-Xptxas -v`` report (a spill fails);
+   beside the copies of kernels 1, 2 and 7 that phases 5 and 7 time
+   (``VARIANTS``); prints the registers a thread of kernels 1, 2, 4, 7 and
+   8 and of the copies from the compiler's ``-Xptxas -v`` report (a spill
+   fails);
 3. kernel vs plain: each CUDA kernel against its plain PyTorch version on
    small lane batches (photo, flat, noise, grayscale, RGBA, C = 2 and 5,
    1-row, 1-column, odd stride, context hashes repeating every 1 to 5
    symbols, 1, 33 and 130 lanes; unprimed, primed, seeded; dead symbol
    tails; flipped streams, streams cut inside a 16-byte word, garbage past
    every length), every instantiation of kernel 2 (C1-C4 and generic) must
-   launch, and the sort chain's coder on random records with
-   skewed bits; the tolerance is exact equality of bytes, lengths, planes,
+   launch, and the sort chain's coders (kernels 4 and 7) on random records
+   with skewed bits, kernel 7 also with T around its ring depth at 1, 33
+   and 130 lanes, deferred 0xFF runs past a hundred bytes, dead lanes and
+   dead tails; the tolerance is exact equality of bytes, lengths, planes,
    error flags, walk records, coder records and final carries;
 4. main path: ``api.compress(img, slices="auto")`` + ``api.decompress`` on a
    512x512x3 and a 2048x2048x3 image; the ``.llct`` sha256 must equal the
@@ -55,7 +58,9 @@ Phases (each prints one line; any failure exits non-zero without the final
    ``encode.lane_bytes``; timed end to end beside both other encodes on the
    same batches, its device idle share and largest ops, split by stage; on
    all 1,024 lanes in one chunk, kernels 5-8 held exactly against their
-   plain versions on the inputs the engine gave them, and timed; kernel 8
+   plain versions on the inputs the engine gave them, and timed, kernel 7
+   beside copies of it with other lanes a block and ring depths, each
+   copy's output equal to the shipped kernel's; kernel 8
    (``coder_scan``, the slot-record coder) run on its own path on the
    variant's coder records, through ``coder.finish_steps`` and
    ``coder.expand_slots``, must give the variant's streams;
@@ -63,7 +68,8 @@ Phases (each prints one line; any failure exits non-zero without the final
    ``tools/``): each driven through ``probes.run_probe`` at the TPU probes'
    shape (128 lanes, a 15,872-row model plane), the stepped ones also at
    1,024 lanes and pH at T 32, 256 and 512, every wrapper launched; the
-   time a launch and a symbol step, and the one-shot probes' device time;
+   time a launch and a symbol step, the one-shot probes' device time and
+   that of an empty kernel (the launch floor under their bounds);
    each kernel held exactly against its plain version (outputs and model
    planes of random words, on inputs where the plain output differs across
    lanes or a plane changes); the one PyTorch call that computes the same
@@ -71,7 +77,9 @@ Phases (each prints one line; any failure exits non-zero without the final
 
 Phases 5-8 compute each kernel's bound (``bound``): the least time the
 card could take for the bytes and integer operations of its work on this
-run's inputs.  The last two lines are the per-kernel JSON record and
+run's inputs; a one-shot probe's row also carries that bound raised to the
+launch floor (``launch_bound_ms``, ``launch_bound_by`` "launch" where the
+floor wins).  The last two lines are the per-kernel JSON record and
 ``{"ok": true, "device": {...}}``.  Test images use integer arithmetic only
 (a counter-based hash, no libm, no NumPy random streams), and their own
 sha256 is pinned so a generator drift is told apart from a codec fault.
@@ -80,6 +88,7 @@ from __future__ import annotations
 
 import contextlib
 import ctypes
+import functools
 import hashlib
 import json
 import pathlib
@@ -96,16 +105,22 @@ PROBE_SOURCES = ("probe_mosaic", "probe_mosaic2", "probe_mosaic3",
                  "probe_reduce")
 KERNEL_SOURCES = ("encode_fused", "decode_kernel", "walk_symbols",
                   "coder_scan", "build_stream", "walk_probs", *PROBE_SOURCES)
-# the main path's kernels: phase 2 reads their registers and spills
-PTXAS_SOURCES = ("encode_fused", "decode_kernel")
-# Copies of kernels 1 and 2 that phase 5 times beside the shipped ones,
-# each built from the shipped source with one edit (old, new): other lanes
-# a block (kernel 1's constant, kernel 2's rule) and other look-ahead
-# depths of kernel 1 (the measurements behind those choices), and kernel 1
-# with each symbol's decisions replaced by one byte out (the split of a
-# symbol's time).
+# the main path's kernels and the range coders: phase 2 reads their
+# registers and spills
+PTXAS_SOURCES = ("encode_fused", "decode_kernel", "coder_scan")
+# Copies of kernels 1, 2 and 7 that phases 5 and 7 time beside the shipped
+# ones, each built from the shipped source with one edit (old, new): other
+# lanes a block (kernels 1 and 7's constants, kernel 2's rule) and other
+# look-ahead depths of kernels 1 and 7 (the measurements behind those
+# choices), and kernel 1 with each symbol's decisions replaced by one byte
+# out (the split of a symbol's time).
 _BLOCK, _DEPTH = "constexpr int kBlock = 1;", "constexpr int kDepth = 2;"
 _RULE = "  return e;\n"       # the end of kernel 2's lanes_a_block
+_CODER_BLOCK = "constexpr int kBlock = 32;"
+_OFF_DEPTH = "constexpr int kOffDepth = 8;"
+# the kernel of each copied source whose registers phase 2 prints
+COPIED_KERNEL = {"encode_fused": "encode_fused_kernel",
+                 "coder_scan": "coder_scan_off_kernel"}
 VARIANTS = {
     **{("encode_fused", f"{n} lanes"): (_BLOCK, f"constexpr int kBlock = {n};")
        for n in (32, 16, 8, 4, 2)},
@@ -117,6 +132,12 @@ VARIANTS = {
         "code_symbol(c, w, xv[k], s_fused);",
         "w += static_cast<uint32_t>(xv[k]); "
         "c.put_byte(static_cast<uint32_t>(w));"),
+    **{("coder_scan", f"{n} lanes"): (_CODER_BLOCK,
+                                      f"constexpr int kBlock = {n};")
+       for n in (1, 4)},
+    **{("coder_scan", f"depth {d}"): (_OFF_DEPTH,
+                                      f"constexpr int kOffDepth = {d};")
+       for d in (1, 4, 16, 32)},
 }
 
 # The least time the card could take for a kernel's work (bound_ms): the
@@ -263,10 +284,22 @@ def _malicious_stream() -> bytes:
     return out[0, : int(lens[0])].numpy().tobytes()
 
 
+def _kernel_name(mangled: str) -> str:
+    """A kernel's name from its mangled symbol: ``C<n>`` for an
+    instantiation on an int (kernel 2's channels C, C0 the generic one),
+    else the function's own name (the last part of a nested name)."""
+    rest, names = re.sub(r"^_ZN?", "", mangled), []
+    while m := re.match(r"\d+", rest):
+        n = int(m[0])
+        names.append(rest[len(m[0]):len(m[0]) + n])
+        rest = rest[len(m[0]) + n:]
+    arg = re.match(r"ILi(\d+)E", rest)
+    return f"C{arg[1]}" if arg else (names[-1] if names else mangled)
+
+
 def registers(report: str) -> dict:
     """``-Xptxas -v`` report -> {kernel: (registers, spill bytes)}, each
-    kernel named by its template argument where it has one (kernel 2's
-    channels C, C0 the generic one)."""
+    kernel named by ``_kernel_name``."""
     out, fn, spill = {}, None, 0
     for line in report.splitlines():
         if m := re.search(r"Function properties for (\S+)", line):
@@ -275,8 +308,7 @@ def registers(report: str) -> dict:
                             r"loads", line):
             spill = int(m[1]) + int(m[2])
         elif (m := re.search(r"Used (\d+) registers", line)) and fn:
-            arg = re.search(r"kernelILi(\d+)E", fn)
-            out[f"C{arg[1]}" if arg else "kernel"] = (int(m[1]), spill)
+            out[_kernel_name(fn)] = (int(m[1]), spill)
     check(bool(out), "ptxas -v printed no registers")
     return out
 
@@ -395,13 +427,10 @@ def _stage_run(torch, run, lanes_t, init, keep: bool = False):
     return ms, made, res
 
 
-def _coder_err(qlo, qhi) -> int:
-    """Kernel 4 against its plain version on (qlo, qhi): kp and fin."""
-    from llcomp_tpu_torch.kernels import encode_kernels as ek
-
-    kp, fin = ek.coder_scan_off_q(qlo, qhi)
-    kp_p, fin_p = ek.coder_scan_off_q_plain(qlo, qhi)
-    return max(_max_err(kp, kp_p), _max_err(fin, fin_p))
+def _kernel_err(kernel, plain, *args) -> int:
+    """``kernel`` against its plain version on ``args``: the largest
+    difference over their outputs (kp and fin of a coder)."""
+    return max(_max_err(a, b) for a, b in zip(kernel(*args), plain(*args)))
 
 
 def _sort_kernels_vs_plain(torch, made, init) -> dict:
@@ -425,16 +454,53 @@ def _sort_kernels_vs_plain(torch, made, init) -> dict:
             "walk_plain_ms": walk_ms, "coder_plain_ms": coder_ms}
 
 
-def _skewed_records(torch, Tq: int, S: int, dev):
-    """Random pair-packed coder quads (qlo, qhi) [Tq, S]: 90% valid, bits
-    P(1) = 0.97 on even lanes (long deferred runs, carries) and 0.5 on odd
-    ones, probabilities 7..247; from integer hashes only."""
-    r = _hash64(77, 4 * Tq * S).reshape(Tq, 2, 2, S)
+def skewed_recs(T: int, S: int, seed: int = 77, odds=(97, 50),
+                probs=(7, 248)) -> np.ndarray:
+    """Random coder records [T, S] int64 (``valid<<9 | bit<<8 | prob``),
+    from integer hashes only: 90% valid, bits P(1) = odds[0] % on even
+    lanes and odds[1] % on odd ones (97: long deferred runs, carries),
+    probabilities in [probs[0], probs[1])."""
+    r = _hash64(seed, T * S).reshape(T, S)
     valid = (r % np.uint64(10) != 0).astype(np.int64)
-    odds = np.where(np.arange(S) % 2 == 0, 97, 50).astype(np.uint64)
-    bit = ((r >> np.uint64(8)) % np.uint64(100) < odds).astype(np.int64)
-    prob = ((r >> np.uint64(20)) % np.uint64(241)).astype(np.int64) + 7
-    rec = valid << 9 | bit << 8 | prob
+    p1 = np.where(np.arange(S) % 2 == 0, *odds).astype(np.uint64)
+    bit = ((r >> np.uint64(8)) % np.uint64(100) < p1).astype(np.int64)
+    prob = ((r >> np.uint64(20)) % np.uint64(probs[1] - probs[0])
+            ).astype(np.int64) + probs[0]
+    return valid << 9 | bit << 8 | prob
+
+
+def off_record_cases(D: int) -> dict:
+    """Kernel 7's ragged cases for a ring of depth ``D``: name -> records
+    [T, S] int64.  T = 1, D - 1, D + 1 and a T off every multiple of D at
+    1, 33 and 130 lanes; 0xFF runs (bits P(1) = 0.99 with probabilities
+    7..63: deferred runs of a hundred bytes and more, resolved by carries
+    and by emits); dead lanes and dead tails of a different length in
+    every lane."""
+    cases = {f"T {T} S {S}": skewed_recs(T, S, seed=T + S)
+             for T in sorted({1, max(D - 1, 1), D + 1, 5 * D + 3})
+             for S in (1, 33, 130)}
+    cases["0xFF runs"] = skewed_recs(4000, 130, seed=78, odds=(99, 99),
+                                     probs=(7, 64))
+    dead = skewed_recs(3000, 130, seed=79)
+    dead[:, :10] = 0                                   # lanes all dead
+    for s in range(130):
+        dead[3000 - (s * 37) % 1500:, s] = 0           # dead tails
+    cases["dead lanes and tails"] = dead
+    return cases
+
+
+def off_depth() -> int:
+    """Kernel 7's ring depth (``kOffDepth``), read from its source."""
+    from llcomp_tpu_torch.kernels import build
+
+    src = (build.CSRC / "coder_scan.cu").read_text()
+    return int(re.search(r"constexpr int kOffDepth = (\d+);", src)[1])
+
+
+def _skewed_records(torch, Tq: int, S: int, dev):
+    """Random pair-packed coder quads (qlo, qhi) [Tq, S] of ``skewed_recs``
+    (kernel 4's input)."""
+    rec = skewed_recs(4 * Tq, S).reshape(Tq, 2, 2, S)
     qlo = rec[:, 0, 0] | rec[:, 0, 1] << 10
     qhi = rec[:, 1, 0] | rec[:, 1, 1] << 10
     return (torch.from_numpy(qlo.astype(np.int32)).to(dev),
@@ -447,6 +513,7 @@ def phase_kernels_vs_plain(torch, log) -> dict:
     from llcomp_tpu_torch.core import transform
     from llcomp_tpu_torch.kernels import decode_kernel as dk
     from llcomp_tpu_torch.kernels import encode_fused as ef
+    from llcomp_tpu_torch.kernels import encode_kernels as ek
 
     dev = torch.device("cuda")
     err_enc = err_dec = err_walk = err_coder = 0
@@ -542,9 +609,21 @@ def phase_kernels_vs_plain(torch, log) -> dict:
         err_walk, err_coder = max(err_walk, e_walk), max(err_coder, e_coder)
         check(e_walk == 0 and e_coder == 0, f"{name} {mode}: sort kernels "
               f"!= plain (walk {e_walk}, coder {e_coder})")
-    e_coder = _coder_err(*_skewed_records(torch, 1024, 256, dev))
+    e_coder = _kernel_err(ek.coder_scan_off_q, ek.coder_scan_off_q_plain,
+                          *_skewed_records(torch, 1024, 256, dev))
     err_coder = max(err_coder, e_coder)
     check(e_coder == 0, f"skewed records: coder kernel != plain ({e_coder})")
+    # kernel 7 on skewed records, T off its ring depth, 0xFF runs, dead
+    # lanes and tails
+    D = off_depth()
+    off_cases = {"skewed 4096 x 256": skewed_recs(4096, 256),
+                 **off_record_cases(D)}
+    err_off = 0
+    for name, recs in off_cases.items():
+        e = _kernel_err(ek.coder_scan_off, ek.coder_scan_off_plain,
+                        torch.from_numpy(recs.astype(np.int32)).to(dev))
+        err_off = max(err_off, e)
+        check(e == 0, f"{name}: coder_scan_off kernel != plain ({e})")
     inst = dict(dk.decode.instances)
     check(all(inst.values()), f"a kernel 2 instantiation never ran: {inst}")
     log(f"phase 3 kernel vs plain: {len(runs)} batches exact "
@@ -553,8 +632,11 @@ def phase_kernels_vs_plain(torch, log) -> dict:
         f"{n_err_lanes} flagged lanes agree; kernel 2 launches by "
         f"instantiation {inst}) "
         f"kernel {t_kernel:.3f} s, plain encode {t_plain:.1f} s")
+    log(f"phase 3 coder_scan_off (ring depth {D}) vs plain, kp and fin: "
+        f"{len(off_cases)} record sets exact (max_abs_err {err_off}): "
+        + ", ".join(off_cases))
     return {"encode": err_enc, "decode": err_dec, "walk": err_walk,
-            "coder": err_coder}
+            "coder": err_coder, "coder_off": err_off}
 
 
 def phase_main_path(torch, log) -> dict:
@@ -714,6 +796,8 @@ def phase_bench(torch, log, card: str, variants: dict) -> dict:
 
     times = {}
     for (name, tag), so in variants.items():
+        if name not in ("encode_fused", "decode_kernel"):
+            continue
         with running(name, so):
             if name == "decode_kernel":
                 times[name, tag] = _time_cuda(
@@ -1006,12 +1090,13 @@ def phase_sort(torch, log, card: str) -> dict:
             "bounds": bounds, **e}
 
 
-def phase_decision(torch, log, card: str) -> dict:
+def phase_decision(torch, log, card: str, variants: dict) -> dict:
     """Phase 7: the decision variant on the unprimed bench batch: bytes
     against both other encodes (also on a worst-case batch), round trip,
     launches, memory against the lane budget, timings; on one chunk of all
     lanes, kernels 5-8 against their plain versions on the inputs the engine
-    gave them, and kernel 8's own path to the variant's streams."""
+    gave them, kernel 7 beside its copies ``variants`` ({VARIANTS key:
+    library}), and kernel 8's own path to the variant's streams."""
     from llcomp_tpu_torch import coder, decode, encode
     from llcomp_tpu_torch.kernels import decode_kernel as dk
     from llcomp_tpu_torch.kernels import encode_fused as ef
@@ -1153,6 +1238,28 @@ def phase_decision(torch, log, card: str) -> dict:
             f"{name} kernel {r['ms']:.3f} ms vs plain {r['plain_ms']:.1f} ms"
             for name, r in res.items()))
 
+    # kernel 7 beside its copies (other lanes a block and ring depths), each
+    # output equal to the shipped kernel's, the shipped kernel timed again
+    # between them
+    def coder_off():
+        return ek.coder_scan_off(cx)
+
+    copies = {"shipped": [res["coder_scan_off"]["ms"]]}
+    for (name, tag), so in variants.items():
+        if name != "coder_scan":
+            continue
+        with running(name, so):
+            err = max(_max_err(a, b) for a, b in zip(coder_off(), (kp, fin)))
+            check(err == 0, f"coder_scan_off copy {tag!r} != shipped ({err})")
+            copies[tag] = [_time_cuda(torch, coder_off)]
+        copies["shipped"].append(_time_cuda(torch, coder_off))
+    log(f"phase 7 coder_scan_off ms beside its copies, {S} lanes x {Tc} "
+        f"records, same output (ring depth {off_depth()}, shipped timed "
+        f"between the copies): " + "; ".join(
+            f"{tag} " + ", ".join(f"{t:.3f}" for t in ts)
+            for tag, ts in copies.items()))
+    res["coder_scan_off"]["copies"] = {k: min(v) for k, v in copies.items()}
+
     # kernel 8's own path: the slot-record coder on the variant's records
     ek.coder_scan.launches = 0
     meta, runs_, fin4 = ek.coder_scan(cx)
@@ -1221,31 +1328,100 @@ def _library_call(torch, key: str, a: dict):
     return None
 
 
-def _device_ms(torch, fn, n: int) -> float | None:
-    """Device milliseconds a call of ``fn``: the kernels' own time under
-    ``torch.profiler`` over ``n`` calls, after a warm-up; None when the
-    profiler recorded no device activity."""
+def _device_us(prof) -> dict:
+    """{kernel: device microseconds} of a ``torch.profiler`` session, the
+    profiler's own buffer request left out."""
     from torch.autograd import DeviceType
+
+    return {e.key: e.self_device_time_total for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA
+            and e.key != "Activity Buffer Request"}
+
+
+def _device_ms(torch, fn, n: int, attempts: int = 3) -> float | None:
+    """Device milliseconds a call of ``fn``: the kernels' own time under
+    ``torch.profiler`` over ``n`` calls, after a warm-up; a session with
+    no device activity is made again, up to ``attempts`` times; None when
+    the profiler never recorded any."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(n):
-            fn()
-        torch.cuda.synchronize()
-    us = sum(e.self_device_time_total for e in prof.key_averages()
-             if e.device_type == DeviceType.CUDA
-             and e.key != "Activity Buffer Request")
-    return us / n / 1e3 if us else None
+    for _ in range(attempts):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+        us = sum(_device_us(prof).values())
+        if us:
+            return us / n / 1e3
+    return None
 
 
-def _probe_bound(key: str, a: dict) -> dict:
+def _in_turns(torch, calls: dict, n: int, attempts: int = 3) -> dict:
+    """Device milliseconds a call of each of ``calls`` (name -> fn) under
+    one ``torch.profiler`` session in which the calls take turns ``n``
+    times, so that all of them meet the same clocks (from one session to
+    the next a one-shot kernel's time moves by a third).  A call's time is
+    that of the kernels its warm-up (10 calls, profiled alone) launched,
+    which no other call may launch.  A session that lost a call's kernels
+    (the profiler's buffers sometimes come back empty) is made again, up
+    to ``attempts`` times; None where the profiler never saw them."""
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    for _ in range(attempts):
+        kernels = {}
+        for name, fn in calls.items():
+            with profile(activities=activities) as prof:
+                for _ in range(10):
+                    fn()
+                torch.cuda.synchronize()
+            kernels[name] = set(_device_us(prof))
+        check(sum(map(len, kernels.values()))
+              == len(set().union(*kernels.values())),
+              f"calls timed in turns share a kernel: {kernels}")
+        with profile(activities=activities) as prof:
+            for _ in range(n):
+                for fn in calls.values():
+                    fn()
+            torch.cuda.synchronize()
+        us = _device_us(prof)
+        ms = {name: sum(us.get(k, 0) for k in ks) / n / 1e3 or None
+              for name, ks in kernels.items()}
+        if None not in ms.values():
+            break
+    return ms
+
+
+def _empty_launch(torch):
+    """A call that launches a kernel doing nothing (one warp of
+    ``llct_probe_empty``, ``csrc/probe_mosaic3.cu``): its device time is
+    the launch floor."""
+    from llcomp_tpu_torch.kernels import build
+
+    fn = build.load("probe_mosaic3", "llct_probe_empty", [ctypes.c_void_p])
+    stream = torch.cuda.current_stream().cuda_stream
+    return lambda: build.check(fn(stream), "llct_probe_empty")
+
+
+def _probe_bound(key: str, a: dict, floor_ms: float | None) -> dict:
     """bound() of probe ``key`` on its arguments ``a``, from their shapes:
     the words each argument gives the probe read once, its output written
     once, and a stepped probe's T x lanes x the model words a step stages
-    (a lane rarely meets a row again in 15,872)."""
+    (a lane rarely meets a row again in 15,872).  A one-shot probe's bound
+    is at least ``floor_ms``, the device time of an empty launch (bound_by
+    "launch" where that wins); work_ms and work_by keep the bound of its
+    bytes and operations alone."""
+    b = _probe_work_bound(key, a)
+    b.update(work_ms=b["bound_ms"], work_by=b["bound_by"])
+    if not a.get("T") and floor_ms is not None and floor_ms > b["bound_ms"]:
+        b.update(bound_ms=floor_ms, bound_by="launch")
+    return b
+
+
+def _probe_work_bound(key: str, a: dict) -> dict:
     idx = a["idx"] if "idx" in a else a["x"]
     L, T = idx.shape[1], a.get("T", 0)
     word = 4
@@ -1281,7 +1457,30 @@ def _probe_bound(key: str, a: dict) -> dict:
                  T * L * (step + win * OPS_PROBE_WORD))
 
 
-def phase_probes(torch, log, card: str) -> dict:
+def row_store_turns(torch) -> tuple[dict, list]:
+    """The row store (p3, pC) beside ``scatter_`` and the empty launch, in
+    turns (``_in_turns``; p3 and pC launch the same kernel: one session
+    each): ({call: device ms}, [the empty launch's ms in each session]).
+    Made before any other profiler session of the process: after the
+    profiled encodes of phases 6 and 7, these short sessions lost the empty
+    launch's and ``scatter_``'s kernels in every attempt."""
+    from llcomp_tpu_torch import probes
+    from llcomp_tpu_torch.probes import mosaic, mosaic2
+
+    dev = torch.device("cuda")
+    empty, turn_ms, floors = _empty_launch(torch), {}, []
+    for k, p in (("p3", mosaic.PROBES["p3"]), ("pC", mosaic2.PROBES["pC"])):
+        a = p.make(0, 128, probes.ROWS, dev)
+        t = _in_turns(torch, {"empty": empty,
+                              k: functools.partial(p.fn, **a),
+                              f"{k} scatter_": _library_call(torch, k, a)},
+                      probes.LAUNCHES)
+        floors.append(t.pop("empty"))
+        turn_ms.update(t)
+    return turn_ms, floors
+
+
+def phase_probes(torch, log, card: str, turns: tuple) -> dict:
     """Phase 8: the 21 probes of ``llcomp_tpu_torch.probes`` (the TPU
     probes of ``tools/``) on the card.  Their path: every probe through
     ``probes.run_probe``, as its module's command line runs it, at the TPU
@@ -1290,8 +1489,10 @@ def phase_probes(torch, log, card: str) -> dict:
     Then each probe's kernel against its plain version, exactly (outputs
     and planes of random words; at 1,024 lanes too for the stepped ones),
     on inputs where the plain output differs across lanes or a plane
-    changes; the kernels' device time; the one PyTorch call that computes
-    the same function where there is one; and bounds."""
+    changes; the kernels' device time (p3's and pC's, beside ``scatter_``
+    and the launch floor, from ``turns``: ``row_store_turns``); the one
+    PyTorch call that computes the same function where there is one; and
+    bounds."""
     from llcomp_tpu_torch import probes
     from llcomp_tpu_torch.probes import mosaic, mosaic2, mosaic3, reduce
 
@@ -1344,6 +1545,8 @@ def phase_probes(torch, log, card: str) -> dict:
         f"at 128 lanes: " + ", ".join(f"{k} {v:.1f}"
                                       for k, v in plain_ms.items()))
 
+    turn_ms, floors = turns      # the floor is the lesser empty launch
+    floor_ms = min((f for f in floors if f is not None), default=None)
     library, library_ev, device, bounds = {}, {}, {}, {}
     for key, p in allp.items():
         a = p.make(0, 128, probes.ROWS, dev)
@@ -1351,15 +1554,16 @@ def phase_probes(torch, log, card: str) -> dict:
             a["T"] = p.T
         call = _library_call(torch, key, a)
         if not p.T:      # the kernels' own time, without the host's
-            device[key] = _device_ms(torch, lambda: p.fn(**a),
-                                     probes.LAUNCHES)
+            device[key] = turn_ms[key] if key in turn_ms else _device_ms(
+                torch, lambda: p.fn(**a), probes.LAUNCHES)
         if call is not None:
             check(torch.equal(call(), p.fn(**p.make(0, 128, probes.ROWS,
                                                       dev))),
                   f"probe {key}: the library call != the kernel")
             library_ev[key] = _time_cuda(torch, call, calls=probes.LAUNCHES)
-            library[key] = _device_ms(torch, call, probes.LAUNCHES)
-        bounds[key] = _probe_bound(key, a)
+            library[key] = (turn_ms[f"{key} scatter_"] if key in turn_ms
+                            else _device_ms(torch, call, probes.LAUNCHES))
+        bounds[key] = _probe_bound(key, a, floor_ms)
     log("phase 8 library calls, ms a call (CUDA events, "
         f"{probes.LAUNCHES} calls back to back, median of 3; host-bound), "
         "equal to the kernels: " + ", ".join(
@@ -1370,32 +1574,48 @@ def phase_probes(torch, log, card: str) -> dict:
                                  else "not measured" for v in pair)
             for k, pair in ((k, (device[k], library.get(k)))
                             for k in device)))
-    log("phase 8 bounds at 128 lanes: " + ", ".join(
-        f"{k} {b['bound_ms'] * 1e3:.5g} us by {b['bound_by']} ({b['bytes']} B, "
-        f"{b['ops']} ops)" for k, b in bounds.items()))
+
+    def us(ms):
+        return f"{ms * 1e3:.3f}" if ms is not None else "not measured"
+
+    log(f"phase 8 device us a call (torch.profiler, {probes.LAUNCHES} turns "
+        f"in one session each): launch floor (an empty kernel, one warp) "
+        f"{' and '.join(map(us, floors))}; row store " + ", ".join(
+            f"{k} {us(device[k])} (scatter_ {us(library[k])})"
+            for k in ("p3", "pC")))
+    log("phase 8 bounds at 128 lanes (a one-shot probe's at least the "
+        "launch floor): " + ", ".join(
+            f"{k} {b['bound_ms'] * 1e3:.5g} us by {b['bound_by']} "
+            f"({b['bytes']} B, {b['ops']} ops: {b['work_ms'] * 1e3:.5g} us "
+            f"by {b['work_by']})" for k, b in bounds.items()))
 
     # ms: a stepped probe's one launch (CUDA events); a one-shot probe's
     # and its library call's device time, where the profiler saw it, else
-    # their host-bound event time (ms_from says which)
+    # their host-bound event time (ms_from says which).  bound_ms and
+    # bound_by: the bytes and operations alone; a one-shot probe's bound
+    # with the launch floor in launch_bound_ms and launch_bound_by
     rows = []
     for row, (keys, replaces) in PROBE_ROWS.items():
         k = keys[0]
         ev_ms = runs[k, 128, allp[k].T]["ms"]
         on_device = not allp[k].T and device[k] is not None and (
             k not in library_ev or library[k] is not None)
+        b = bounds[k]
         rows.append({
             "name": row, "route": "cuda",
             "source": f"llcomp_tpu_torch/csrc/{source[k]}.cu",
             "replaces": replaces, "launches": counts[row],
             "max_abs_err": max(errs[key] for key in keys),
             "ms": device[k] if on_device else ev_ms, "plain_ms": plain_ms[k],
-            "bound_ms": bounds[k]["bound_ms"],
-            "bound_by": bounds[k]["bound_by"],
+            "bound_ms": b["work_ms"], "bound_by": b["work_by"],
             "library_ms": (library if on_device else library_ev).get(k),
             "ms_from": ("torch.profiler, device" if on_device else
                         "CUDA events" + ("" if allp[k].T else
                                          ", through the wrapper")),
-            **({} if allp[k].T else {"wrapper_ms": ev_ms})})
+            **({} if allp[k].T else {
+                "wrapper_ms": ev_ms, "launch_floor_ms": floor_ms,
+                "launch_bound_ms": b["bound_ms"],
+                "launch_bound_by": b["bound_by"]})})
     return {"rows": rows, "runs": runs}
 
 
@@ -1431,30 +1651,33 @@ def main() -> int:
             variants = dict(zip(VARIANTS, pool.map(build_variant, VARIANTS)))
             list(pool.map(build.build, KERNEL_SOURCES))
         log(f"phase 2 build: {len(KERNEL_SOURCES)} kernel sources from "
-            f"llcomp_tpu_torch/csrc and {len(VARIANTS)} copies of kernels 1 "
-            f"and 2, one nvcc each in parallel, in "
+            f"llcomp_tpu_torch/csrc and {len(VARIANTS)} copies of kernels "
+            f"1, 2 and 7, one nvcc each in parallel, in "
             f"{time.perf_counter() - t0:.2f} s")
         regs = {name: registers(build.compiler_log(name))
                 for name in PTXAS_SOURCES}
+        copied = {f"{name} {tag}": registers(rep)[COPIED_KERNEL[name]]
+                  for (name, tag), (_, rep) in variants.items()
+                  if name in COPIED_KERNEL}
         spills = {f"{name} {k}": v for name, r in regs.items()
                   for k, v in r.items() if v[1]}
+        spills.update({k: v for k, v in copied.items() if v[1]})
         check(not spills, f"ptxas reports spills: {spills}")
         log("phase 2 ptxas -v (sm_90a), registers a thread, no spills: "
             + "; ".join(f"{name} " + ", ".join(f"{k} {v[0]}"
                                                for k, v in r.items())
                         for name, r in regs.items())
-            + "; copies: " + ", ".join(
-                f"{name} {tag} {registers(rep)['kernel'][0]}"
-                for (name, tag), (_, rep) in variants.items()
-                if name == "encode_fused"))
+            + "; copies (encode_fused_kernel, coder_scan_off_kernel): "
+            + ", ".join(f"{k} {v[0]}" for k, v in copied.items()))
         variants = {k: so for k, (so, _) in variants.items()}
 
+        turns = row_store_turns(torch)       # phase 8's, made first
         errs = phase_kernels_vs_plain(torch, log)
         counts = phase_main_path(torch, log)
         bench = phase_bench(torch, log, card, variants)
         sort = phase_sort(torch, log, card)
-        decision = phase_decision(torch, log, card)
-        probe = phase_probes(torch, log, card)
+        decision = phase_decision(torch, log, card, variants)
+        probe = phase_probes(torch, log, card, turns)
         if "jax" in sys.modules or "llcomp_tpu" in sys.modules:
             raise Failed("the port imported JAX or llcomp_tpu")
     except Failed as e:
@@ -1506,8 +1729,11 @@ def main() -> int:
             "name": name, "route": "cuda",
             "source": f"llcomp_tpu_torch/csrc/{src}.cu",
             "replaces": f"llcomp_tpu/pallas/encode_kernels.py:{line}",
-            "launches": r["launches"], "max_abs_err": r["err"],
-            "ms": r["ms"], "plain_ms": r["plain_ms"], **bound_of(r["bound"])})
+            "launches": r["launches"],
+            "max_abs_err": max(r["err"], errs["coder_off"])
+            if name == "coder_scan_off" else r["err"],
+            "ms": r["ms"], "plain_ms": r["plain_ms"], **bound_of(r["bound"]),
+            **({"copies_ms": r["copies"]} if "copies" in r else {})})
     kernels += probe["rows"]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -30,17 +30,37 @@
 // What bounds them on the H100: latency.  Each lane is one serial chain of
 // multiply, compare and shift per decision; bytes moved are 2 to 4 B in and
 // 4 to 8 B out per decision, coalesced (lane-minor arrays), and 1,024 lanes
-// put only 32 warps in flight.
+// put only 32 warps in flight.  A record's load takes longer than the
+// chain's own work on it, so a kernel whose loop loads each record when it
+// codes it waits out one device-memory latency a step.
 //
 // What the design does about it: the coder state is a few registers, no
 // memory is touched but the records in and out, and all three kernels share
 // one step (coder_code, then coder_shift), so the state update exists once.
+// The step is written with selects, not branches: with its loads off the
+// chain the step itself is the chain, and its branches, which a warp's
+// lanes take different ways, made it longer.  Kernel 7 keeps its records
+// in flight ahead of the chain: no record depends on the coder state, so
+// each lane holds a ring of kOffDepth records in registers, loaded kOffDepth
+// steps before they are coded (the loop is unrolled by the depth, so each
+// slot keeps its register); a record past T loads as 0, which codes
+// nothing.  Kernels 4 and 8 still load each step's records on the chain.
+// Measured at 1,024 lanes x 61,696 records (one H100 80GB HBM3 at 700 W,
+// chip_smoke.py phase 7, which times copies of this file built with other
+// depths and lanes a block): kernel 7 took 31.1 ms loading each record on
+// the chain, 12.1 ms with a ring 16 deep on the branching step, and 5.9 ms
+// as shipped (depth 8, 32 lanes a block, 40 registers); the copies took
+// 14.8, 8.7, 8.0 and 8.4 ms at depths 1, 4, 16 and 32 (74-80 registers at
+// 16 and 32: a larger unrolled body for no more hidden latency), 6.4 and
+// 5.9 ms at 1 and 4 lanes a block.  This step took kernels 4 and 8 from
+// 18.5 and 30.6 ms to 11.8 and 15.6 ms.
 #include <cstdint>
 #include <cuda_runtime.h>
 
 namespace {
 
 constexpr int kBlock = 32;                  // lanes (threads) per block
+constexpr int kOffDepth = 8;                // kernel 7: records in flight
 constexpr int32_t kSilent = 0x7FFFFFFF;     // no byte flushed
 constexpr int32_t kOffLimit = 1 << 22;      // keeps off<<9 in int32
 
@@ -72,48 +92,43 @@ __device__ __forceinline__ Flush flush_of(const Coder& c) {
 
 // The put of one record valid<<9 | bit<<8 | prob (llcomp.hpp:60-73,
 // encode_kernels.py:427-437): true where the renormalising shift follows.
+// Selects, not branches, as in coder_shift (the note above says why).
 __device__ __forceinline__ bool coder_code(Coder& c, int32_t x) {
-  if (!(x & 0x200)) return false;
+  const bool valid = x & 0x200, one = x & 0x100;
   const int32_t range1 = (c.rng * (x & 0xFF)) >> 8;
-  if (x & 0x100) {
-    c.low += c.rng - range1;
-    c.rng = range1;
-  } else {
-    c.rng -= range1;
-  }
-  return c.rng < 0x100;
+  c.low = valid && one ? c.low + c.rng - range1 : c.low;
+  c.rng = valid ? (one ? range1 : c.rng - range1) : c.rng;
+  return valid && c.rng < 0x100;
 }
 
 // The renormalising shift with lazy carries (llcomp.hpp:38-58,
-// encode_kernels.py:439-457): true where it emits (flushes the pending
-// byte and its run, as flush_of read them before the shift).
-__device__ __forceinline__ bool coder_shift(Coder& c) {
-  bool emit = false;
-  if (c.pend < 0) {                               // the first shift
-    c.pend = (c.low >> 8) & 0xFF;
-  } else if (c.low <= 0xFF00 || c.low >= 0x10000) {
-    emit = true;
-    c.run = 0;
-    c.pend = (c.low >> 8) & 0xFF;
-  } else {                                        // top byte 0xFF: defer
-    ++c.run;
-  }
-  c.low = (c.low & 0xFF) << 8;
-  c.rng <<= 8;
+// encode_kernels.py:439-457), done where `shift` is true: true where it
+// emits (flushes the pending byte and its run, as flush_of read them before
+// the shift).  The first shift only sets the pending byte; a top byte of
+// 0xFF defers.
+__device__ __forceinline__ bool coder_shift(Coder& c, bool shift) {
+  const bool first = c.pend < 0;
+  const bool resolved = c.low <= 0xFF00 || c.low >= 0x10000;
+  const bool emit = shift && !first && resolved;
+  const bool defer = shift && !first && !resolved;
+  c.pend = shift && !defer ? (c.low >> 8) & 0xFF : c.pend;
+  c.run = emit ? 0 : c.run + defer;
+  c.low = shift ? (c.low & 0xFF) << 8 : c.low;
+  c.rng = shift ? c.rng << 8 : c.rng;
   return emit;
 }
 
 // One step of kernels 4 and 7: its offset-packed byte record
 // (encode_kernels.py:512-518).
 __device__ __forceinline__ int32_t coder_put(CoderOff& c, int32_t x) {
-  if (!coder_code(c, x)) return kSilent;
+  const bool shift = coder_code(c, x);
   const Flush f = flush_of(c);
-  if (!coder_shift(c)) return kSilent;
-  if (c.off >= kOffLimit) c.bad = 1;
+  const bool emit = coder_shift(c, shift);
+  c.bad |= emit && c.off >= kOffLimit;
   const int32_t rec = static_cast<int32_t>(
       (static_cast<uint32_t>(c.off) << 9) | (f.carry << 8) | f.head);
-  c.off += 1 + f.run;
-  return rec;
+  c.off += emit ? 1 + f.run : 0;
+  return emit ? rec : kSilent;
 }
 
 __device__ __forceinline__ void store_fin(const Coder& c, int32_t* fin,
@@ -161,11 +176,26 @@ coder_scan_off_kernel(const int32_t* __restrict__ xs,      // [T, S]
                       int32_t* __restrict__ fin,           // [5, S]
                       int32_t* __restrict__ bad,           // [S]
                       int T, int S) {
-  const int lane = blockIdx.x * blockDim.x + threadIdx.x;
+  constexpr int D = kOffDepth;
+  const int lane = blockIdx.x * kBlock + threadIdx.x;
   if (lane >= S) return;
   const size_t s = static_cast<size_t>(S);
+  const int32_t* xl = xs + lane;           // record t at xl[t * s]
+  int32_t* kl = kp + lane;
+  auto load_x = [&](int t) -> int32_t { return t < T ? xl[t * s] : 0; };
+  int32_t xv[D];                           // slot k: record t0 + k
+#pragma unroll
+  for (int k = 0; k < D; ++k) xv[k] = load_x(k);
   CoderOff c;
-  for (int t = 0; t < T; ++t) kp[t * s + lane] = coder_put(c, xs[t * s + lane]);
+  for (int t0 = 0; t0 < T; t0 += D) {
+#pragma unroll
+    for (int k = 0; k < D; ++k) {
+      const int t = t0 + k;
+      const int32_t rec = coder_put(c, xv[k]);
+      xv[k] = load_x(t + D);               // coded D steps from now
+      if (t < T) kl[t * s] = rec;
+    }
+  }
   store_fin_off(c, fin, bad, s, lane);
 }
 
@@ -182,7 +212,7 @@ coder_scan_kernel(const int32_t* __restrict__ xs,          // [T, S]
   for (int t = 0; t < T; ++t) {
     const bool shift = coder_code(c, xs[t * s + lane]);
     const Flush f = flush_of(c);
-    const uint32_t emit = shift && coder_shift(c);
+    const uint32_t emit = coder_shift(c, shift);
     meta[t * s + lane] = static_cast<int32_t>(emit | (f.carry << 1)
                                               | (f.head << 8));
     runs[t * s + lane] = f.run;

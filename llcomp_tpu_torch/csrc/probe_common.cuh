@@ -93,14 +93,26 @@ window_gather(const int32_t* __restrict__ idx, const int32_t* __restrict__ src,
 
 // Per-lane row store (the TPU's row read-modify-write): model[idx[0, l]
 // mod 8, l] = val[0, l]; out = model[0:8].  Probes p3 and pC.
+// What bounds it: one launch; it moves a few KB.  A load after the store
+// would have to wait for it (the row r is data, so any of the 8 words may
+// be the one stored), putting a store and a load round trip in series.  So
+// the lane's 8 words are loaded first, beside idx and val, as independent
+// loads; val replaces word r in registers; then out and the one model word
+// are stored, and no load follows a store.
 __global__ void __launch_bounds__(kLaneBlock)
 row_store(const int32_t* __restrict__ idx, const int32_t* __restrict__ val,
           int32_t* __restrict__ model, int32_t* __restrict__ out, int lanes) {
   const int l = blockIdx.x * blockDim.x + threadIdx.x;
   if (l >= lanes) return;
   const size_t n = static_cast<size_t>(lanes);
-  model[fmod_floor(idx[l], 8) * n + l] = val[l];
-  for (int i = 0; i < 8; ++i) out[i * n + l] = model[i * n + l];
+  int32_t w[8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i) w[i] = model[i * n + l];
+  const int r = fmod_floor(idx[l], 8);
+  const int32_t v = val[l];
+#pragma unroll
+  for (int i = 0; i < 8; ++i) out[i * n + l] = i == r ? v : w[i];
+  model[r * n + l] = v;
 }
 
 // Elementwise out[0, l] = idx[0, l] * a + b.  Probes p6 (1, 1) and pA (2, 1).

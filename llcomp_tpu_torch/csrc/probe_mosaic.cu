@@ -34,7 +34,10 @@
 // warp's 32 lanes read 32 different rows, so each load is 32 sectors.
 //
 // The H100's answer (one H100 80GB HBM3 at 700 W, chip_smoke.py phase 8,
-// two runs): p0-p6 each run 0.8-1.8 us on the device a launch.  A symbol
+// two runs): p0-p6 each run 0.8-1.8 us on the device a launch, over an
+// empty launch's 0.6-0.9 us; p3's row store, its loads issued before its
+// stores (probe_common.cuh), 1.16 us against scatter_'s 1.55 us in turns
+// in one profiler session (1.8 us when it loaded after its store).  A symbol
 // step costs 400-461 ns of staging one word in and out (p8) at 128 lanes
 // and 676-726 ns at 1,024 (the plane past L2), 783-858 ns of 24 decisions
 // (p9) at either, 634-696 ns unrolled (p10), and 1,192-1,264 ns at 128

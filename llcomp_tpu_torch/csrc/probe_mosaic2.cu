@@ -26,7 +26,9 @@
 // stores a step.
 //
 // The H100's answer (one H100 80GB HBM3 at 700 W, chip_smoke.py phase 8,
-// two runs): pA-pE each run 0.8-1.8 us on the device a launch; pF takes
+// two runs): pA-pE each run 0.8-1.8 us on the device a launch (pC, the
+// row store of p3 in probe_mosaic.cu, 1.16 us against scatter_'s 1.55 us
+// in turns in one profiler session); pF takes
 // 1,081-1,172 ns a step at 128 lanes and 1,363-1,437 ns at 1,024, the
 // staging of p8 plus the unrolled decisions of p10 in probe_mosaic.cu.
 #include "probe_common.cuh"

@@ -11,7 +11,8 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import repeat_lanes
+from chip_smoke import (off_depth, off_record_cases, repeat_lanes,
+                        skewed_recs)
 from llcomp_tpu_torch import api, coder, decode, encode, probes, seed
 from llcomp_tpu_torch.core.config import REV2
 from llcomp_tpu_torch.kernels import decode_kernel as dk
@@ -264,6 +265,40 @@ def test_walk_and_coders_equal_plain_on_random_records(dev):
     assert torch.equal(lens2, lens) and torch.equal(got, want)
 
 
+@pytest.mark.parametrize("S", [1, 33, 130, 1101])
+@pytest.mark.parametrize("steps", ["1", "D-1", "D+1", "5D+3"])
+def test_coder_off_kernel_equal_plain_on_ragged_T(dev, steps, S):
+    """Kernel 7 on T around its ring depth D (T = 1 and D - 1 below it, D
+    + 1 and 5D + 3 off every multiple of it), ragged lane counts."""
+    D = off_depth()
+    T = {"1": 1, "D-1": max(D - 1, 1), "D+1": D + 1, "5D+3": 5 * D + 3}[steps]
+    xs = torch.from_numpy(skewed_recs(T, S, seed=T + S).astype(np.int32))
+    before = ek.coder_scan_off.launches
+    kp, fin = ek.coder_scan_off(xs.to(dev))
+    assert ek.coder_scan_off.launches == before + 1
+    kp_p, fin_p = ek.coder_scan_off_plain(xs)
+    assert torch.equal(kp.cpu(), kp_p) and torch.equal(fin.cpu(), fin_p)
+
+
+@pytest.mark.parametrize("case", ["0xFF runs", "dead lanes and tails"])
+def test_coder_off_kernel_equal_plain_on_runs_and_dead_lanes(dev, case):
+    """Deferred runs of 0xFF bytes past a hundred, resolved by carries and
+    emits; lanes all dead (no byte, the start state in fin) and a dead
+    tail of a different length in every lane."""
+    xs = torch.from_numpy(off_record_cases(off_depth())[case]
+                          .astype(np.int32))
+    kp, fin = ek.coder_scan_off(xs.to(dev))
+    kp_p, fin_p = ek.coder_scan_off_plain(xs)
+    assert torch.equal(kp.cpu(), kp_p) and torch.equal(fin.cpu(), fin_p)
+    if case == "0xFF runs":
+        _, runs, _ = ek.coder_scan_plain(xs)
+        assert (runs > 100).any()
+    else:
+        assert (kp_p[:, :10] == coder.KP_SILENT).all()
+        assert (fin_p[:, :10].T == torch.tensor([0, 0xFF00, -1, 0, 0],
+                                                dtype=torch.int32)).all()
+
+
 def test_decision_variant_cuda_bytes_equal_cpu_and_fused(dev):
     lanes = _lanes((6, 16, 3), 6)
     before = {k: k.launches for k in (ek.build_stream, ek.walk_probs,
@@ -313,3 +348,29 @@ def test_staging_probes_equal_plain_on_random_planes(dev, key):
            for k, v in a.items()}
     assert torch.equal(p.fn(**a), p.plain(**ref))
     assert torch.equal(a["model"], ref["model"])
+
+
+@pytest.mark.parametrize("lanes", [1, 33, 130])
+@pytest.mark.parametrize("key", ["p3", "pC"])
+def test_row_store_equals_plain_on_random_planes(dev, key, lanes):
+    """The row store on planes of random words: over eight calls every lane
+    stores into each of its 8 rows once (lanes take different rows in a
+    call); out and the whole plane exact, one word a lane changed."""
+    p = PROBES[key]
+    rng = np.random.default_rng(lanes)
+    model = torch.from_numpy(rng.integers(-2**31, 2**31, (40, lanes),
+                                          dtype=np.int32))
+    ref = model.clone()
+    model = model.to(dev)
+    for r in range(8):
+        idx = torch.from_numpy(
+            (8 * rng.integers(0, 1 << 20, (1, lanes))
+             + (r + np.arange(lanes)) % 8).astype(np.int32))
+        val = torch.from_numpy(rng.integers(-2**31, 2**31, (1, lanes),
+                                            dtype=np.int32))
+        before = ref.clone()
+        out = p.fn(idx=idx.to(dev), val=val.to(dev), model=model)
+        want = p.plain(idx=idx, val=val, model=ref)
+        assert torch.equal(out.cpu(), want)
+        assert torch.equal(model.cpu(), ref)
+        assert int((ref != before).sum()) <= lanes

@@ -142,28 +142,48 @@ def test_coder_scan_plain_equals_jax(chain):
     assert torch.equal(fin, _minor(chain["fin4"], S))
 
 
-def test_coders_plain_equal_jax_on_skewed_records():
+@pytest.mark.parametrize("case", ["skewed", "0xFF runs", "odd T",
+                                  "dead lanes"])
+def test_coders_plain_equal_jax_on_skewed_records(case):
     """Random records, bits P(1) = 0.97 on half the lanes: long deferred
-    runs and carries, in both coders."""
+    runs and carries, in both coders.  The other cases: P(1) = 0.99 on
+    every lane with probabilities 7..63 (deferred runs of 0xFF bytes past
+    a hundred); T = 777, off the JAX kernel's 512-step chunk (JAX codes
+    the same records followed by dead ones); lanes all dead and a dead
+    tail of a different length in every other lane."""
     rng = np.random.default_rng(4)
     shape = (1, 1024, 8, 128)
     p1 = np.where(np.arange(128) % 2 == 0, 0.97, 0.5)
+    probs = (7, 248)
+    if case == "0xFF runs":
+        p1, probs = np.full(128, 0.99), (7, 64)
     xs_g = ((rng.random(shape) < 0.9).astype(np.int32) << 9
             | (rng.random(shape) < p1).astype(np.int32) << 8
-            | rng.integers(7, 248, shape, dtype=np.int32))
+            | rng.integers(*probs, shape, dtype=np.int32))
+    S, T = 40, 777 if case == "odd T" else 1024
+    xs_g[:, T:] = 0
+    if case == "dead lanes":          # port lane l is xs_g[0, :, 0, l]
+        xs_g[0, :, 0, :10] = 0
+        for lane in range(10, S):
+            xs_g[0, 1024 - (lane * 37) % 700:, 0, lane] = 0
     kp_g, fin_g = pk.coder_scan_off(jnp.asarray(xs_g))
     meta_g, runs_g, fin4_g = pk.coder_scan(jnp.asarray(xs_g))
-    S = 40
-    xs = _minor(xs_g, S)
+    xs = _minor(xs_g, S)[:T]
     kp, fin = ek.coder_scan_off(xs)
-    assert torch.equal(kp, _minor(kp_g, S))
+    assert torch.equal(kp, _minor(kp_g, S)[:T])
     assert torch.equal(fin, _minor(fin_g, S))
     meta, runs, fin4 = ek.coder_scan(xs)
-    assert torch.equal(meta, _minor(meta_g, S))
-    assert torch.equal(runs, _minor(runs_g, S))
+    assert torch.equal(meta, _minor(meta_g, S)[:T])
+    assert torch.equal(runs, _minor(runs_g, S)[:T])
     assert torch.equal(fin4, _minor(fin4_g, S))
     assert ((kp != coder.KP_SILENT) & ((kp & 0x100) != 0)).any()
     assert ((meta & 3) == 3).any() and (runs > 2).any()
+    if case == "0xFF runs":
+        assert (runs > 100).any()
+    if case == "dead lanes":
+        assert (kp[:, :10] == coder.KP_SILENT).all()
+        assert torch.equal(fin[:, :10], torch.tensor(
+            [[0], [0xFF00], [-1], [0], [0]], dtype=torch.int32).expand(5, 10))
 
 
 def test_finish_steps_equal_jax(chain):
