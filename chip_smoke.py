@@ -12,9 +12,9 @@ Phases (each prints one line; any failure exits non-zero without the final
 1. device: CUDA must be available; prints the card's name and power limit;
 2. build: compiles the ten kernel sources of ``llcomp_tpu_torch/csrc`` (the
    eight library kernels and the 21 probes), one nvcc each, in parallel,
-   beside the copies of kernels 1, 2 and 7 that phases 5 and 7 time
-   (``VARIANTS``); prints the registers a thread of kernels 1, 2, 4, 7 and
-   8 and of the copies from the compiler's ``-Xptxas -v`` report (a spill
+   beside the copies of kernels 1, 2, 3, 6 and 7 that phases 5-7 time
+   (``VARIANTS``); prints the registers a thread of kernels 1-4 and 6-8
+   and of the copies from the compiler's ``-Xptxas -v`` report (a spill
    fails);
 3. kernel vs plain: each CUDA kernel against its plain PyTorch version on
    small lane batches (photo, flat, noise, grayscale, RGBA, C = 2 and 5,
@@ -25,8 +25,12 @@ Phases (each prints one line; any failure exits non-zero without the final
    launch, and the sort chain's coders (kernels 4 and 7) on random records
    with skewed bits, kernel 7 also with T around its ring depth at 1, 33
    and 130 lanes, deferred 0xFF runs past a hundred bytes, dead lanes and
-   dead tails; the tolerance is exact equality of bytes, lengths, planes,
-   error flags, walk records, coder records and final carries;
+   dead tails; the walks (kernels 3 and 6) on synthetic context runs
+   (``seg_cases``: a seg on every entry, on entry 0 only, on none, runs
+   across chunks, a seg on every chunk start, a one-run tail) at T around
+   their chunk count and 1, 33, 130 and 513 lanes; the tolerance is exact
+   equality of bytes, lengths, planes, error flags, walk records, coder
+   records and final carries;
 4. main path: ``api.compress(img, slices="auto")`` + ``api.decompress`` on a
    512x512x3 and a 2048x2048x3 image; the ``.llct`` sha256 must equal the
    pinned golden (the bytes of ``llcomp_tpu``'s native backend) and the
@@ -49,7 +53,9 @@ Phases (each prints one line; any failure exits non-zero without the final
    its device idle share and its ten largest device ops under
    ``torch.profiler``, split by stage; each kernel held exactly against its
    plain version on the inputs the engine gave it at this shape, and both
-   timed;
+   timed, kernel 3 with its longest piece and thread walk and beside
+   copies of it with other chunk counts and ring depths, each copy's
+   output equal to the shipped kernel's;
 7. the decision variant (``encode_lanes(engine="sort",
    variant="decision")``, kernels 5, 6 and 7) on the unprimed bench batch:
    streams equal to the fused engine's and the symbol variant's, also on
@@ -58,9 +64,11 @@ Phases (each prints one line; any failure exits non-zero without the final
    ``encode.lane_bytes``; timed end to end beside both other encodes on the
    same batches, its device idle share and largest ops, split by stage; on
    all 1,024 lanes in one chunk, kernels 5-8 held exactly against their
-   plain versions on the inputs the engine gave them, and timed, kernel 7
-   beside copies of it with other lanes a block and ring depths, each
-   copy's output equal to the shipped kernel's; kernel 8
+   plain versions on the inputs the engine gave them, and timed, kernel 6
+   (with its longest piece and thread walk) beside copies of it with other
+   chunk counts and ring depths and kernel 7 beside copies of it with
+   other lanes a block and ring depths, each copy's output equal to the
+   shipped kernel's; kernel 8
    (``coder_scan``, the slot-record coder) run on its own path on the
    variant's coder records, through ``coder.finish_steps`` and
    ``coder.expand_slots``, must give the variant's streams;
@@ -105,22 +113,47 @@ PROBE_SOURCES = ("probe_mosaic", "probe_mosaic2", "probe_mosaic3",
                  "probe_reduce")
 KERNEL_SOURCES = ("encode_fused", "decode_kernel", "walk_symbols",
                   "coder_scan", "build_stream", "walk_probs", *PROBE_SOURCES)
-# the main path's kernels and the range coders: phase 2 reads their
-# registers and spills
-PTXAS_SOURCES = ("encode_fused", "decode_kernel", "coder_scan")
-# Copies of kernels 1, 2 and 7 that phases 5 and 7 time beside the shipped
-# ones, each built from the shipped source with one edit (old, new): other
-# lanes a block (kernels 1 and 7's constants, kernel 2's rule) and other
-# look-ahead depths of kernels 1 and 7 (the measurements behind those
-# choices), and kernel 1 with each symbol's decisions replaced by one byte
-# out (the split of a symbol's time).
+# the main path's kernels, the walks and the range coders: phase 2 reads
+# their registers and spills
+PTXAS_SOURCES = ("encode_fused", "decode_kernel", "walk_symbols",
+                 "walk_probs", "coder_scan")
+# Copies of kernels 1, 2, 3, 6 and 7 that phases 5-7 time beside the
+# shipped ones, each built from the shipped source with one edit (old,
+# new): other lanes a block (kernels 1 and 7's constants, kernel 2's rule),
+# other look-ahead depths of kernels 1, 3, 6 and 7 and other chunk counts
+# of the walks (kernels 3 and 6; the measurements behind those choices),
+# and kernel 1 with each symbol's decisions replaced by one byte out (the
+# split of a symbol's time).
 _BLOCK, _DEPTH = "constexpr int kBlock = 1;", "constexpr int kDepth = 2;"
 _RULE = "  return e;\n"       # the end of kernel 2's lanes_a_block
 _CODER_BLOCK = "constexpr int kBlock = 32;"
 _OFF_DEPTH = "constexpr int kOffDepth = 8;"
+# the walks' shipped chunk counts and ring depths, and those of their
+# copies (kernel 3 spills at depth 32)
+WALK_SHIPPED = {"walk_symbols": (64, 4), "walk_probs": (64, 16)}
+WALK_COPIES = {"walk_symbols": {"C": (1, 8, 16, 32, 64), "D": (1, 4, 8, 16)},
+               "walk_probs": {"C": (1, 8, 16, 32, 64),
+                              "D": (1, 4, 8, 16, 32)}}
 # the kernel of each copied source whose registers phase 2 prints
 COPIED_KERNEL = {"encode_fused": "encode_fused_kernel",
-                 "coder_scan": "coder_scan_off_kernel"}
+                 "coder_scan": "coder_scan_off_kernel",
+                 "walk_symbols": "walk_symbols_kernel",
+                 "walk_probs": "walk_probs_kernel"}
+
+
+def _walk_variants() -> dict:
+    """The walks' copies: each chunk count and ring depth of
+    ``WALK_COPIES`` but the shipped one."""
+    out = {}
+    for name, (C, D) in WALK_SHIPPED.items():
+        for key, const, ship in (("C", "kChunks", C), ("D", "kDepth", D)):
+            out.update({(name, f"{key} {v}"): (
+                f"constexpr int {const} = {ship};",
+                f"constexpr int {const} = {v};")
+                for v in WALK_COPIES[name][key] if v != ship})
+    return out
+
+
 VARIANTS = {
     **{("encode_fused", f"{n} lanes"): (_BLOCK, f"constexpr int kBlock = {n};")
        for n in (32, 16, 8, 4, 2)},
@@ -138,6 +171,7 @@ VARIANTS = {
     **{("coder_scan", f"depth {d}"): (_OFF_DEPTH,
                                       f"constexpr int kOffDepth = {d};")
        for d in (1, 4, 16, 32)},
+    **_walk_variants(),
 }
 
 # The least time the card could take for a kernel's work (bound_ms): the
@@ -313,22 +347,29 @@ def registers(report: str) -> dict:
     return out
 
 
-def build_variant(key: tuple[str, str]) -> tuple[pathlib.Path, str]:
-    """The copy ``VARIANTS[key]`` of ``csrc/<key[0]>.cu``, built with the
-    port's flags: (its library, the compiler's report)."""
+def build_copy(name: str, tag: str, edits) -> tuple[pathlib.Path, str]:
+    """``csrc/<name>.cu`` with each edit (old, new) made, every old text
+    found once, built with the port's flags as copy ``tag``: (its library,
+    the compiler's report)."""
     from llcomp_tpu_torch.kernels import build
 
-    name, tag = key
-    old, new = VARIANTS[key]
     src = (build.CSRC / f"{name}.cu").read_text()
-    check(src.count(old) == 1, f"{name}.cu: the line of variant {tag!r} moved")
+    for old, new in edits:
+        check(src.count(old) == 1, f"{name}.cu: the text of copy {tag!r} "
+              "moved")
+        src = src.replace(old, new)
     build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
     cu = build.BUILD_DIR / f"variant_{name}_{tag.replace(' ', '_')}.cu"
-    cu.write_text(src.replace(old, new))
+    cu.write_text(src)
     so = cu.with_suffix(".so")
     r = subprocess.run([build.nvcc(), *build.NVCC_FLAGS, "-o", str(so),
                         str(cu)], capture_output=True, text=True, check=True)
     return so, r.stderr
+
+
+def build_variant(key: tuple[str, str]) -> tuple[pathlib.Path, str]:
+    """The copy ``VARIANTS[key]``, built (``build_copy``)."""
+    return build_copy(*key, [VARIANTS[key]])
 
 
 @contextlib.contextmanager
@@ -493,8 +534,115 @@ def off_depth() -> int:
     """Kernel 7's ring depth (``kOffDepth``), read from its source."""
     from llcomp_tpu_torch.kernels import build
 
-    src = (build.CSRC / "coder_scan.cu").read_text()
-    return int(re.search(r"constexpr int kOffDepth = (\d+);", src)[1])
+    return build.constant("coder_scan", "kOffDepth")
+
+
+def seg_cases(T: int, S: int, chunks=(2, 7, 32, 64)) -> dict:
+    """Context-run starts for the walks' chunk partition: name -> seg
+    [T, S] bool.  A seg on every entry; on entry 0 only; on none; runs
+    longer than three chunks of each count in ``chunks`` (lanes take the
+    counts in turn, shifted by the lane); a seg exactly on every chunk start
+    of each count; and runs at random (1 in 10) before a tail that is one
+    run of a different length in every lane (the decision variant's
+    padding)."""
+    t = np.arange(T)[:, None]
+    s = np.arange(S)[None, :]
+    span = np.array([3 * -(-T // c) + 1 for c in chunks])[s % len(chunks)]
+    tail = T - 1 - (s * 37) % max(T // 2, 1)
+    r = _hash64(T * 1000 + S, T * S).reshape(T, S)
+    return {
+        "every entry": np.ones((T, S), bool),
+        "entry 0 only": np.broadcast_to(t == 0, (T, S)),
+        "no seg": np.zeros((T, S), bool),
+        "runs across chunks": (t + s) % span == 0,
+        "every chunk start": np.broadcast_to(
+            np.any([t % -(-T // c) == 0 for c in chunks], axis=0), (T, S)),
+        "random runs, one-run tail": np.where(
+            t < tail, r % np.uint64(10) == 0, t == tail),
+    }
+
+
+def walk_probs_xs(seg: np.ndarray) -> np.ndarray:
+    """Kernel 6's input ``bit | seg<<1`` [T, S] int32, bits at random."""
+    T, S = seg.shape
+    bit = (_hash64(T + 7 * S, T * S) % np.uint64(2)).reshape(T, S)
+    return (bit.astype(np.int64) | seg.astype(np.int64) << 1).astype(np.int32)
+
+
+def walk_symbols_xs(seg: np.ndarray) -> np.ndarray:
+    """Kernel 3's input ``bucket<<14 | live<<13 | seg<<12 | diff+1274`` [T,
+    S] int32: residuals mostly small, a quarter zero, 1 in 16 up to +-1274
+    (23 decisions, cut at K 20); buckets at random; dead symbols at random
+    (1 in 8) and a dead tail of a different length in every lane."""
+    T, S = seg.shape
+    r = _hash64(T + 11 * S, T * S).reshape(T, S)
+    big = (r >> np.uint64(40)) % np.uint64(16) == 0
+    mag = np.where(big, (r >> np.uint64(8)) % np.uint64(1275),
+                   (r >> np.uint64(8)) % np.uint64(40)).astype(np.int64)
+    mag[(r >> np.uint64(24)) % np.uint64(4) == 0] = 0
+    diff = np.where((r >> np.uint64(30)) % np.uint64(2) == 1, -mag, mag)
+    t = np.arange(T)[:, None]
+    live = ((r >> np.uint64(50)) % np.uint64(8) != 0) & (
+        t < T - (np.arange(S)[None, :] * 13) % max(T // 3, 1))
+    bucket = ((r >> np.uint64(56)) % np.uint64(128)).astype(np.int64)
+    return (bucket << 14 | live.astype(np.int64) << 13
+            | seg.astype(np.int64) << 12 | diff + 1274).astype(np.int32)
+
+
+WALK_LANES = (1, 33, 130, 513)   # the walks' synthetic cases: lanes
+WALK_K = 20                        # kernel 3's K there (the bench's)
+
+
+def walk_steps(C: int) -> tuple[int, ...]:
+    """The walks' synthetic lengths around chunk count C: C - 1, C and C +
+    1, and 5C + 3 (chunks of 5 and 6 entries)."""
+    return tuple(sorted({max(C - 1, 1), C, C + 1, 5 * C + 3}))
+
+
+def walk_case_errs(torch, name: str, T: int, S: int, dev) -> dict:
+    """Kernel 3 or 6 (``name``) against its plain version on every
+    ``seg_cases`` pattern at T x S (kernel 3 at K ``WALK_K`` with primed
+    reset rows, and a seed table on every other pattern): pattern ->
+    max_abs_err of probs, or of lo and hi."""
+    from llcomp_tpu_torch.core import tables
+    from llcomp_tpu_torch.kernels import encode_kernels as ek
+
+    seed_tab = (np.arange(121 * 8).reshape(121, 8) * 37 % 128).astype(np.uint8)
+    errs = {}
+    for i, (pattern, seg) in enumerate(seg_cases(T, S).items()):
+        if name == "walk_probs":
+            xs = torch.from_numpy(walk_probs_xs(seg)).to(dev)
+            errs[pattern] = _kernel_err(lambda x: (ek.walk_probs(x),),
+                                        lambda x: (ek.walk_probs_plain(x),),
+                                        xs)
+        else:
+            xs = torch.from_numpy(walk_symbols_xs(seg)).to(dev)
+            init = seed_tab if i % 2 else tables.PRIOR_TAB
+            errs[pattern] = _kernel_err(ek.walk_symbols, ek.walk_symbols_plain,
+                                        xs, WALK_K, init)
+    return errs
+
+
+def walk_pieces(seg, chunks: int) -> tuple[int, int]:
+    """(the longest piece, the longest thread walk) of a walk's input:
+    ``seg`` [T, S] (tensor) cut at its context runs and into ``chunks``
+    chunks a lane (``encode_kernels.chunk_bounds``).  A piece runs from a
+    seg (or entry 0) to the next seg (or T)."""
+    import torch
+
+    from llcomp_tpu_torch.kernels import encode_kernels as ek
+
+    T, S = seg.shape
+    if not T * S:
+        return 0, 0
+    start, end = ek.chunk_bounds(seg, chunks)
+    cuts = seg.clone()
+    cuts[0] = True
+    at = torch.nonzero(cuts.t().reshape(-1)).flatten()  # lane-major order
+    gaps = torch.diff(torch.cat([at, at.new_tensor([T * S])]))
+    # a piece ends at T, not at the next lane's first entry
+    gaps = torch.minimum(gaps, T - at % T)
+    return int(gaps.max()), int((end - start).max())
 
 
 def _skewed_records(torch, Tq: int, S: int, dev):
@@ -511,6 +659,7 @@ def phase_kernels_vs_plain(torch, log) -> dict:
     """Phase 3: each kernel against its plain version, exact."""
     from llcomp_tpu_torch import decode, encode, seed
     from llcomp_tpu_torch.core import transform
+    from llcomp_tpu_torch.kernels import build
     from llcomp_tpu_torch.kernels import decode_kernel as dk
     from llcomp_tpu_torch.kernels import encode_fused as ef
     from llcomp_tpu_torch.kernels import encode_kernels as ek
@@ -624,6 +773,20 @@ def phase_kernels_vs_plain(torch, log) -> dict:
                         torch.from_numpy(recs.astype(np.int32)).to(dev))
         err_off = max(err_off, e)
         check(e == 0, f"{name}: coder_scan_off kernel != plain ({e})")
+    # kernels 3 and 6 on the synthetic seg patterns, T around each
+    # kernel's chunk count, ragged lane counts
+    n_walk, err_walks = 0, {}
+    for name in ("walk_symbols", "walk_probs"):
+        C = build.constant(name, "kChunks")
+        err_walks[name] = 0
+        for T in walk_steps(C):
+            for S in WALK_LANES:
+                for pattern, e in walk_case_errs(torch, name, T, S,
+                                                 dev).items():
+                    check(e == 0, f"{name} {pattern}, T {T}, {S} lanes: "
+                          f"kernel != plain ({e})")
+                    err_walks[name] = max(err_walks[name], e)
+                    n_walk += 1
     inst = dict(dk.decode.instances)
     check(all(inst.values()), f"a kernel 2 instantiation never ran: {inst}")
     log(f"phase 3 kernel vs plain: {len(runs)} batches exact "
@@ -635,7 +798,14 @@ def phase_kernels_vs_plain(torch, log) -> dict:
     log(f"phase 3 coder_scan_off (ring depth {D}) vs plain, kp and fin: "
         f"{len(off_cases)} record sets exact (max_abs_err {err_off}): "
         + ", ".join(off_cases))
-    return {"encode": err_enc, "decode": err_dec, "walk": err_walk,
+    log(f"phase 3 walk_symbols and walk_probs vs plain on synthetic seg "
+        f"patterns ({', '.join(seg_cases(2, 1))}) at T " + " and ".join(
+            f"{walk_steps(build.constant(n, 'kChunks'))} ({n})"
+            for n in err_walks) + f" x {WALK_LANES} lanes: {n_walk} cases "
+        f"exact (max_abs_err {err_walks})")
+    return {"encode": err_enc, "decode": err_dec,
+            "walk": max(err_walk, err_walks["walk_symbols"]),
+            "walk_probs": err_walks["walk_probs"],
             "coder": err_coder, "coder_off": err_off}
 
 
@@ -938,12 +1108,44 @@ def _worst_lanes(shape) -> np.ndarray:
             * np.uint64(255)).astype(np.uint8).reshape(shape)
 
 
-def phase_sort(torch, log, card: str) -> dict:
+def time_copies(torch, name: str, variants: dict, shipped_ms: float, run,
+                want, seg=None) -> dict:
+    """The kernel of source ``name`` beside its copies ``variants``
+    ({VARIANTS key: library}): each copy's output ``run()`` must equal
+    ``want`` (the shipped kernel's); the shipped kernel is timed again after
+    each copy.  -> {tag: ([ms], a walk's longest thread walk at the copy's
+    chunk count, given the walk's ``seg``, or None)}."""
+    out = {"shipped": ([shipped_ms], None)}
+    for (src, tag), so in variants.items():
+        if src != name:
+            continue
+        with running(name, so):
+            got = run()
+            got = got if isinstance(got, tuple) else (got,)
+            err = max(_max_err(a, b) for a, b in zip(got, want))
+            check(err == 0, f"{name} copy {tag!r} != shipped ({err})")
+            walk = (walk_pieces(seg, int(tag.split()[1]))[1]
+                    if seg is not None and tag.startswith("C ") else None)
+            out[tag] = ([_time_cuda(torch, run)], walk)
+        out["shipped"][0].append(_time_cuda(torch, run))
+    return out
+
+
+def _copies_line(copies: dict) -> str:
+    """``time_copies``'s result as 'tag ms, ms (walk); ...'."""
+    return "; ".join(f"{tag} " + ", ".join(f"{t:.3f}" for t in ts)
+                     + (f" ({w})" if w else "")
+                     for tag, (ts, w) in copies.items())
+
+
+def phase_sort(torch, log, card: str, variants: dict) -> dict:
     """Phase 6: the sort engine on the bench batch: golden, round trip,
     equality with the fused engine (also on a worst-case batch), launches,
     memory against the lane budget, timings, and kernels 3 and 4 against
-    their plain versions on the inputs the engine gave them."""
+    their plain versions on the inputs the engine gave them; kernel 3
+    beside its copies ``variants`` ({VARIANTS key: library})."""
     from llcomp_tpu_torch import decode, encode, seed
+    from llcomp_tpu_torch.kernels import build
     from llcomp_tpu_torch.kernels import decode_kernel as dk
     from llcomp_tpu_torch.kernels import encode_fused as ef
     from llcomp_tpu_torch.kernels import encode_kernels as ek
@@ -1059,9 +1261,19 @@ def phase_sort(torch, log, card: str) -> dict:
     qlo, qhi = made["compact sort"]
     walk_ms = _time_cuda(torch, lambda: ek.walk_symbols(xs, K, tab))
     coder_ms = _time_cuda(torch, lambda: ek.coder_scan_off_q(qlo, qhi))
+    piece, walk = walk_pieces(((xs >> 12) & 1).bool(),
+                              build.constant("walk_symbols", "kChunks"))
     log(f"phase 6 kernels alone, {S} lanes x {H * W * C} symbols (K {K}, "
-        f"{Tq} quads): walk_symbols {walk_ms:.3f} ms, coder_scan_off_q "
+        f"{Tq} quads): walk_symbols {walk_ms:.3f} ms (longest piece "
+        f"{piece} symbols, longest thread walk {walk}), coder_scan_off_q "
         f"{coder_ms:.3f} ms")
+    copies = time_copies(torch, "walk_symbols", variants, walk_ms,
+                         lambda: ek.walk_symbols(xs, K, tab), made["walk"],
+                         ((xs >> 12) & 1).bool())
+    log(f"phase 6 walk_symbols ms beside its copies, same output (shipped "
+        f"C {WALK_SHIPPED['walk_symbols'][0]}, D "
+        f"{WALK_SHIPPED['walk_symbols'][1]}, timed between the copies; each "
+        f"copy's longest thread walk): " + _copies_line(copies))
     e = _sort_kernels_vs_plain(torch, made, tab)
     check(e["walk"] == 0 and e["coder"] == 0, f"main path: sort kernels != "
           f"plain (walk {e['walk']}, coder {e['coder']})")
@@ -1087,7 +1299,9 @@ def phase_sort(torch, log, card: str) -> dict:
                     f"({b['bytes']} B, {b['ops']} ops)"
                     for k, b in bounds.items()))
     return {"counts": counts, "walk_ms": walk_ms, "coder_ms": coder_ms,
-            "bounds": bounds, **e}
+            "bounds": bounds, "piece": piece, "thread_walk": walk,
+            "walk_copies": {k: min(ts) for k, (ts, _) in copies.items()},
+            **e}
 
 
 def phase_decision(torch, log, card: str, variants: dict) -> dict:
@@ -1098,6 +1312,7 @@ def phase_decision(torch, log, card: str, variants: dict) -> dict:
     gave them, kernel 7 beside its copies ``variants`` ({VARIANTS key:
     library}), and kernel 8's own path to the variant's streams."""
     from llcomp_tpu_torch import coder, decode, encode
+    from llcomp_tpu_torch.kernels import build
     from llcomp_tpu_torch.kernels import decode_kernel as dk
     from llcomp_tpu_torch.kernels import encode_fused as ef
     from llcomp_tpu_torch.kernels import encode_kernels as ek
@@ -1238,27 +1453,33 @@ def phase_decision(torch, log, card: str, variants: dict) -> dict:
             f"{name} kernel {r['ms']:.3f} ms vs plain {r['plain_ms']:.1f} ms"
             for name, r in res.items()))
 
-    # kernel 7 beside its copies (other lanes a block and ring depths), each
-    # output equal to the shipped kernel's, the shipped kernel timed again
-    # between them
-    def coder_off():
-        return ek.coder_scan_off(cx)
+    # kernel 6 beside its copies (other chunk counts and ring depths), with
+    # the critical path of its partition
+    seg = (xs & 2) != 0
+    piece, walk = walk_pieces(seg, build.constant("walk_probs", "kChunks"))
+    copies6 = time_copies(torch, "walk_probs", variants,
+                          res["walk_probs"]["ms"], lambda: ek.walk_probs(xs),
+                          (probs,), seg)
+    log(f"phase 7 walk_probs, {S} lanes x {Tc} entries: "
+        f"{res['walk_probs']['ms']:.3f} ms, longest piece {piece} entries, "
+        f"longest thread walk {walk}; "
+        f"beside its copies, same output (shipped C "
+        f"{WALK_SHIPPED['walk_probs'][0]}, D {WALK_SHIPPED['walk_probs'][1]}, "
+        f"timed between the copies; each copy's longest thread walk): "
+        + _copies_line(copies6))
+    res["walk_probs"].update(
+        piece=piece, thread_walk=walk,
+        copies={k: min(ts) for k, (ts, _) in copies6.items()})
 
-    copies = {"shipped": [res["coder_scan_off"]["ms"]]}
-    for (name, tag), so in variants.items():
-        if name != "coder_scan":
-            continue
-        with running(name, so):
-            err = max(_max_err(a, b) for a, b in zip(coder_off(), (kp, fin)))
-            check(err == 0, f"coder_scan_off copy {tag!r} != shipped ({err})")
-            copies[tag] = [_time_cuda(torch, coder_off)]
-        copies["shipped"].append(_time_cuda(torch, coder_off))
+    # kernel 7 beside its copies (other lanes a block and ring depths)
+    copies = time_copies(torch, "coder_scan", variants,
+                         res["coder_scan_off"]["ms"],
+                         lambda: ek.coder_scan_off(cx), (kp, fin))
     log(f"phase 7 coder_scan_off ms beside its copies, {S} lanes x {Tc} "
         f"records, same output (ring depth {off_depth()}, shipped timed "
-        f"between the copies): " + "; ".join(
-            f"{tag} " + ", ".join(f"{t:.3f}" for t in ts)
-            for tag, ts in copies.items()))
-    res["coder_scan_off"]["copies"] = {k: min(v) for k, v in copies.items()}
+        f"between the copies): " + _copies_line(copies))
+    res["coder_scan_off"]["copies"] = {k: min(ts)
+                                       for k, (ts, _) in copies.items()}
 
     # kernel 8's own path: the slot-record coder on the variant's records
     ek.coder_scan.launches = 0
@@ -1652,7 +1873,7 @@ def main() -> int:
             list(pool.map(build.build, KERNEL_SOURCES))
         log(f"phase 2 build: {len(KERNEL_SOURCES)} kernel sources from "
             f"llcomp_tpu_torch/csrc and {len(VARIANTS)} copies of kernels "
-            f"1, 2 and 7, one nvcc each in parallel, in "
+            f"1, 2, 3, 6 and 7, one nvcc each in parallel, in "
             f"{time.perf_counter() - t0:.2f} s")
         regs = {name: registers(build.compiler_log(name))
                 for name in PTXAS_SOURCES}
@@ -1667,7 +1888,7 @@ def main() -> int:
             + "; ".join(f"{name} " + ", ".join(f"{k} {v[0]}"
                                                for k, v in r.items())
                         for name, r in regs.items())
-            + "; copies (encode_fused_kernel, coder_scan_off_kernel): "
+            + "; copies (" + ", ".join(COPIED_KERNEL.values()) + "): "
             + ", ".join(f"{k} {v[0]}" for k, v in copied.items()))
         variants = {k: so for k, (so, _) in variants.items()}
 
@@ -1675,7 +1896,7 @@ def main() -> int:
         errs = phase_kernels_vs_plain(torch, log)
         counts = phase_main_path(torch, log)
         bench = phase_bench(torch, log, card, variants)
-        sort = phase_sort(torch, log, card)
+        sort = phase_sort(torch, log, card, variants)
         decision = phase_decision(torch, log, card, variants)
         probe = phase_probes(torch, log, card, turns)
         if "jax" in sys.modules or "llcomp_tpu" in sys.modules:
@@ -1719,7 +1940,10 @@ def main() -> int:
             "launches": sort["counts"][name],
             "max_abs_err": max(errs[err], sort[err]),
             "ms": sort[f"{err}_ms"], "plain_ms": sort[f"{err}_plain_ms"],
-            **bound_of(sort["bounds"][name])})
+            **bound_of(sort["bounds"][name]),
+            **({"copies_ms": sort["walk_copies"], "piece": sort["piece"],
+                "thread_walk": sort["thread_walk"]}
+               if name == "walk_symbols" else {})})
     for name, src, line in (("build_stream", "build_stream", 74),
                             ("walk_probs", "walk_probs", 356),
                             ("coder_scan_off", "coder_scan", 475),
@@ -1730,10 +1954,13 @@ def main() -> int:
             "source": f"llcomp_tpu_torch/csrc/{src}.cu",
             "replaces": f"llcomp_tpu/pallas/encode_kernels.py:{line}",
             "launches": r["launches"],
-            "max_abs_err": max(r["err"], errs["coder_off"])
-            if name == "coder_scan_off" else r["err"],
+            "max_abs_err": max(r["err"], errs.get(name, 0),
+                               errs["coder_off"] if name == "coder_scan_off"
+                               else 0),
             "ms": r["ms"], "plain_ms": r["plain_ms"], **bound_of(r["bound"]),
-            **({"copies_ms": r["copies"]} if "copies" in r else {})})
+            **({"copies_ms": r["copies"]} if "copies" in r else {}),
+            **({k: r[k] for k in ("piece", "thread_walk")}
+               if name == "walk_probs" else {})})
     kernels += probe["rows"]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

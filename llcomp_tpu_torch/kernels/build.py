@@ -15,6 +15,7 @@ import ctypes
 import hashlib
 import os
 import pathlib
+import re
 import shutil
 import subprocess
 import tempfile
@@ -96,6 +97,16 @@ def load(name: str, entry: str, argtypes: list):
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
     return fn
+
+
+def constant(name: str, const: str) -> int:
+    """The value of ``constexpr int <const> = N;`` in ``csrc/<name>.cu``
+    (a kernel's compile-time shape: chunks, depth)."""
+    src = (CSRC / f"{name}.cu").read_text()
+    m = re.search(rf"constexpr int {const} = (\d+);", src)
+    if m is None:
+        raise KernelCompileError(f"{name}.cu defines no {const}")
+    return int(m[1])
 
 
 def check(rc: int, what: str) -> None:

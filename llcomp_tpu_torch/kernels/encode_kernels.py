@@ -8,13 +8,15 @@ decision variant's ``_make_build_kernel`` (``build_stream``, `:74`),
 ``_walk_kernel`` (``walk_probs``, `:356`) and ``_coder_kernel_off``
 (``coder_scan_off``, `:475`), kernels 5, 6 and 7; and the slot-record coder
 ``_coder_kernel`` (``coder_scan``, `:416`), kernel 8.  The walks and coders
-are serial recurrences per lane: on the GPU one thread owns one lane, and
-arrays are lane-minor ``[T, S]`` (step-major) so that a warp's 32 lanes read
-and write one line per step.  The stream builder is elementwise, one thread
-per slot, and writes lane-major ``[S, n*K]`` for the forward sort.  The
-TPU's [G, T, 8, 128] lane groups, grid chunks and scratch carries have no
-counterpart.  The source notes in ``csrc/`` say what bounds each kernel on
-the H100.
+are serial recurrences per lane.  A coder's thread owns one lane; a walk's
+model resets at every context run, so kernels 3 and 6 cut each lane there
+into chunks (``chunk_bounds``) walked by one thread each, and their plain
+versions walk the same partition.  Arrays are lane-minor ``[T, S]``
+(step-major) so that a warp's 32 lanes read and write one line per step.
+The stream builder is elementwise, one thread per slot, and writes
+lane-major ``[S, n*K]`` for the forward sort.  The TPU's [G, T, 8, 128]
+lane groups, grid chunks and scratch carries have no counterpart.  The
+source notes in ``csrc/`` say what bounds each kernel on the H100.
 
 A CUDA tensor launches the kernel (and counts the launch on the wrapper); a
 CPU tensor runs the plain version.  Coder records are 10 bits,
@@ -63,35 +65,82 @@ def reset_rows(init, device) -> torch.Tensor:
     return torch.from_numpy(rows).to(device)
 
 
-def walk_symbols_plain(xs: torch.Tensor, K: int, init
+def chunk_bounds(seg: torch.Tensor, chunks: int
+                 ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The walks' partition of each lane at its context runs: ``seg`` [T, S]
+    bool (a run starts) -> (start, end), each [chunks, S] int64.  Chunk c
+    of a lane covers entries [c*L, (c+1)*L), L = ceil(T / chunks); its walk
+    starts at the first seg at or after c*L (chunk 0 at entry 0) and ends
+    at the first seg at or after (c+1)*L, or at T.  So chunk c ends where
+    chunk c + 1 starts, and every entry is walked by exactly one chunk."""
+    T, S = seg.shape
+    L = -(-T // chunks)
+    t = torch.arange(T, device=seg.device)[:, None]
+    nxt = torch.where(seg, t, T)          # first seg at or after t: the
+    nxt = nxt.flip(0).cummin(0).values.flip(0)        # least from the end
+    nxt = torch.cat([nxt, torch.full((1, S), T, device=seg.device)])
+    firsts = (torch.arange(chunks, device=seg.device) * L).clamp(max=T)
+    start = nxt[firsts]
+    start[0] = 0
+    end = torch.cat([start[1:], torch.full((1, S), T, device=seg.device)])
+    return start, end
+
+
+def _threads(start: torch.Tensor, end: torch.Tensor
+             ) -> tuple[torch.Tensor, torch.Tensor, list]:
+    """The plain walks' threads: the (chunk, lane) pairs of ``chunk_bounds``
+    with entries to walk, flat, longest walk first -> (first entry, lane,
+    walk lengths), so that the threads still walking at any step are a
+    prefix."""
+    S = start.shape[1]
+    length = (end - start).flatten()
+    order = torch.argsort(length, descending=True)
+    order = order[: int((length > 0).sum())]
+    return start.flatten()[order], order % S, length[order].tolist()
+
+
+def walk_symbols_plain(xs: torch.Tensor, K: int, init,
+                       chunks: int | None = None
                        ) -> tuple[torch.Tensor, torch.Tensor]:
-    """The walk in plain torch, vectorised over lanes, with Python loops over
-    symbols and decisions.  The model row is kept as two 32-bit halves
-    (substates 0-3 and 4-7), as the kernel keeps it."""
+    """The walk in plain torch over kernel 3's partition (``chunk_bounds``,
+    ``chunks`` defaulting to the kernel's kChunks): vectorised over (chunk,
+    lane) pairs, with Python loops over a chunk's symbols and their decisions.
+    The model row is kept as two 32-bit halves (substates 0-3 and 4-7), as
+    the kernel keeps it."""
     n, S = xs.shape
     dev = xs.device
+    chunks = chunks or build.constant("walk_symbols", "kChunks")
     x = xs.to(torch.int64)
-    seg = ((x >> 12) & 1).to(torch.bool)
-    bucket = (x >> 14) & 0x7F
-    d = (x & 0xFFF) - 1274
-    ad = d.abs()
-    e = transform.ilog2(ad.clamp(min=1), max_bits=12)
-    live = (x >> 13) & 1
-    nb = (torch.where(ad != 0, 2 * e + 3, 1) * live).clamp(max=K)
-    steps = nb.amax(dim=1).tolist() if S else [0] * n
+    start, lane, length = _threads(
+        *chunk_bounds(((x >> 12) & 1).to(torch.bool), chunks))
     fused = torch.from_numpy(tables.FUSED.astype(np.int64)).to(dev)
     rows = reset_rows(init, dev)
     half = (rows & 0xFFFFFFFF, (rows >> 32) & 0xFFFFFFFF)
-    row = [torch.zeros(S, dtype=torch.int64, device=dev) for _ in range(2)]
+    row = [torch.zeros(len(length), dtype=torch.int64, device=dev)
+           for _ in range(2)]
     qs = K // 4
     lo = torch.zeros((n * qs, S), dtype=torch.int32, device=dev)
     hi = torch.zeros_like(lo)
-    for j in range(n):
+    r = len(length)
+    for i in range(length[0] if r else 0):
+        while length[r - 1] <= i:         # threads past r have ended
+            r -= 1
+        row = [row[0][:r], row[1][:r]]
+        t = start[:r] + i
+        xj = x[t, lane[:r]]
+        seg = ((xj >> 12) & 1).to(torch.bool)
+        bucket = (xj >> 14) & 0x7F
         for w in range(2):
-            row[w] = torch.where(seg[j], half[w][bucket[j]], row[w])
-        for k in range(steps[j]):
-            ctx, bit = transform.decision(k, d[j], ad[j], e[j])
-            valid = nb[j] > k
+            row[w] = torch.where(seg, half[w][bucket], row[w])
+        d = (xj & 0xFFF) - 1274
+        ad = d.abs()
+        e = transform.ilog2(ad.clamp(min=1), max_bits=12)
+        live = (xj >> 13) & 1
+        nb = (torch.where(ad != 0, 2 * e + 3, 1) * live).clamp(max=K)
+        quads = [[torch.zeros_like(xj) for _ in range(2)] for _ in range(qs)]
+        for k in range(int(nb.max()) if nb.numel() else 0):
+            ctx, bit = transform.decision(k, d, ad, e)
+            valid = nb > k
             sh = (ctx & 3) * 8
             upper = ctx >= 4
             word = torch.where(upper, row[1], row[0])
@@ -101,8 +150,10 @@ def walk_symbols_plain(xs: torch.Tensor, K: int, init
             row[0] = torch.where(valid & ~upper, new, row[0])
             row[1] = torch.where(valid & upper, new, row[1])
             rec = torch.where(valid, (1 << 9) | (bit << 8) | (f & 0xFF), 0)
-            out = lo if k % 4 < 2 else hi
-            out[j * qs + k // 4] |= (rec << (10 * (k % 2))).to(torch.int32)
+            quads[k // 4][k % 4 >= 2] |= rec << (10 * (k % 2))
+        for q in range(qs):
+            lo[t * qs + q, lane[:r]] = quads[q][0].to(torch.int32)
+            hi[t * qs + q, lane[:r]] = quads[q][1].to(torch.int32)
     return lo, hi
 
 
@@ -196,19 +247,28 @@ def build_stream(hash_: torch.Tensor, diff: torch.Tensor, n_sym: int,
 build_stream.launches = 0
 
 
-def walk_probs_plain(xs: torch.Tensor) -> torch.Tensor:
-    """The state walk in plain torch, vectorised over lanes, with a Python
-    loop over decisions."""
+def walk_probs_plain(xs: torch.Tensor, chunks: int | None = None
+                     ) -> torch.Tensor:
+    """The state walk in plain torch over kernel 6's partition
+    (``chunk_bounds``, ``chunks`` defaulting to the kernel's kChunks):
+    vectorised over (chunk, lane) pairs, with a Python loop over a chunk's
+    decisions."""
     T, S = xs.shape
     dev = xs.device
+    chunks = chunks or build.constant("walk_probs", "kChunks")
+    start, lane, length = _threads(*chunk_bounds((xs & 2) != 0, chunks))
     fused = torch.from_numpy(tables.FUSED.astype(np.int64)).to(dev)
-    st = torch.zeros(S, dtype=torch.int64, device=dev)
+    st = torch.zeros(len(length), dtype=torch.int64, device=dev)
     probs = torch.empty((T, S), dtype=torch.int32, device=dev)
-    for t in range(T):
-        x = xs[t]
-        st = torch.where((x & 2) != 0, 0, st)
+    r = len(length)
+    for i in range(length[0] if r else 0):
+        while length[r - 1] <= i:         # threads past r have ended
+            r -= 1
+        t = start[:r] + i
+        x = xs[t, lane[:r]]
+        st = torch.where((x & 2) != 0, 0, st[:r])
         f = fused[st]
-        probs[t] = f & 0xFF
+        probs[t, lane[:r]] = (f & 0xFF).to(torch.int32)
         st = torch.where((x & 1) != 0, f >> 16, f >> 8) & 0xFF
     return probs
 

@@ -11,10 +11,11 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import (off_depth, off_record_cases, repeat_lanes,
-                        skewed_recs)
+from chip_smoke import (WALK_LANES, off_depth, off_record_cases,
+                        repeat_lanes, skewed_recs, walk_case_errs, walk_steps)
 from llcomp_tpu_torch import api, coder, decode, encode, probes, seed
 from llcomp_tpu_torch.core.config import REV2
+from llcomp_tpu_torch.kernels import build
 from llcomp_tpu_torch.kernels import decode_kernel as dk
 from llcomp_tpu_torch.kernels import encode_fused as ef
 from llcomp_tpu_torch.kernels import encode_kernels as ek
@@ -220,6 +221,23 @@ def test_decision_kernels_equal_plain(dev, shape):
     assert [k.launches for k in (ek.build_stream, ek.walk_probs,
                                  ek.coder_scan_off, ek.coder_scan)] \
         == [c + 1 for c in counts]
+
+
+@pytest.mark.parametrize("S", WALK_LANES)
+@pytest.mark.parametrize("name", ["walk_symbols", "walk_probs"])
+def test_walk_kernels_equal_plain_on_seg_patterns(dev, name, S):
+    """Kernels 3 and 6 against their plain versions on the synthetic seg
+    patterns (``chip_smoke.seg_cases``: a seg on every entry, on entry 0
+    only, on none, runs across chunks, a seg on every chunk start, random
+    runs before a one-run tail; kernel 3 with dead symbols and primed or
+    seeded reset rows) at T of C - 1, C, C + 1 and 5C + 3 (C the shipped
+    chunk count) and ragged lane counts, every launch counted."""
+    wrapper = getattr(ek, name)
+    for T in walk_steps(build.constant(name, "kChunks")):
+        before = wrapper.launches
+        errs = walk_case_errs(torch, name, T, S, dev)
+        assert wrapper.launches == before + len(errs)
+        assert errs == dict.fromkeys(errs, 0), (T, errs)
 
 
 @pytest.mark.parametrize("K", [1, 8, 24])
