@@ -12,20 +12,22 @@ Phases (each prints one line; any failure exits non-zero without the final
 1. device: CUDA must be available; prints the card's name and power limit;
 2. build: compiles the ten kernel sources of ``llcomp_tpu_torch/csrc`` (the
    eight library kernels and the 21 probes), one nvcc each, in parallel,
-   beside the copies of kernels 1, 2, 3, 6 and 7 that phases 5-7 time
+   beside the copies of kernels 1, 2, 3, 4 and 6-8 that phases 5-7 time
    (``VARIANTS``); prints the registers a thread of kernels 1-4 and 6-8
-   and of the copies from the compiler's ``-Xptxas -v`` report (a spill
-   fails);
+   and of the copies (every coder kernel of a copy of ``coder_scan.cu``)
+   from the compiler's ``-Xptxas -v`` report (a spill fails);
 3. kernel vs plain: each CUDA kernel against its plain PyTorch version on
    small lane batches (photo, flat, noise, grayscale, RGBA, C = 2 and 5,
    1-row, 1-column, odd stride, context hashes repeating every 1 to 5
    symbols, 1, 33 and 130 lanes; unprimed, primed, seeded; dead symbol
    tails; flipped streams, streams cut inside a 16-byte word, garbage past
    every length), every instantiation of kernel 2 (C1-C4 and generic) must
-   launch, and the sort chain's coders (kernels 4 and 7) on random records
-   with skewed bits, kernel 7 also with T around its ring depth at 1, 33
-   and 130 lanes, deferred 0xFF runs past a hundred bytes, dead lanes and
-   dead tails; the walks (kernels 3 and 6) on synthetic context runs
+   launch, and the three coders (kernels 4, 7 and 8) on random records
+   with skewed bits, T around kernel 7's ring depth and kernels 4 and
+   8's hand-overs between warps at 1, 33 and 130 lanes, deferred 0xFF
+   runs past a hundred bytes, dead lanes and dead tails (kernel 4's
+   records packed in quads: dead quads 0, dead records inside live
+   quads); the walks (kernels 3 and 6) on synthetic context runs
    (``seg_cases``: a seg on every entry, on entry 0 only, on none, runs
    across chunks, a seg on every chunk start, a one-run tail) at T around
    their chunk count and 1, 33, 130 and 513 lanes; the tolerance is exact
@@ -54,7 +56,8 @@ Phases (each prints one line; any failure exits non-zero without the final
    ``torch.profiler``, split by stage; each kernel held exactly against its
    plain version on the inputs the engine gave it at this shape, and both
    timed, kernel 3 with its longest piece and thread walk and beside
-   copies of it with other chunk counts and ring depths, each copy's
+   copies of it with other chunk counts and ring depths, kernel 4 beside
+   copies of it with other hand-over batches and stages, each copy's
    output equal to the shipped kernel's;
 7. the decision variant (``encode_lanes(engine="sort",
    variant="decision")``, kernels 5, 6 and 7) on the unprimed bench batch:
@@ -66,9 +69,10 @@ Phases (each prints one line; any failure exits non-zero without the final
    all 1,024 lanes in one chunk, kernels 5-8 held exactly against their
    plain versions on the inputs the engine gave them, and timed, kernel 6
    (with its longest piece and thread walk) beside copies of it with other
-   chunk counts and ring depths and kernel 7 beside copies of it with
-   other lanes a block and ring depths, each copy's output equal to the
-   shipped kernel's; kernel 8
+   chunk counts and ring depths, kernel 7 beside copies of it with other
+   lanes a block and ring depths and kernel 8 beside copies of it with
+   other hand-over batches and stages, each copy's output equal to
+   the shipped kernel's; kernel 8
    (``coder_scan``, the slot-record coder) run on its own path on the
    variant's coder records, through ``coder.finish_steps`` and
    ``coder.expand_slots``, must give the variant's streams;
@@ -117,28 +121,41 @@ KERNEL_SOURCES = ("encode_fused", "decode_kernel", "walk_symbols",
 # their registers and spills
 PTXAS_SOURCES = ("encode_fused", "decode_kernel", "walk_symbols",
                  "walk_probs", "coder_scan")
-# Copies of kernels 1, 2, 3, 6 and 7 that phases 5-7 time beside the
+# Copies of kernels 1, 2, 3, 4 and 6-8 that phases 5-7 time beside the
 # shipped ones, each built from the shipped source with one edit (old,
-# new): other lanes a block (kernels 1 and 7's constants, kernel 2's rule),
-# other look-ahead depths of kernels 1, 3, 6 and 7 and other chunk counts
-# of the walks (kernels 3 and 6; the measurements behind those choices),
-# and kernel 1 with each symbol's decisions replaced by one byte out (the
+# new): other lanes a block (kernels 1 and 7's constants, kernel 2's
+# rule), other look-ahead depths of kernels 1, 3, 6 and 7, other chunk
+# counts of the walks (kernels 3 and 6), other hand-over batches and
+# stages of kernels 4 and 8 (the measurements behind those choices), and
+# kernel 1 with each symbol's decisions replaced by one byte out (the
 # split of a symbol's time).
 _BLOCK, _DEPTH = "constexpr int kBlock = 1;", "constexpr int kDepth = 2;"
 _RULE = "  return e;\n"       # the end of kernel 2's lanes_a_block
 _CODER_BLOCK = "constexpr int kBlock = 32;"
 _OFF_DEPTH = "constexpr int kOffDepth = 8;"
+# kernels 4 and 8 (their step split across two warps): the shipped
+# records a hand-over, batches in the hand-over ring and batches of input
+# landing, and those of their copies
+SPLIT_SHIPPED = {"kBatch": 32, "kStages": 4, "kInStages": 4}
+SPLIT_COPIES = {"kBatch": (16,), "kStages": (2, 6), "kInStages": (2, 6)}
+# the range coders: the constant that sets each one's records in flight
+# (kernel 7's ring depth, the others' hand-over batch) and records a row of
+# its input (kernel 4's rows are pair-packed quads)
+CODERS = {"coder_scan_off_q": ("kBatch", 4),
+          "coder_scan_off": ("kOffDepth", 1),
+          "coder_scan": ("kBatch", 1)}
 # the walks' shipped chunk counts and ring depths, and those of their
 # copies (kernel 3 spills at depth 32)
 WALK_SHIPPED = {"walk_symbols": (64, 4), "walk_probs": (64, 16)}
 WALK_COPIES = {"walk_symbols": {"C": (1, 8, 16, 32, 64), "D": (1, 4, 8, 16)},
                "walk_probs": {"C": (1, 8, 16, 32, 64),
                               "D": (1, 4, 8, 16, 32)}}
-# the kernel of each copied source whose registers phase 2 prints
-COPIED_KERNEL = {"encode_fused": "encode_fused_kernel",
-                 "coder_scan": "coder_scan_off_kernel",
-                 "walk_symbols": "walk_symbols_kernel",
-                 "walk_probs": "walk_probs_kernel"}
+# the kernels of each copied source whose registers phase 2 prints
+COPIED_KERNEL = {"encode_fused": ("encode_fused_kernel",),
+                 "coder_scan": ("coder_scan_off_q_kernel",
+                                "coder_scan_off_kernel", "coder_scan_kernel"),
+                 "walk_symbols": ("walk_symbols_kernel",),
+                 "walk_probs": ("walk_probs_kernel",)}
 
 
 def _walk_variants() -> dict:
@@ -152,6 +169,16 @@ def _walk_variants() -> dict:
                 f"constexpr int {const} = {v};")
                 for v in WALK_COPIES[name][key] if v != ship})
     return out
+
+
+def _split_variants() -> dict:
+    """Kernels 4 and 8's copies: each hand-over batch and stage count of
+    ``SPLIT_COPIES`` but the shipped one."""
+    return {("coder_scan", f"{const} {v}"): (
+        f"constexpr int {const} = {SPLIT_SHIPPED[const]};",
+        f"constexpr int {const} = {v};")
+        for const, values in SPLIT_COPIES.items()
+        for v in values if v != SPLIT_SHIPPED[const]}
 
 
 VARIANTS = {
@@ -171,8 +198,15 @@ VARIANTS = {
     **{("coder_scan", f"depth {d}"): (_OFF_DEPTH,
                                       f"constexpr int kOffDepth = {d};")
        for d in (1, 4, 16, 32)},
+    **_split_variants(),
     **_walk_variants(),
 }
+# the copies of coder_scan.cu that each coder is timed beside
+CODER_TAGS = {
+    "coder_scan_off": ("1 lanes", "4 lanes",
+                       *(f"depth {d}" for d in (1, 4, 16, 32))),
+    **dict.fromkeys(("coder_scan_off_q", "coder_scan"),
+                    tuple(tag for _, tag in _split_variants()))}
 
 # The least time the card could take for a kernel's work (bound_ms): the
 # larger of its bytes (each input read once, each output written once)
@@ -363,13 +397,16 @@ def build_copy(name: str, tag: str, edits) -> tuple[pathlib.Path, str]:
     cu.write_text(src)
     so = cu.with_suffix(".so")
     r = subprocess.run([build.nvcc(), *build.NVCC_FLAGS, "-o", str(so),
-                        str(cu)], capture_output=True, text=True, check=True)
+                        str(cu)], capture_output=True, text=True)
+    check(r.returncode == 0, f"{name}.cu copy {tag!r} did not build:\n"
+          + r.stderr[-3000:])
     return so, r.stderr
 
 
 def build_variant(key: tuple[str, str]) -> tuple[pathlib.Path, str]:
     """The copy ``VARIANTS[key]``, built (``build_copy``)."""
-    return build_copy(*key, [VARIANTS[key]])
+    edits = VARIANTS[key]
+    return build_copy(*key, edits if isinstance(edits, list) else [edits])
 
 
 @contextlib.contextmanager
@@ -510,16 +547,24 @@ def skewed_recs(T: int, S: int, seed: int = 77, odds=(97, 50),
     return valid << 9 | bit << 8 | prob
 
 
-def off_record_cases(D: int) -> dict:
-    """Kernel 7's ragged cases for a ring of depth ``D``: name -> records
-    [T, S] int64.  T = 1, D - 1, D + 1 and a T off every multiple of D at
-    1, 33 and 130 lanes; 0xFF runs (bits P(1) = 0.99 with probabilities
-    7..63: deferred runs of a hundred bytes and more, resolved by carries
-    and by emits); dead lanes and dead tails of a different length in
-    every lane."""
-    cases = {f"T {T} S {S}": skewed_recs(T, S, seed=T + S)
-             for T in sorted({1, max(D - 1, 1), D + 1, 5 * D + 3})
-             for S in (1, 33, 130)}
+def off_record_cases(D: int, per: int = 1, batch: int = 0,
+                     stages: int = 2) -> dict:
+    """A coder's ragged cases for a ring of ``D`` rows of ``per`` records
+    each (kernel 4's rows are quads): name -> records [T * per, S] int64.
+    T = 1, D - 1, D + 1 and a T off every multiple of D rows at 1, 33 and
+    130 lanes, and, for a split coder whose warps hand over ``batch``
+    records at a time, one row either side of a hand-over and one past the
+    reuse of the first of 2 and of ``stages`` batches; 0xFF runs (bits
+    P(1) = 0.99 with probabilities 7..63: deferred runs of a hundred bytes
+    and more, resolved by carries and by emits); dead lanes and dead tails
+    of a different length in every lane (for quads, ending inside a
+    quad)."""
+    rows = {1, max(D - 1, 1), D + 1, 5 * D + 3}
+    if batch:
+        B = batch // per
+        rows |= {max(B - 1, 1), B + 1, 2 * B + 1, stages * B + 1}
+    cases = {f"T {T} S {S}": skewed_recs(T * per, S, seed=T + S)
+             for T in sorted(rows) for S in (1, 33, 130)}
     cases["0xFF runs"] = skewed_recs(4000, 130, seed=78, odds=(99, 99),
                                      probs=(7, 64))
     dead = skewed_recs(3000, 130, seed=79)
@@ -530,11 +575,39 @@ def off_record_cases(D: int) -> dict:
     return cases
 
 
-def off_depth() -> int:
-    """Kernel 7's ring depth (``kOffDepth``), read from its source."""
+def pack_quads(recs: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+    """Records [4 * Tq, S] -> kernel 4's pair-packed quads (qlo, qhi)
+    [Tq, S] int32: quad t holds records 4t, 4t+1 in qlo[t] and 4t+2, 4t+3
+    in qhi[t], 10 bits each."""
+    rec = recs.reshape(-1, 2, 2, recs.shape[1])
+    return ((rec[:, 0, 0] | rec[:, 0, 1] << 10).astype(np.int32),
+            (rec[:, 1, 0] | rec[:, 1, 1] << 10).astype(np.int32))
+
+
+def coder_depth(name: str) -> int:
+    """Coder ``name``'s (a key of ``CODERS``) rows of its input in flight,
+    read from its source: kernel 7's ring depth, kernels 4 and 8's
+    hand-over batch."""
     from llcomp_tpu_torch.kernels import build
 
-    return build.constant("coder_scan", "kOffDepth")
+    const, per = CODERS[name]
+    return build.constant("coder_scan", const) // per
+
+
+def coder_cases(name: str) -> dict:
+    """Coder ``name``'s ragged cases (``off_record_cases`` at its ring
+    depth and, for kernels 4 and 8, at their hand-over and input stages):
+    case -> the wrapper's inputs, int32 arrays (kernel 4's packed by
+    ``pack_quads``)."""
+    from llcomp_tpu_torch.kernels import build
+
+    per = CODERS[name][1]
+    batch = (0 if name == "coder_scan_off"
+             else build.constant("coder_scan", "kBatch"))
+    cases = off_record_cases(coder_depth(name), per, batch,
+                             build.constant("coder_scan", "kInStages"))
+    return {case: pack_quads(r) if per == 4 else (r.astype(np.int32),)
+            for case, r in cases.items()}
 
 
 def seg_cases(T: int, S: int, chunks=(2, 7, 32, 64)) -> dict:
@@ -648,11 +721,8 @@ def walk_pieces(seg, chunks: int) -> tuple[int, int]:
 def _skewed_records(torch, Tq: int, S: int, dev):
     """Random pair-packed coder quads (qlo, qhi) [Tq, S] of ``skewed_recs``
     (kernel 4's input)."""
-    rec = skewed_recs(4 * Tq, S).reshape(Tq, 2, 2, S)
-    qlo = rec[:, 0, 0] | rec[:, 0, 1] << 10
-    qhi = rec[:, 1, 0] | rec[:, 1, 1] << 10
-    return (torch.from_numpy(qlo.astype(np.int32)).to(dev),
-            torch.from_numpy(qhi.astype(np.int32)).to(dev))
+    return tuple(torch.from_numpy(q).to(dev)
+                 for q in pack_quads(skewed_recs(4 * Tq, S)))
 
 
 def phase_kernels_vs_plain(torch, log) -> dict:
@@ -762,17 +832,21 @@ def phase_kernels_vs_plain(torch, log) -> dict:
                           *_skewed_records(torch, 1024, 256, dev))
     err_coder = max(err_coder, e_coder)
     check(e_coder == 0, f"skewed records: coder kernel != plain ({e_coder})")
-    # kernel 7 on skewed records, T off its ring depth, 0xFF runs, dead
-    # lanes and tails
-    D = off_depth()
-    off_cases = {"skewed 4096 x 256": skewed_recs(4096, 256),
-                 **off_record_cases(D)}
-    err_off = 0
-    for name, recs in off_cases.items():
-        e = _kernel_err(ek.coder_scan_off, ek.coder_scan_off_plain,
-                        torch.from_numpy(recs.astype(np.int32)).to(dev))
-        err_off = max(err_off, e)
-        check(e == 0, f"{name}: coder_scan_off kernel != plain ({e})")
+    # the three coders on T around kernel 7's ring depth and kernels 4 and
+    # 8's hand-overs, 0xFF runs, dead lanes and tails; kernels 7 and 8
+    # also on skewed records
+    skewed = {"skewed 4096 x 256": (skewed_recs(4096, 256).astype(np.int32),)}
+    err_coders, n_coder = {}, 0
+    for name in CODERS:
+        cases = {**(skewed if name != "coder_scan_off_q" else {}),
+                 **coder_cases(name)}
+        err_coders[name] = 0
+        for case, args in cases.items():
+            e = _kernel_err(getattr(ek, name), getattr(ek, f"{name}_plain"),
+                            *(torch.from_numpy(a).to(dev) for a in args))
+            err_coders[name] = max(err_coders[name], e)
+            check(e == 0, f"{case}: {name} kernel != plain ({e})")
+            n_coder += 1
     # kernels 3 and 6 on the synthetic seg patterns, T around each
     # kernel's chunk count, ragged lane counts
     n_walk, err_walks = 0, {}
@@ -795,9 +869,12 @@ def phase_kernels_vs_plain(torch, log) -> dict:
         f"{n_err_lanes} flagged lanes agree; kernel 2 launches by "
         f"instantiation {inst}) "
         f"kernel {t_kernel:.3f} s, plain encode {t_plain:.1f} s")
-    log(f"phase 3 coder_scan_off (ring depth {D}) vs plain, kp and fin: "
-        f"{len(off_cases)} record sets exact (max_abs_err {err_off}): "
-        + ", ".join(off_cases))
+    log(f"phase 3 coders vs plain, every output, on ragged record sets "
+        f"({', '.join(coder_cases('coder_scan'))}; kernel 4's packed in "
+        f"quads, T in quads) around the rows in flight " + ", ".join(
+            f"{coder_depth(n)} ({n})" for n in CODERS)
+        + f", skewed 4096 x 256 (kernels 7, 8): {n_coder} cases exact "
+        f"(max_abs_err {err_coders})")
     log(f"phase 3 walk_symbols and walk_probs vs plain on synthetic seg "
         f"patterns ({', '.join(seg_cases(2, 1))}) at T " + " and ".join(
             f"{walk_steps(build.constant(n, 'kChunks'))} ({n})"
@@ -806,7 +883,9 @@ def phase_kernels_vs_plain(torch, log) -> dict:
     return {"encode": err_enc, "decode": err_dec,
             "walk": max(err_walk, err_walks["walk_symbols"]),
             "walk_probs": err_walks["walk_probs"],
-            "coder": err_coder, "coder_off": err_off}
+            "coder": max(err_coder, err_coders["coder_scan_off_q"]),
+            "coder_scan_off": err_coders["coder_scan_off"],
+            "coder_scan": err_coders["coder_scan"]}
 
 
 def phase_main_path(torch, log) -> dict:
@@ -1109,15 +1188,16 @@ def _worst_lanes(shape) -> np.ndarray:
 
 
 def time_copies(torch, name: str, variants: dict, shipped_ms: float, run,
-                want, seg=None) -> dict:
+                want, seg=None, tags=None) -> dict:
     """The kernel of source ``name`` beside its copies ``variants``
-    ({VARIANTS key: library}): each copy's output ``run()`` must equal
-    ``want`` (the shipped kernel's); the shipped kernel is timed again after
-    each copy.  -> {tag: ([ms], a walk's longest thread walk at the copy's
-    chunk count, given the walk's ``seg``, or None)}."""
+    ({VARIANTS key: library}), those tagged ``tags`` where given: each
+    copy's output ``run()`` must equal ``want`` (the shipped kernel's); the
+    shipped kernel is timed again after each copy.  -> {tag: ([ms], a
+    walk's longest thread walk at the copy's chunk count, given the walk's
+    ``seg``, or None)}."""
     out = {"shipped": ([shipped_ms], None)}
     for (src, tag), so in variants.items():
-        if src != name:
+        if src != name or (tags is not None and tag not in tags):
             continue
         with running(name, so):
             got = run()
@@ -1261,6 +1341,9 @@ def phase_sort(torch, log, card: str, variants: dict) -> dict:
     qlo, qhi = made["compact sort"]
     walk_ms = _time_cuda(torch, lambda: ek.walk_symbols(xs, K, tab))
     coder_ms = _time_cuda(torch, lambda: ek.coder_scan_off_q(qlo, qhi))
+    copies4 = time_copies(torch, "coder_scan", variants, coder_ms,
+                          lambda: ek.coder_scan_off_q(qlo, qhi),
+                          made["coder"], tags=CODER_TAGS["coder_scan_off_q"])
     piece, walk = walk_pieces(((xs >> 12) & 1).bool(),
                               build.constant("walk_symbols", "kChunks"))
     log(f"phase 6 kernels alone, {S} lanes x {H * W * C} symbols (K {K}, "
@@ -1274,6 +1357,10 @@ def phase_sort(torch, log, card: str, variants: dict) -> dict:
         f"C {WALK_SHIPPED['walk_symbols'][0]}, D "
         f"{WALK_SHIPPED['walk_symbols'][1]}, timed between the copies; each "
         f"copy's longest thread walk): " + _copies_line(copies))
+    log(f"phase 6 coder_scan_off_q ms beside its copies, {S} lanes x {Tq} "
+        f"quads, same output (shipped {SPLIT_SHIPPED}, timed between the "
+        f"copies): "
+        + _copies_line(copies4))
     e = _sort_kernels_vs_plain(torch, made, tab)
     check(e["walk"] == 0 and e["coder"] == 0, f"main path: sort kernels != "
           f"plain (walk {e['walk']}, coder {e['coder']})")
@@ -1301,6 +1388,7 @@ def phase_sort(torch, log, card: str, variants: dict) -> dict:
     return {"counts": counts, "walk_ms": walk_ms, "coder_ms": coder_ms,
             "bounds": bounds, "piece": piece, "thread_walk": walk,
             "walk_copies": {k: min(ts) for k, (ts, _) in copies.items()},
+            "coder_copies": {k: min(ts) for k, (ts, _) in copies4.items()},
             **e}
 
 
@@ -1426,7 +1514,7 @@ def phase_decision(torch, log, card: str, variants: dict) -> dict:
     K, Tc, h, diff = made["precompute and counts"]
     (stream,), (xs,), (probs,) = made["build"], made["walk xs"], made["walk"]
     (cx,), (kp, fin) = made["back sort"], made["coder"]
-    res = {}
+    res, outs = {}, {}
     cases = {
         "build_stream": (lambda: ek.build_stream(h, diff, n, K),
                          lambda: ek.build_stream_plain(h, diff, n, K),
@@ -1448,6 +1536,7 @@ def phase_decision(torch, log, card: str, variants: dict) -> dict:
         check(err == 0, f"{name}: kernel != plain on the engine's inputs "
               f"({err})")
         res[name] = {"ms": ms, "plain_ms": plain_ms, "err": err}
+        outs[name] = want
     log(f"phase 7 kernels vs plain on the engine's inputs, {S} lanes x {n} "
         f"symbols (K {K}, Tc {Tc} decisions), exact: " + ", ".join(
             f"{name} kernel {r['ms']:.3f} ms vs plain {r['plain_ms']:.1f} ms"
@@ -1471,15 +1560,18 @@ def phase_decision(torch, log, card: str, variants: dict) -> dict:
         piece=piece, thread_walk=walk,
         copies={k: min(ts) for k, (ts, _) in copies6.items()})
 
-    # kernel 7 beside its copies (other lanes a block and ring depths)
-    copies = time_copies(torch, "coder_scan", variants,
-                         res["coder_scan_off"]["ms"],
-                         lambda: ek.coder_scan_off(cx), (kp, fin))
-    log(f"phase 7 coder_scan_off ms beside its copies, {S} lanes x {Tc} "
-        f"records, same output (ring depth {off_depth()}, shipped timed "
-        f"between the copies): " + _copies_line(copies))
-    res["coder_scan_off"]["copies"] = {k: min(ts)
-                                       for k, (ts, _) in copies.items()}
+    # kernel 7 beside its copies (other lanes a block and ring depths),
+    # kernel 8 beside its (other hand-over batches and stages)
+    for name, what in (("coder_scan_off",
+                        f"ring depth {coder_depth('coder_scan_off')}"),
+                       ("coder_scan", f"{SPLIT_SHIPPED}")):
+        copies = time_copies(torch, "coder_scan", variants, res[name]["ms"],
+                             cases[name][0], outs[name],
+                             tags=CODER_TAGS[name])
+        log(f"phase 7 {name} ms beside its copies, {S} lanes x {Tc} "
+            f"records, same output (shipped {what}, timed between the "
+            f"copies): " + _copies_line(copies))
+        res[name]["copies"] = {k: min(ts) for k, (ts, _) in copies.items()}
 
     # kernel 8's own path: the slot-record coder on the variant's records
     ek.coder_scan.launches = 0
@@ -1873,13 +1965,13 @@ def main() -> int:
             list(pool.map(build.build, KERNEL_SOURCES))
         log(f"phase 2 build: {len(KERNEL_SOURCES)} kernel sources from "
             f"llcomp_tpu_torch/csrc and {len(VARIANTS)} copies of kernels "
-            f"1, 2, 3, 6 and 7, one nvcc each in parallel, in "
+            f"1, 2, 3, 4 and 6-8, one nvcc each in parallel, in "
             f"{time.perf_counter() - t0:.2f} s")
         regs = {name: registers(build.compiler_log(name))
                 for name in PTXAS_SOURCES}
-        copied = {f"{name} {tag}": registers(rep)[COPIED_KERNEL[name]]
+        copied = {f"{name} {tag} {k}": registers(rep)[k]
                   for (name, tag), (_, rep) in variants.items()
-                  if name in COPIED_KERNEL}
+                  if name in COPIED_KERNEL for k in COPIED_KERNEL[name]}
         spills = {f"{name} {k}": v for name, r in regs.items()
                   for k, v in r.items() if v[1]}
         spills.update({k: v for k, v in copied.items() if v[1]})
@@ -1888,8 +1980,8 @@ def main() -> int:
             + "; ".join(f"{name} " + ", ".join(f"{k} {v[0]}"
                                                for k, v in r.items())
                         for name, r in regs.items())
-            + "; copies (" + ", ".join(COPIED_KERNEL.values()) + "): "
-            + ", ".join(f"{k} {v[0]}" for k, v in copied.items()))
+            + "; copies: " + ", ".join(f"{k} {v[0]}"
+                                       for k, v in copied.items()))
         variants = {k: so for k, (so, _) in variants.items()}
 
         turns = row_store_turns(torch)       # phase 8's, made first
@@ -1943,7 +2035,8 @@ def main() -> int:
             **bound_of(sort["bounds"][name]),
             **({"copies_ms": sort["walk_copies"], "piece": sort["piece"],
                 "thread_walk": sort["thread_walk"]}
-               if name == "walk_symbols" else {})})
+               if name == "walk_symbols" else
+               {"copies_ms": sort["coder_copies"]})})
     for name, src, line in (("build_stream", "build_stream", 74),
                             ("walk_probs", "walk_probs", 356),
                             ("coder_scan_off", "coder_scan", 475),
@@ -1954,9 +2047,7 @@ def main() -> int:
             "source": f"llcomp_tpu_torch/csrc/{src}.cu",
             "replaces": f"llcomp_tpu/pallas/encode_kernels.py:{line}",
             "launches": r["launches"],
-            "max_abs_err": max(r["err"], errs.get(name, 0),
-                               errs["coder_off"] if name == "coder_scan_off"
-                               else 0),
+            "max_abs_err": max(r["err"], errs.get(name, 0)),
             "ms": r["ms"], "plain_ms": r["plain_ms"], **bound_of(r["bound"]),
             **({"copies_ms": r["copies"]} if "copies" in r else {}),
             **({k: r[k] for k in ("piece", "thread_walk")}

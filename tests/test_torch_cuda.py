@@ -11,8 +11,9 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import (WALK_LANES, off_depth, off_record_cases,
-                        repeat_lanes, skewed_recs, walk_case_errs, walk_steps)
+from chip_smoke import (CODERS, WALK_LANES, coder_cases, coder_depth,
+                        off_record_cases, pack_quads, repeat_lanes,
+                        skewed_recs, walk_case_errs, walk_steps)
 from llcomp_tpu_torch import api, coder, decode, encode, probes, seed
 from llcomp_tpu_torch.core.config import REV2
 from llcomp_tpu_torch.kernels import build
@@ -283,38 +284,59 @@ def test_walk_and_coders_equal_plain_on_random_records(dev):
     assert torch.equal(lens2, lens) and torch.equal(got, want)
 
 
+def _coder_equals_plain(name: str, args, dev) -> tuple:
+    """Coder ``name`` (a key of ``CODERS``) on the card against its plain
+    version on the CPU, on the int32 arrays ``args``: every output equal;
+    -> the plain outputs."""
+    kernel, plain = getattr(ek, name), getattr(ek, f"{name}_plain")
+    cpu = tuple(torch.from_numpy(a) for a in args)
+    before = kernel.launches
+    got = kernel(*(a.to(dev) for a in cpu))
+    assert kernel.launches == before + 1
+    want = plain(*cpu)
+    assert len(got) == len(want)
+    assert all(torch.equal(g.cpu(), w) for g, w in zip(got, want))
+    return want
+
+
+@pytest.mark.parametrize("name", list(CODERS))
 @pytest.mark.parametrize("S", [1, 33, 130, 1101])
-@pytest.mark.parametrize("steps", ["1", "D-1", "D+1", "5D+3"])
-def test_coder_off_kernel_equal_plain_on_ragged_T(dev, steps, S):
-    """Kernel 7 on T around its ring depth D (T = 1 and D - 1 below it, D
-    + 1 and 5D + 3 off every multiple of it), ragged lane counts."""
-    D = off_depth()
-    T = {"1": 1, "D-1": max(D - 1, 1), "D+1": D + 1, "5D+3": 5 * D + 3}[steps]
-    xs = torch.from_numpy(skewed_recs(T, S, seed=T + S).astype(np.int32))
-    before = ek.coder_scan_off.launches
-    kp, fin = ek.coder_scan_off(xs.to(dev))
-    assert ek.coder_scan_off.launches == before + 1
-    kp_p, fin_p = ek.coder_scan_off_plain(xs)
-    assert torch.equal(kp.cpu(), kp_p) and torch.equal(fin.cpu(), fin_p)
+@pytest.mark.parametrize("steps", ["1", "D-1", "D+1", "5D+3", "B-1", "B+1"])
+def test_coder_off_kernel_equal_plain_on_ragged_T(dev, name, steps, S):
+    """Kernels 4, 7 and 8 on T rows around their ring depth D (T = 1 and D
+    - 1 below it, D + 1 and 5D + 3 off every multiple of it; kernel 4's
+    rows are quads of records) and around the hand-over of B rows between
+    the split coders' warps, ragged lane counts."""
+    D, per = coder_depth(name), CODERS[name][1]
+    B = build.constant("coder_scan", "kBatch") // per
+    T = {"1": 1, "D-1": max(D - 1, 1), "D+1": D + 1, "5D+3": 5 * D + 3,
+         "B-1": max(B - 1, 1), "B+1": B + 1}[steps]
+    recs = skewed_recs(T * per, S, seed=T + S)
+    _coder_equals_plain(name, pack_quads(recs) if per == 4
+                        else (recs.astype(np.int32),), dev)
 
 
+@pytest.mark.parametrize("name", list(CODERS))
 @pytest.mark.parametrize("case", ["0xFF runs", "dead lanes and tails"])
-def test_coder_off_kernel_equal_plain_on_runs_and_dead_lanes(dev, case):
+def test_coder_off_kernel_equal_plain_on_runs_and_dead_lanes(dev, name,
+                                                              case):
     """Deferred runs of 0xFF bytes past a hundred, resolved by carries and
     emits; lanes all dead (no byte, the start state in fin) and a dead
-    tail of a different length in every lane."""
-    xs = torch.from_numpy(off_record_cases(off_depth())[case]
-                          .astype(np.int32))
-    kp, fin = ek.coder_scan_off(xs.to(dev))
-    kp_p, fin_p = ek.coder_scan_off_plain(xs)
-    assert torch.equal(kp.cpu(), kp_p) and torch.equal(fin.cpu(), fin_p)
+    tail of a different length in every lane (inside a quad for kernel
+    4)."""
+    want = _coder_equals_plain(name, coder_cases(name)[case], dev)
     if case == "0xFF runs":
-        _, runs, _ = ek.coder_scan_plain(xs)
+        recs = off_record_cases(coder_depth(name))[case]
+        _, runs, _ = ek.coder_scan_plain(torch.from_numpy(
+            recs.astype(np.int32)))
         assert (runs > 100).any()
     else:
-        assert (kp_p[:, :10] == coder.KP_SILENT).all()
-        assert (fin_p[:, :10].T == torch.tensor([0, 0xFF00, -1, 0, 0],
-                                                dtype=torch.int32)).all()
+        fin = want[-1]
+        start = torch.tensor([0, 0xFF00, -1, 0, 0][:len(fin)],
+                             dtype=torch.int32)
+        assert (fin[:, :10].T == start).all()
+        if name != "coder_scan":
+            assert (want[0][:, :10] == coder.KP_SILENT).all()
 
 
 def test_decision_variant_cuda_bytes_equal_cpu_and_fused(dev):

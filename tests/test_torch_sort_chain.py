@@ -19,6 +19,7 @@ from llcomp_tpu.core import tables as jtables
 from llcomp_tpu.pallas import encode_kernels as pk
 from llcomp_tpu_torch import coder, decode, encode
 from llcomp_tpu_torch.core import tables
+from chip_smoke import CODERS, SPLIT_SHIPPED, coder_cases, coder_depth
 from llcomp_tpu_torch.kernels import encode_kernels as ek
 from tests.conftest import make_noise, make_photo
 
@@ -137,28 +138,93 @@ def test_coder_plain_equals_jax(chain, mode):
     assert torch.equal(fin, _minor(st["fin"], S))
 
 
-def test_coder_plain_equals_jax_on_skewed_records():
+def _records(qlo_g: np.ndarray, qhi_g: np.ndarray) -> np.ndarray:
+    """JAX quads [1, Tq, 8, 128] -> their records [1, 4 * Tq, 8, 128] in
+    stream order."""
+    rec = np.stack([qlo_g & 0x3FF, qlo_g >> 10, qhi_g & 0x3FF, qhi_g >> 10],
+                   axis=2)
+    return rec.reshape(1, -1, *qlo_g.shape[2:])
+
+
+@pytest.mark.parametrize("case", ["skewed", "0xFF runs",
+                                  "Tq off the quad depth", "dead lanes"])
+def test_coder_plain_equals_jax_on_skewed_records(case):
     """Random records, bits P(1) = 0.97 on half the lanes: long deferred
-    runs and carries."""
+    runs and carries.  The other cases: P(1) = 0.99 on every lane with
+    probabilities 7..63 (deferred runs of 0xFF bytes past a hundred); Tq =
+    201 quads, off every multiple of the kernel's quad depths and
+    hand-overs (JAX codes the same quads followed by dead ones); lanes all
+    dead and a dead tail of a different length in every other lane, ending
+    inside a quad (dead records in a live quad, dead quads 0)."""
     rng = np.random.default_rng(3)
     shape = (1, 256, 8, 128)
     p1 = np.where(np.arange(128) % 2 == 0, 0.97, 0.5)
+    probs = (7, 248)
+    if case == "0xFF runs":
+        p1, probs = np.full(128, 0.99), (7, 64)
 
     def pair():
         recs = [(rng.random(shape) < 0.9).astype(np.int32) << 9
                 | (rng.random(shape) < p1).astype(np.int32) << 8
-                | rng.integers(7, 248, shape, dtype=np.int32)
+                | rng.integers(*probs, shape, dtype=np.int32)
                 for _ in range(2)]
         return recs[0] | recs[1] << 10
 
     qlo_g, qhi_g = pair(), pair()
+    S, Tq = 48, 201 if case == "Tq off the quad depth" else 256
+    qlo_g[:, Tq:] = qhi_g[:, Tq:] = 0
+    if case == "dead lanes":          # port lane l is qlo_g[0, :, 0, l]
+        rec = _records(qlo_g, qhi_g)
+        rec[0, :, 0, :10] = 0
+        for lane in range(10, S):
+            rec[0, 1024 - (lane * 37) % 700:, 0, lane] = 0
+        qlo_g = rec[:, 0::4] | rec[:, 1::4] << 10
+        qhi_g = rec[:, 2::4] | rec[:, 3::4] << 10
     kp_g, fin_g = pk.coder_scan_off_q(qlo_g, qhi_g)
-    S = 48
-    kp, fin = ek.coder_scan_off_q(_minor(qlo_g, S), _minor(qhi_g, S))
-    assert torch.equal(kp, _minor(kp_g, S))
+    qlo, qhi = _minor(qlo_g, S)[:Tq], _minor(qhi_g, S)[:Tq]
+    kp, fin = ek.coder_scan_off_q(qlo, qhi)
+    assert torch.equal(kp, _minor(kp_g, S)[:4 * Tq])
     assert torch.equal(fin, _minor(fin_g, S))
     carried = (kp != coder.KP_SILENT) & ((kp & 0x100) != 0)
     assert carried.any()
+    if case == "0xFF runs":
+        _, runs, _ = ek.coder_scan_plain(_minor(_records(qlo_g, qhi_g), S))
+        assert (runs > 100).any()
+    if case == "dead lanes":
+        assert (kp[:, :10] == coder.KP_SILENT).all()
+        assert torch.equal(fin[:, :10], torch.tensor(
+            [[0], [0xFF00], [-1], [0], [0]], dtype=torch.int32).expand(5, 10))
+        rec = torch.stack([qlo & 0x3FF, qlo >> 10, qhi & 0x3FF, qhi >> 10])
+        assert ((rec == 0).any(0) & (rec != 0).any(0))[:, 10:].any()
+
+
+@pytest.mark.parametrize("name", list(CODERS))
+def test_build_reads_the_coders_ring_depths(name):
+    """Kernel 7's ring depth and the split coders' (kernels 4 and 8)
+    hand-over batch (kernel 4's in quads) and stages come from
+    ``coder_scan.cu`` (``build.constant``), the split copies' shipped
+    constants (``chip_smoke.SPLIT_SHIPPED``) are the source's, and each
+    coder's ragged cases (``chip_smoke.coder_cases``, which the GPU run
+    holds the kernels to) straddle them: rows below and above the rows in
+    flight, rows off every multiple of them, rows either side of a
+    hand-over and past the input's reuse."""
+    from llcomp_tpu_torch.kernels import build
+
+    per = CODERS[name][1]
+    D = coder_depth(name)
+    assert D == build.constant("coder_scan", CODERS[name][0]) // per >= 1
+    rows = {args[0].shape[0] for args in coder_cases(name).values()}
+    assert min(rows) < max(D, 2) and max(rows) > D
+    assert any(T % D for T in rows) or D == 1
+    if name != "coder_scan_off":
+        assert SPLIT_SHIPPED == {c: build.constant("coder_scan", c)
+                                 for c in SPLIT_SHIPPED}
+        B = build.constant("coder_scan", "kBatch") // per
+        stages = build.constant("coder_scan", "kInStages")
+        assert B >= 2 and {B - 1, B + 1, stages * B + 1} <= rows
+    for args in coder_cases(name).values():
+        assert all(a.dtype == np.int32 and a.shape == args[0].shape
+                   for a in args) and len(args) == (2 if per == 4 else 1)
 
 
 @pytest.mark.parametrize("mode", MODES)
