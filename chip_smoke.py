@@ -12,10 +12,11 @@ Phases (each prints one line; any failure exits non-zero without the final
 1. device: CUDA must be available; prints the card's name and power limit;
 2. build: compiles the ten kernel sources of ``llcomp_tpu_torch/csrc`` (the
    eight library kernels and the 21 probes), one nvcc each, in parallel,
-   beside the copies of kernels 1, 2, 3, 4 and 6-8 that phases 5-7 time
-   (``VARIANTS``); prints the registers a thread of kernels 1-4 and 6-8
-   and of the copies (every coder kernel of a copy of ``coder_scan.cu``)
-   from the compiler's ``-Xptxas -v`` report (a spill fails);
+   beside the copies of kernels 1-8 and probe pH that phases 5-8 time
+   (``VARIANTS``); prints the registers a thread of kernels 1-8 and pH
+   and of the copies (every coder kernel of a copy of ``coder_scan.cu``,
+   every instantiation of kernel 5 and pH) from the compiler's ``-Xptxas
+   -v`` report (a spill fails);
 3. kernel vs plain: each CUDA kernel against its plain PyTorch version on
    small lane batches (photo, flat, noise, grayscale, RGBA, C = 2 and 5,
    1-row, 1-column, odd stride, context hashes repeating every 1 to 5
@@ -67,7 +68,9 @@ Phases (each prints one line; any failure exits non-zero without the final
    ``encode.lane_bytes``; timed end to end beside both other encodes on the
    same batches, its device idle share and largest ops, split by stage; on
    all 1,024 lanes in one chunk, kernels 5-8 held exactly against their
-   plain versions on the inputs the engine gave them, and timed, kernel 6
+   plain versions on the inputs the engine gave them, and timed, kernel 5
+   beside copies of it (one thread a slot, the design it replaced; other
+   tiles; scalar stores), kernel 6
    (with its longest piece and thread walk) beside copies of it with other
    chunk counts and ring depths, kernel 7 beside copies of it with other
    lanes a block and ring depths and kernel 8 beside copies of it with
@@ -84,8 +87,11 @@ Phases (each prints one line; any failure exits non-zero without the final
    that of an empty kernel (the launch floor under their bounds);
    each kernel held exactly against its plain version (outputs and model
    planes of random words, on inputs where the plain output differs across
-   lanes or a plane changes); the one PyTorch call that computes the same
-   function, where there is one, timed and equal.
+   lanes or a plane changes); pH beside copies of it (one block, the
+   design it replaced, and each cluster size), each exact, at 128 and
+   1,024 lanes and T 32, 256 and 512, with and without the window; the
+   one PyTorch call that computes the same function, where there is one,
+   timed and equal.
 
 Phases 5-8 compute each kernel's bound (``bound``): the least time the
 card could take for the bytes and integer operations of its work on this
@@ -120,15 +126,18 @@ KERNEL_SOURCES = ("encode_fused", "decode_kernel", "walk_symbols",
 # the main path's kernels, the walks and the range coders: phase 2 reads
 # their registers and spills
 PTXAS_SOURCES = ("encode_fused", "decode_kernel", "walk_symbols",
-                 "walk_probs", "coder_scan")
-# Copies of kernels 1, 2, 3, 4 and 6-8 that phases 5-7 time beside the
+                 "walk_probs", "coder_scan", "build_stream", "probe_mosaic3")
+# Copies of kernels 1-8 and probe pH that phases 5-8 time beside the
 # shipped ones, each built from the shipped source with one edit (old,
 # new): other lanes a block (kernels 1 and 7's constants, kernel 2's
 # rule), other look-ahead depths of kernels 1, 3, 6 and 7, other chunk
 # counts of the walks (kernels 3 and 6), other hand-over batches and
-# stages of kernels 4 and 8 (the measurements behind those choices), and
-# kernel 1 with each symbol's decisions replaced by one byte out (the
-# split of a symbol's time).
+# stages of kernels 4 and 8, other tiles of kernel 5 and its scalar
+# stores, other cluster sizes of pH (the measurements behind those
+# choices), and kernel 1 with each symbol's decisions replaced by one byte
+# out (the split of a symbol's time); or a whole source of
+# ``tools/designs/`` (a path): kernel 5 as one thread a slot and pH as
+# one block, the designs they replaced.
 _BLOCK, _DEPTH = "constexpr int kBlock = 1;", "constexpr int kDepth = 2;"
 _RULE = "  return e;\n"       # the end of kernel 2's lanes_a_block
 _CODER_BLOCK = "constexpr int kBlock = 32;"
@@ -144,6 +153,18 @@ SPLIT_COPIES = {"kBatch": (16,), "kStages": (2, 6), "kInStages": (2, 6)}
 CODERS = {"coder_scan_off_q": ("kBatch", 4),
           "coder_scan_off": ("kOffDepth", 1),
           "coder_scan": ("kBatch", 1)}
+DESIGNS = pathlib.Path(__file__).resolve().parent / "tools" / "designs"
+# kernel 5's tiles (symbols a block) and pH's cluster sizes (blocks), the
+# shipped rule's text and each copy's
+BUILD_TILES = (64, 128)
+# residuals at kernel 5's exponent edges: 0, +-1, +-2, +-(2^11 - 1),
+# +-2^11, +-4095 (the 11-bit clip) and past it
+EDGE_RESIDUALS = np.array([0, 1, -1, 2, -2, 2047, -2047, 2048, -2048, 4095,
+                           -4095, 4096, -4096, 5000, -5000, 1 << 20,
+                           -(1 << 20), 1 << 30, -(1 << 30)], np.int32)
+_TILE = "constexpr int kTile = 256;"
+PH_CLUSTERS = (1, 2, 4, 8, 16)
+_PH_RULE = "  const int pick = lanes > 512 ? 16 : 8;\n"
 # the walks' shipped chunk counts and ring depths, and those of their
 # copies (kernel 3 spills at depth 32)
 WALK_SHIPPED = {"walk_symbols": (64, 4), "walk_probs": (64, 16)}
@@ -151,11 +172,14 @@ WALK_COPIES = {"walk_symbols": {"C": (1, 8, 16, 32, 64), "D": (1, 4, 8, 16)},
                "walk_probs": {"C": (1, 8, 16, 32, 64),
                               "D": (1, 4, 8, 16, 32)}}
 # the kernels of each copied source whose registers phase 2 prints
+# (each kernel named by the start of its name)
 COPIED_KERNEL = {"encode_fused": ("encode_fused_kernel",),
                  "coder_scan": ("coder_scan_off_q_kernel",
                                 "coder_scan_off_kernel", "coder_scan_kernel"),
                  "walk_symbols": ("walk_symbols_kernel",),
-                 "walk_probs": ("walk_probs_kernel",)}
+                 "walk_probs": ("walk_probs_kernel",),
+                 "build_stream": ("build_stream_kernel",),
+                 "probe_mosaic3": ("stage_steps",)}
 
 
 def _walk_variants() -> dict:
@@ -200,6 +224,15 @@ VARIANTS = {
        for d in (1, 4, 16, 32)},
     **_split_variants(),
     **_walk_variants(),
+    ("build_stream", "one thread a slot"):
+        DESIGNS / "build_stream_slot_thread.cu",
+    **{("build_stream", f"tile {n}"): (_TILE, f"constexpr int kTile = {n};")
+       for n in BUILD_TILES},
+    ("build_stream", "scalar stores"): ("constexpr bool kVector = true;",
+                                        "constexpr bool kVector = false;"),
+    ("probe_mosaic3", "one block"): DESIGNS / "probe_mosaic3_one_block.cu",
+    **{("probe_mosaic3", f"cluster {c}"): (
+        _PH_RULE, f"  const int pick = {c};\n") for c in PH_CLUSTERS},
 }
 # the copies of coder_scan.cu that each coder is timed beside
 CODER_TAGS = {
@@ -353,16 +386,20 @@ def _malicious_stream() -> bytes:
 
 
 def _kernel_name(mangled: str) -> str:
-    """A kernel's name from its mangled symbol: ``C<n>`` for an
-    instantiation on an int (kernel 2's channels C, C0 the generic one),
-    else the function's own name (the last part of a nested name)."""
+    """A kernel's name from its mangled symbol: the function's own name
+    (the last part of a nested name), with its template argument where it
+    is an instantiation on an int or a bool (``decode_kernel<1>``, kernel
+    2's channels, ``<0>`` the generic one; ``stage_steps<true>``)."""
     rest, names = re.sub(r"^_ZN?", "", mangled), []
     while m := re.match(r"\d+", rest):
         n = int(m[0])
         names.append(rest[len(m[0]):len(m[0]) + n])
         rest = rest[len(m[0]) + n:]
-    arg = re.match(r"ILi(\d+)E", rest)
-    return f"C{arg[1]}" if arg else (names[-1] if names else mangled)
+    name = names[-1] if names else mangled
+    if arg := re.match(r"IL([ib])(\d+)E", rest):
+        value = {"0": "false", "1": "true"}[arg[2]] if arg[1] == "b" else arg[2]
+        return f"{name}<{value}>"
+    return name
 
 
 def registers(report: str) -> dict:
@@ -383,21 +420,27 @@ def registers(report: str) -> dict:
 
 def build_copy(name: str, tag: str, edits) -> tuple[pathlib.Path, str]:
     """``csrc/<name>.cu`` with each edit (old, new) made, every old text
-    found once, built with the port's flags as copy ``tag``: (its library,
-    the compiler's report)."""
+    found once, or the whole source at path ``edits``, built with the
+    port's flags (and ``csrc/`` for its headers) as copy ``tag``: (its
+    library, the compiler's report)."""
     from llcomp_tpu_torch.kernels import build
 
-    src = (build.CSRC / f"{name}.cu").read_text()
+    if isinstance(edits, pathlib.Path):
+        src, edits = edits.read_text(), []
+    else:
+        src = (build.CSRC / f"{name}.cu").read_text()
     for old, new in edits:
         check(src.count(old) == 1, f"{name}.cu: the text of copy {tag!r} "
               "moved")
         src = src.replace(old, new)
     build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    cu = build.BUILD_DIR / f"variant_{name}_{tag.replace(' ', '_')}.cu"
+    stem = re.sub(r"\W", "_", f"variant_{name}_{tag}")
+    cu = build.BUILD_DIR / f"{stem}.cu"
     cu.write_text(src)
     so = cu.with_suffix(".so")
-    r = subprocess.run([build.nvcc(), *build.NVCC_FLAGS, "-o", str(so),
-                        str(cu)], capture_output=True, text=True)
+    r = subprocess.run([build.nvcc(), *build.NVCC_FLAGS, "-I",
+                        str(build.CSRC), "-o", str(so), str(cu)],
+                       capture_output=True, text=True)
     check(r.returncode == 0, f"{name}.cu copy {tag!r} did not build:\n"
           + r.stderr[-3000:])
     return so, r.stderr
@@ -406,7 +449,8 @@ def build_copy(name: str, tag: str, edits) -> tuple[pathlib.Path, str]:
 def build_variant(key: tuple[str, str]) -> tuple[pathlib.Path, str]:
     """The copy ``VARIANTS[key]``, built (``build_copy``)."""
     edits = VARIANTS[key]
-    return build_copy(*key, edits if isinstance(edits, list) else [edits])
+    return build_copy(*key, edits if isinstance(edits, (list, pathlib.Path))
+                      else [edits])
 
 
 @contextlib.contextmanager
@@ -1560,6 +1604,18 @@ def phase_decision(torch, log, card: str, variants: dict) -> dict:
         piece=piece, thread_walk=walk,
         copies={k: min(ts) for k, (ts, _) in copies6.items()})
 
+    # kernel 5 beside its copies (one thread a slot, other tiles, scalar
+    # stores)
+    copies5 = time_copies(torch, "build_stream", variants,
+                          res["build_stream"]["ms"], cases["build_stream"][0],
+                          (stream,))
+    log(f"phase 7 build_stream ms beside its copies, {S} lanes x {n} "
+        f"symbols x K {K}, same output (shipped: tiles of "
+        f"{build.constant('build_stream', 'kTile')} symbols, 16-byte "
+        f"stores; timed between the copies): " + _copies_line(copies5))
+    res["build_stream"]["copies"] = {k: min(ts)
+                                     for k, (ts, _) in copies5.items()}
+
     # kernel 7 beside its copies (other lanes a block and ring depths),
     # kernel 8 beside its (other hand-over batches and stages)
     for name, what in (("coder_scan_off",
@@ -1793,7 +1849,51 @@ def row_store_turns(torch) -> tuple[dict, list]:
     return turn_ms, floors
 
 
-def phase_probes(torch, log, card: str, turns: tuple) -> dict:
+def ph_copies(torch, variants: dict) -> dict:
+    """Probe pH beside its copies ``variants`` (one block, and each
+    cluster size of ``PH_CLUSTERS``) at ``PROBE_LANES`` x ``PH_STEPS``,
+    with and without the window: each copy exact against
+    ``pH_stage_plain`` (outputs and planes of random words, through
+    ``probes.run_probe``) and its ns a step (median of 3 fresh inputs),
+    the shipped kernel timed before the copies and after them.  A copy at
+    a cluster size the card refuses (past the portable 8) gives the error
+    in place of a time.  -> {(key, lanes, T): {tag: [ns] or the error}}"""
+    from llcomp_tpu_torch import probes
+    from llcomp_tpu_torch.probes import mosaic3
+
+    dev = torch.device("cuda")
+    tags = {tag: so for (src, tag), so in variants.items()
+            if src == "probe_mosaic3"}
+    out = {}
+    for key in ("pHw", "pHn"):
+        p = mosaic3.PROBES[key]
+        for lanes in PROBE_LANES:
+            for T in PH_STEPS:
+                def ns():
+                    return probes.run_probe(p, dev, lanes=lanes, T=T,
+                                            check=False)["ns_step"]
+                row = {"shipped": [ns()]}
+                for tag, so in tags.items():
+                    with running("probe_mosaic3", so):
+                        try:
+                            r = probes.run_probe(p, dev, lanes=lanes, T=T)
+                        except RuntimeError as e:
+                            check(tag == f"cluster {PH_CLUSTERS[-1]}" and
+                                  PH_CLUSTERS[-1] > 8, f"{key} copy {tag!r}"
+                                  f", {lanes} lanes, T {T}: {e}")
+                            row[tag] = f"refused ({e})"
+                            continue
+                    check(r["err"] == 0 and r["telling"], f"{key} copy "
+                          f"{tag!r}, {lanes} lanes, T {T}: kernel != plain "
+                          f"({r['err']})")
+                    row[tag] = [r["ns_step"]]
+                row["shipped"].append(ns())
+                out[key, lanes, T] = row
+    return out
+
+
+def phase_probes(torch, log, card: str, turns: tuple,
+                 variants: dict) -> dict:
     """Phase 8: the 21 probes of ``llcomp_tpu_torch.probes`` (the TPU
     probes of ``tools/``) on the card.  Their path: every probe through
     ``probes.run_probe``, as its module's command line runs it, at the TPU
@@ -1802,9 +1902,10 @@ def phase_probes(torch, log, card: str, turns: tuple) -> dict:
     Then each probe's kernel against its plain version, exactly (outputs
     and planes of random words; at 1,024 lanes too for the stepped ones),
     on inputs where the plain output differs across lanes or a plane
-    changes; the kernels' device time (p3's and pC's, beside ``scatter_``
-    and the launch floor, from ``turns``: ``row_store_turns``); the one
-    PyTorch call that computes the same function where there is one; and
+    changes; pH beside its copies ``variants`` (``ph_copies``); the
+    kernels' device time (p3's and pC's, beside ``scatter_`` and the
+    launch floor, from ``turns``: ``row_store_turns``); the one PyTorch
+    call that computes the same function where there is one; and
     bounds."""
     from llcomp_tpu_torch import probes
     from llcomp_tpu_torch.probes import mosaic, mosaic2, mosaic3, reduce
@@ -1857,6 +1958,17 @@ def phase_probes(torch, log, card: str, turns: tuple) -> dict:
         f"each output differing across lanes or a plane changed; plain ms "
         f"at 128 lanes: " + ", ".join(f"{k} {v:.1f}"
                                       for k, v in plain_ms.items()))
+
+    ph = ph_copies(torch, variants)
+    log(f"phase 8 pH ns a step beside its copies (one block, the cluster "
+        f"sizes {PH_CLUSTERS}; each exact against pH_stage_plain, outputs "
+        f"and planes of random words; the shipped kernel timed before and "
+        f"after them) on {card}: " + "; ".join(
+            f"{key} {lanes} lanes T {T}: " + ", ".join(
+                f"{tag} " + (", ".join(f"{v:.1f}" for v in ns)
+                             if isinstance(ns, list) else ns)
+                for tag, ns in row.items())
+            for (key, lanes, T), row in ph.items()))
 
     turn_ms, floors = turns      # the floor is the lesser empty launch
     floor_ms = min((f for f in floors if f is not None), default=None)
@@ -1928,7 +2040,13 @@ def phase_probes(torch, log, card: str, turns: tuple) -> dict:
             **({} if allp[k].T else {
                 "wrapper_ms": ev_ms, "launch_floor_ms": floor_ms,
                 "launch_bound_ms": b["bound_ms"],
-                "launch_bound_by": b["bound_by"]})})
+                "launch_bound_by": b["bound_by"]}),
+            **({"copies_ns_step": {
+                f"{key} {lanes} T {T}": {
+                    tag: min(v) if isinstance(v, list) else v
+                    for tag, v in r.items()}
+                for (key, lanes, T), r in ph.items()}}
+               if row == "pH" else {})})
     return {"rows": rows, "runs": runs}
 
 
@@ -1965,13 +2083,15 @@ def main() -> int:
             list(pool.map(build.build, KERNEL_SOURCES))
         log(f"phase 2 build: {len(KERNEL_SOURCES)} kernel sources from "
             f"llcomp_tpu_torch/csrc and {len(VARIANTS)} copies of kernels "
-            f"1, 2, 3, 4 and 6-8, one nvcc each in parallel, in "
+            f"1-8 and probe pH, one nvcc each in parallel, in "
             f"{time.perf_counter() - t0:.2f} s")
         regs = {name: registers(build.compiler_log(name))
                 for name in PTXAS_SOURCES}
-        copied = {f"{name} {tag} {k}": registers(rep)[k]
+        copied = {f"{name} {tag} {k}": v
                   for (name, tag), (_, rep) in variants.items()
-                  if name in COPIED_KERNEL for k in COPIED_KERNEL[name]}
+                  if name in COPIED_KERNEL
+                  for k, v in registers(rep).items()
+                  if k.startswith(COPIED_KERNEL[name])}
         spills = {f"{name} {k}": v for name, r in regs.items()
                   for k, v in r.items() if v[1]}
         spills.update({k: v for k, v in copied.items() if v[1]})
@@ -1990,7 +2110,7 @@ def main() -> int:
         bench = phase_bench(torch, log, card, variants)
         sort = phase_sort(torch, log, card, variants)
         decision = phase_decision(torch, log, card, variants)
-        probe = phase_probes(torch, log, card, turns)
+        probe = phase_probes(torch, log, card, turns, variants)
         if "jax" in sys.modules or "llcomp_tpu" in sys.modules:
             raise Failed("the port imported JAX or llcomp_tpu")
     except Failed as e:

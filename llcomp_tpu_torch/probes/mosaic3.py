@@ -20,7 +20,7 @@ from . import (Probe, check_i32, check_steps, i32, ints, is_cuda,
 from . import main as _main
 
 SRC = "probe_mosaic3"
-MAX_LANES = 1024        # pH runs one block, one thread a lane
+MAX_LANES = 1024        # pH: the TPU probe's bound on lanes, one thread each
 DATA_ROWS = 1000        # pH's windows b..b+7, b = r mod 992, lie below this
 
 
@@ -65,7 +65,9 @@ def pH_stage(idx, data, T=256, window=True, model=None):
     mod k, l] + carry) mod (rows - 16)) rounded down to even; with
     ``window`` it reads data[b:b+8, l], b = r mod 992; carry = (carry + the
     sum of all lanes' windows) mod 1009.  ``idx`` [k, lanes], ``data``
-    [>= 1000, lanes]; out [8, lanes] = the last carry."""
+    [>= 1000, lanes]; out [8, lanes] = the last carry.  On CUDA the lanes
+    are spread over one thread-block cluster (``csrc/probe_mosaic3.cu``);
+    a cluster launch the card refuses raises."""
     idx = check_i32("idx", idx)
     data = check_i32("data", data, idx.shape[1])
     model = plane(model, idx.shape[1], idx.device)
@@ -73,6 +75,9 @@ def pH_stage(idx, data, T=256, window=True, model=None):
     if idx.shape[1] > MAX_LANES or data.shape[0] < DATA_ROWS:
         raise ValueError(f"pH takes at most {MAX_LANES} lanes and data of at "
                          f"least {DATA_ROWS} rows, got {tuple(data.shape)}")
+    if not idx.shape[0] or not idx.shape[1]:
+        raise ValueError(f"pH: idx needs a row and a lane, got "
+                         f"{tuple(idx.shape)}")
     if not is_cuda(idx, data, model):
         return pH_stage_plain(idx, data, T, window, model)
     out = torch.empty((8, idx.shape[1]), dtype=torch.int32, device=idx.device)

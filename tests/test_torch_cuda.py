@@ -7,12 +7,16 @@ conftest imports JAX, which a GPU host need not have).  Tolerance: exact.
 """
 from __future__ import annotations
 
+import contextlib
+import functools
+
 import numpy as np
 import pytest
 import torch
 
-from chip_smoke import (CODERS, WALK_LANES, coder_cases, coder_depth,
-                        off_record_cases, pack_quads, repeat_lanes,
+from chip_smoke import (CODERS, EDGE_RESIDUALS, PH_CLUSTERS, WALK_LANES,
+                        build_variant, coder_cases, coder_depth,
+                        off_record_cases, pack_quads, repeat_lanes, running,
                         skewed_recs, walk_case_errs, walk_steps)
 from llcomp_tpu_torch import api, coder, decode, encode, probes, seed
 from llcomp_tpu_torch.core.config import REV2
@@ -252,6 +256,70 @@ def test_build_kernel_equal_plain_on_random_symbols(dev, K):
     d[:, ::7] = 0
     got = ek.build_stream(h.to(dev), d.to(dev), n_sym, K)
     assert torch.equal(got.cpu(), ek.build_stream_plain(h, d, n_sym, K))
+
+
+@pytest.mark.parametrize("live", ["cut", "none", "all"])
+@pytest.mark.parametrize("S", [1, 37, 1101])
+@pytest.mark.parametrize("K", [1, 3, 8, 12, 16, 24, 25])
+def test_build_kernel_equal_plain_on_tiles(dev, K, S, live):
+    """Kernel 5 against its plain version: its K 8, 16 and 24
+    instantiations and the generic one (16-byte stores at K 12, scalar at
+    K 1, 3 and 25); 200 symbols a lane, off the 128-symbol tile; n_sym
+    ending inside the second tile, every symbol dead, every symbol live;
+    residuals at the exponent's edges; one launch counted."""
+    rng = np.random.default_rng(K * S)
+    n_pad = 200
+    n_sym = {"cut": 150, "none": 0, "all": n_pad}[live]
+    h = torch.from_numpy(rng.integers(0, 8000, (S, n_pad), dtype=np.int32))
+    d = torch.from_numpy(rng.choice(EDGE_RESIDUALS, (S, n_pad)))
+    before = ek.build_stream.launches
+    got = ek.build_stream(h.to(dev), d.to(dev), n_sym, K)
+    assert ek.build_stream.launches == before + 1
+    assert torch.equal(got.cpu(), ek.build_stream_plain(h, d, n_sym, K))
+
+
+def test_build_kernel_takes_more_lanes_than_a_grid_row(dev):
+    """70,000 lanes, past the 65,535 blocks of a grid's second dimension:
+    the grid is one dimension of lanes x tiles."""
+    rng = np.random.default_rng(70)
+    h = torch.from_numpy(rng.integers(0, 8000, (70_000, 3), dtype=np.int32))
+    d = torch.from_numpy(rng.choice(EDGE_RESIDUALS, (70_000, 3)))
+    got = ek.build_stream(h.to(dev), d.to(dev), 2, 8)
+    assert torch.equal(got.cpu(), ek.build_stream_plain(h, d, 2, 8))
+
+
+@functools.lru_cache(maxsize=None)
+def _ph_copy(tag: str):
+    """pH's copy ``tag`` of ``chip_smoke.VARIANTS``, built once."""
+    return build_variant(("probe_mosaic3", tag))[0]
+
+
+@pytest.mark.parametrize("window", [True, False])
+@pytest.mark.parametrize("T", [1, 2, 33])
+@pytest.mark.parametrize("lanes", [1, 33, 127, 129, 1024])
+@pytest.mark.parametrize("copy", ["shipped",
+                                  *(f"cluster {c}" for c in PH_CLUSTERS)])
+def test_pH_equals_plain_at_every_cluster_size(dev, copy, lanes, T, window):
+    """pH, shipped and at each cluster size (``chip_smoke``'s copies),
+    against ``pH_stage_plain`` at lane counts around the partitions of
+    the lanes over a cluster (blocks with no live lane among them), a
+    300-row plane of random words: output and plane exact, one launch
+    counted."""
+    p = PROBES["pHw"]
+    a = p.make(lanes, lanes, 300, dev)
+    a.update(T=T, window=window)
+    rng = np.random.default_rng(lanes + T)
+    a["model"] = torch.from_numpy(rng.integers(
+        -2**31, 2**31, a["model"].shape, dtype=np.int32)).to(dev)
+    ref = {k: v.clone() if isinstance(v, torch.Tensor) else v
+           for k, v in a.items()}
+    before = mosaic3.pH_stage.launches
+    with (contextlib.nullcontext() if copy == "shipped"
+          else running("probe_mosaic3", _ph_copy(copy))):
+        out = mosaic3.pH_stage(**a)
+    assert mosaic3.pH_stage.launches == before + 1
+    assert torch.equal(out, p.plain(**ref))
+    assert torch.equal(a["model"], ref["model"])
 
 
 def test_walk_and_coders_equal_plain_on_random_records(dev):

@@ -15,6 +15,7 @@ import numpy as np
 import pytest
 import torch
 
+from chip_smoke import EDGE_RESIDUALS
 from llcomp_tpu import coder as jcoder
 from llcomp_tpu import encode as jenc
 from llcomp_tpu import oracle
@@ -92,6 +93,26 @@ def test_build_stream_plain_equals_jax_on_random_symbols():
     want = pk.build_stream(jnp.asarray(h_g), jnp.asarray(d_g), 50, 24)
     got = ek.build_stream(_major(h_g, pk.GROUP), _major(d_g, pk.GROUP), 50,
                           24)
+    assert torch.equal(got, _major(want, pk.GROUP))
+
+
+@pytest.mark.parametrize("K", [8, 16, 24])
+@pytest.mark.parametrize("n_pad, n_sym", [(192, 150), (320, 320)],
+                         ids=["n_sym inside a tile", "n_pad off 128"])
+def test_build_stream_plain_equals_jax_on_edge_residuals(K, n_pad, n_sym):
+    """Kernel 5's plain version against the JAX builder (interpret mode)
+    with every residual of ``EDGE_RESIDUALS`` on every lane of a group; K
+    8 and 16 cut the long symbols short.  Neither 192 nor 320 symbols is a
+    whole number of the CUDA kernel's 128-symbol tiles; n_sym 150 ends
+    inside the second tile, and its padding symbols are -1."""
+    rng = np.random.default_rng(K + n_pad)
+    shape = (1, n_pad, 8, 128)
+    h_g = rng.integers(0, 8000, shape, dtype=np.int32)
+    d_g = rng.choice(EDGE_RESIDUALS, shape)
+    assert set(np.unique(d_g[:, :n_sym])) == set(EDGE_RESIDUALS)
+    want = pk.build_stream(jnp.asarray(h_g), jnp.asarray(d_g), n_sym, K)
+    got = ek.build_stream_plain(_major(h_g, pk.GROUP),
+                                _major(d_g, pk.GROUP), n_sym, K)
     assert torch.equal(got, _major(want, pk.GROUP))
 
 

@@ -232,6 +232,53 @@ def test_pH_stages_two_words_a_lane_a_step(window):
     assert torch.equal(model[0::2][: ROWS // 2], model[1::2])
 
 
+def _wrap(x: int) -> int:
+    """x as a wrapped int32."""
+    return (x + 2**31) % 2**32 - 2**31
+
+
+def _pH_scalar(idx, data, model, T, window):
+    """pH as the probe defines it, one step and one lane at a time in
+    Python ints, sums wrapping as int32: (out, the model plane after)."""
+    model = model.copy()
+    (k, lanes), m = idx.shape, model.shape[0] - 16
+    carry = 0
+    for s in range(T):
+        total = 0
+        for lane in range(lanes):
+            r = (_wrap(int(idx[s % k, lane]) + carry) % m) & ~1
+            for row in (r, r + 1):
+                model[row, lane] = _wrap(int(model[row, lane]) + 1)
+            if window:
+                b = r % 992
+                total += sum(int(data[b + i, lane]) for i in range(8))
+        carry = _wrap(carry + total) % 1009
+    return np.full((8, lanes), carry, np.int32), model
+
+
+@pytest.mark.parametrize("window", [True, False])
+@pytest.mark.parametrize("lanes", [1, 33, 127, 129, 1024])
+def test_pH_plain_equals_a_scalar_loop(lanes, window):
+    """``pH_stage_plain`` against ``_pH_scalar`` at lane counts around the
+    CUDA kernel's partitions of the lanes over a cluster (1, a warp and
+    one, a block of 128 and one either side, the most): planes of random
+    words, data over the whole int32 range (wrapping sums), idx rows that
+    wrap (3 rows, T 7) and idx near the int32 maximum (idx + carry
+    wraps negative)."""
+    rng = np.random.default_rng(lanes)
+    idx = rng.integers(0, 2**31, (3, lanes), dtype=np.int32)
+    idx[:, ::3] = 2**31 - 1 - rng.integers(0, 1009, (3, -(-lanes // 3)))
+    data = rng.integers(-2**31, 2**31, (1000, lanes), dtype=np.int32)
+    model = rng.integers(-2**31, 2**31, (ROWS, lanes), dtype=np.int32)
+    want, want_model = _pH_scalar(idx, data, model, 7, window)
+    got_model = torch.from_numpy(model.copy())
+    got = mosaic3.pH_stage_plain(torch.from_numpy(idx),
+                                 torch.from_numpy(data), 7, window, got_model)
+    np.testing.assert_array_equal(got.numpy(), want)
+    np.testing.assert_array_equal(got_model.numpy(), want_model)
+    assert not np.array_equal(want_model, model)
+
+
 def test_bad_arguments_raise():
     idx = torch.zeros((1, LANES), dtype=torch.int32)
     with pytest.raises(ValueError, match="int32"):
@@ -244,6 +291,9 @@ def test_bad_arguments_raise():
     with pytest.raises(ValueError, match="1024 lanes"):
         mosaic3.pH_stage(torch.zeros((64, 2048), dtype=torch.int32),
                          torch.zeros((1024, 2048), dtype=torch.int32), 1)
+    with pytest.raises(ValueError, match="idx needs a row"):
+        mosaic3.pH_stage(torch.zeros((0, LANES), dtype=torch.int32),
+                         torch.zeros((1024, LANES), dtype=torch.int32), 1)
     with pytest.raises(ValueError, match="at least 32 rows"):
         reduce.run(torch.zeros((16, LANES), dtype=torch.int32))
 

@@ -114,10 +114,9 @@ def _opcode(text: str) -> str:
     return re.sub(r"^@!?U?P\w+\s+", "", text).split()[0].split(".")[0]
 
 
-def record_loops(text: str) -> dict:
-    """SASS text -> {kernel: [(first address, instructions, records a pass,
-    opcode counts), ...]}: each kernel's innermost loops (a branch back to
-    an earlier address and what lies between) that code records."""
+def functions(text: str) -> dict:
+    """SASS text -> {kernel: ([(address, instruction)], {label:
+    address})}, each kernel named by ``chip_smoke._kernel_name``."""
     fns, fn, pending = {}, None, []
     for line in text.splitlines():
         if m := re.search(r"Function : (\S+)", line):
@@ -133,21 +132,34 @@ def record_loops(text: str) -> dict:
             labels.update({lb: addr for lb in pending})
             pending = []
             ins.append((addr, m[2]))
+    return fns
+
+
+def inner_loops(ins: list, labels: dict) -> list:
+    """A kernel's innermost loops, [(first address, last address)]: each
+    a branch back to an earlier address and what lies between, holding
+    no other loop."""
+    loops = []
+    for addr, t in ins:
+        if _opcode(t) != "BRA":
+            continue
+        m = re.search(r"(0x[0-9a-f]+)|`\((\.L_x_\d+)\)", t)
+        target = (int(m[1], 16) if m and m[1]
+                  else labels.get(m[2]) if m else None)
+        if target is not None and target <= addr:
+            loops.append((target, addr))
+    return sorted({(a, b) for a, b in loops
+                   if not any((c, d) != (a, b) and a <= c and d <= b
+                              for c, d in loops)})
+
+
+def record_loops(text: str) -> dict:
+    """SASS text -> {kernel: [(first address, instructions, records a pass,
+    opcode counts), ...]}: each kernel's innermost loops that code
+    records."""
     out = {}
-    for fn, (ins, labels) in fns.items():
-        loops = []
-        for addr, t in ins:
-            if _opcode(t) != "BRA":
-                continue
-            m = re.search(r"(0x[0-9a-f]+)|`\((\.L_x_\d+)\)", t)
-            target = (int(m[1], 16) if m and m[1]
-                      else labels.get(m[2]) if m else None)
-            if target is not None and target <= addr:
-                loops.append((target, addr))
-        inner = [(a, b) for a, b in loops
-                 if not any((c, d) != (a, b) and a <= c and d <= b
-                            for c, d in loops)]
-        for a, b in sorted(set(inner)):
+    for fn, (ins, labels) in functions(text).items():
+        for a, b in inner_loops(ins, labels):
             ops = collections.Counter(_opcode(t) for x, t in ins
                                       if a <= x <= b)
             recs = ops["STS"] or ops["LDS"] or (
