@@ -12,11 +12,12 @@ Phases (each prints one line; any failure exits non-zero without the final
 1. device: CUDA must be available; prints the card's name and power limit;
 2. build: compiles the ten kernel sources of ``llcomp_tpu_torch/csrc`` (the
    eight library kernels and the 21 probes), one nvcc each, in parallel,
-   beside the copies of kernels 1-8 and probe pH that phases 5-8 time
-   (``VARIANTS``); prints the registers a thread of kernels 1-8 and pH
-   and of the copies (every coder kernel of a copy of ``coder_scan.cu``,
-   every instantiation of kernel 5 and pH) from the compiler's ``-Xptxas
-   -v`` report (a spill fails);
+   beside the copies of kernels 1-8 and probes p7, p9 and pH that phases
+   5-8 time (``VARIANTS``); prints the registers a thread of kernels 1-8,
+   the probes of ``probe_mosaic.cu`` and pH and of the copies (every coder
+   kernel of a copy of ``coder_scan.cu``, every instantiation of kernel 5
+   and pH, p7 and p9) from the compiler's ``-Xptxas -v`` report (a spill
+   fails);
 3. kernel vs plain: each CUDA kernel against its plain PyTorch version on
    small lane batches (photo, flat, noise, grayscale, RGBA, C = 2 and 5,
    1-row, 1-column, odd stride, context hashes repeating every 1 to 5
@@ -83,15 +84,23 @@ Phases (each prints one line; any failure exits non-zero without the final
    ``tools/``): each driven through ``probes.run_probe`` at the TPU probes'
    shape (128 lanes, a 15,872-row model plane), the stepped ones also at
    1,024 lanes and pH at T 32, 256 and 512, every wrapper launched; the
-   time a launch and a symbol step, the one-shot probes' device time and
-   that of an empty kernel (the launch floor under their bounds);
+   time a launch and a symbol step, the one-shot probes' device time,
+   each in turns with an empty kernel (the launch floor under their
+   bounds, its share of the probe's time) and the library call in one
+   profiler session;
    each kernel held exactly against its plain version (outputs and model
    planes of random words, on inputs where the plain output differs across
    lanes or a plane changes); pH beside copies of it (one block, the
    design it replaced, and each cluster size), each exact, at 128 and
-   1,024 lanes and T 32, 256 and 512, with and without the window; the
-   one PyTorch call that computes the same function, where there is one,
-   timed and equal.
+   1,024 lanes and T 32, 256 and 512, with and without the window; p7 and
+   p9 beside copies of them (the serial step they replaced, p7 at other
+   row ring depths, p9 unrolled), each exact against one plain output a
+   case on p7's ring hazards (lanes whose every step lands on one row,
+   planes of 2, 3 and 17 rows, T around each depth), p9's byte edges and
+   128 and 1,024 lanes, timed in turns, with the SASS instructions of one
+   decision and its carried chain (``cuobjdump -sass``), the SM clock and
+   p7's and p9's chain floors; the one PyTorch call that computes the
+   same function, where there is one, timed and equal.
 
 Phases 5-8 compute each kernel's bound (``bound``): the least time the
 card could take for the bytes and integer operations of its work on this
@@ -126,18 +135,21 @@ KERNEL_SOURCES = ("encode_fused", "decode_kernel", "walk_symbols",
 # the main path's kernels, the walks and the range coders: phase 2 reads
 # their registers and spills
 PTXAS_SOURCES = ("encode_fused", "decode_kernel", "walk_symbols",
-                 "walk_probs", "coder_scan", "build_stream", "probe_mosaic3")
-# Copies of kernels 1-8 and probe pH that phases 5-8 time beside the
-# shipped ones, each built from the shipped source with one edit (old,
-# new): other lanes a block (kernels 1 and 7's constants, kernel 2's
-# rule), other look-ahead depths of kernels 1, 3, 6 and 7, other chunk
-# counts of the walks (kernels 3 and 6), other hand-over batches and
-# stages of kernels 4 and 8, other tiles of kernel 5 and its scalar
-# stores, other cluster sizes of pH (the measurements behind those
-# choices), and kernel 1 with each symbol's decisions replaced by one byte
-# out (the split of a symbol's time); or a whole source of
-# ``tools/designs/`` (a path): kernel 5 as one thread a slot and pH as
-# one block, the designs they replaced.
+                 "walk_probs", "coder_scan", "build_stream", "probe_mosaic",
+                 "probe_mosaic3")
+# Copies of kernels 1-8 and probes p7, p9 and pH that phases 5-8 time
+# beside the shipped ones, each built from the shipped source with one
+# edit (old, new): other lanes a block (kernels 1 and 7's constants,
+# kernel 2's rule), other look-ahead depths of kernels 1, 3, 6 and 7,
+# other chunk counts of the walks (kernels 3 and 6), other hand-over
+# batches and stages of kernels 4 and 8, other tiles of kernel 5 and its
+# scalar stores, other cluster sizes of pH, other row ring depths of p7
+# and p9 unrolled (the measurements behind those choices), and kernel 1
+# with each symbol's decisions replaced by one byte out (the split of a
+# symbol's time); or a whole source of ``tools/designs/`` (a path):
+# kernel 5 as one thread a slot, pH as one block and p7 and p9 as a
+# serial step (the row loaded after the previous step's store, the
+# shift-and-select decision), the designs they replaced.
 _BLOCK, _DEPTH = "constexpr int kBlock = 1;", "constexpr int kDepth = 2;"
 _RULE = "  return e;\n"       # the end of kernel 2's lanes_a_block
 _CODER_BLOCK = "constexpr int kBlock = 32;"
@@ -165,6 +177,10 @@ EDGE_RESIDUALS = np.array([0, 1, -1, 2, -2, 2047, -2047, 2048, -2048, 4095,
 _TILE = "constexpr int kTile = 256;"
 PH_CLUSTERS = (1, 2, 4, 8, 16)
 _PH_RULE = "  const int pick = lanes > 512 ? 16 : 8;\n"
+# p7's row ring depths: the shipped one and its copies'
+ROW_SHIPPED, ROW_DEPTHS = 4, (2, 4, 8)
+_ROW_DEPTH = f"constexpr int kRowDepth = {ROW_SHIPPED};"
+_P9_LAUNCH = "  decisions_perm<false>\n      <<<"
 # the walks' shipped chunk counts and ring depths, and those of their
 # copies (kernel 3 spills at depth 32)
 WALK_SHIPPED = {"walk_symbols": (64, 4), "walk_probs": (64, 16)}
@@ -179,6 +195,8 @@ COPIED_KERNEL = {"encode_fused": ("encode_fused_kernel",),
                  "walk_symbols": ("walk_symbols_kernel",),
                  "walk_probs": ("walk_probs_kernel",),
                  "build_stream": ("build_stream_kernel",),
+                 "probe_mosaic": ("symbol_steps", "decisions_perm",
+                                  "decisions_only<false>"),
                  "probe_mosaic3": ("stage_steps",)}
 
 
@@ -233,7 +251,17 @@ VARIANTS = {
     ("probe_mosaic3", "one block"): DESIGNS / "probe_mosaic3_one_block.cu",
     **{("probe_mosaic3", f"cluster {c}"): (
         _PH_RULE, f"  const int pick = {c};\n") for c in PH_CLUSTERS},
+    ("probe_mosaic", "serial step"): DESIGNS / "probe_mosaic_serial_step.cu",
+    **{("probe_mosaic", f"depth {d}"): (
+        _ROW_DEPTH, f"constexpr int kRowDepth = {d};")
+       for d in ROW_DEPTHS if d != ROW_SHIPPED},
+    ("probe_mosaic", "p9 unrolled"): (
+        _P9_LAUNCH, _P9_LAUNCH.replace("false", "true")),
 }
+# the copies of probe_mosaic.cu that p7 and p9 are timed beside
+PROBE_TAGS = {"p7": ("serial step", *(f"depth {d}" for d in ROW_DEPTHS
+                                      if d != ROW_SHIPPED)),
+              "p9": ("serial step", "p9 unrolled")}
 # the copies of coder_scan.cu that each coder is timed beside
 CODER_TAGS = {
     "coder_scan_off": ("1 lanes", "4 lanes",
@@ -290,6 +318,7 @@ PROBE_ROWS = {
 }
 PROBE_LANES = (128, 1024)   # the TPU probes' lanes and the bench batch's
 PH_STEPS = (32, 256, 512)
+PROBE_ROUNDS = 3            # rounds of p7's and p9's copies in turns
 
 # sha256 of the test images (generator check) and of the expected bytes
 IMAGE_SHA = {
@@ -416,6 +445,121 @@ def registers(report: str) -> dict:
             out[_kernel_name(fn)] = (int(m[1]), spill)
     check(bool(out), "ptxas -v printed no registers")
     return out
+
+
+def sass(so: pathlib.Path) -> str:
+    """The library's SASS, by the toolkit's ``cuobjdump``."""
+    from llcomp_tpu_torch.kernels import build
+
+    tool = pathlib.Path(build.nvcc()).with_name("cuobjdump")
+    return subprocess.run([str(tool), "-sass", str(so)], capture_output=True,
+                          text=True, check=True).stdout
+
+
+def sass_opcode(text: str) -> str:
+    """An instruction's opcode without predicate and modifiers."""
+    return re.sub(r"^@!?U?P\w+\s+", "", text).split()[0].split(".")[0]
+
+
+def sass_functions(text: str) -> dict:
+    """SASS text -> {kernel: ([(address, instruction)], {label:
+    address})}, each kernel named by ``chip_smoke._kernel_name``."""
+    fns, fn, pending = {}, None, []
+    for line in text.splitlines():
+        if m := re.search(r"Function : (\S+)", line):
+            fn, pending = _kernel_name(m[1]), []
+            fns[fn] = ([], {})
+        elif fn is None:
+            continue
+        elif m := re.match(r"\s*(\.L_x_\d+):", line):
+            pending.append(m[1])
+        elif m := re.match(r"\s*/\*([0-9a-f]{4,})\*/\s+(.*?)\s*;", line):
+            addr = int(m[1], 16)
+            ins, labels = fns[fn]
+            labels.update({lb: addr for lb in pending})
+            pending = []
+            ins.append((addr, m[2]))
+    return fns
+
+
+def inner_loops(ins: list, labels: dict) -> list:
+    """A kernel's innermost loops, [(first address, last address)]: each
+    a branch back to an earlier address and what lies between, holding
+    no other loop."""
+    loops = []
+    for addr, t in ins:
+        if sass_opcode(t) != "BRA":
+            continue
+        m = re.search(r"(0x[0-9a-f]+)|`\((\.L_x_\d+)\)", t)
+        target = (int(m[1], 16) if m and m[1]
+                  else labels.get(m[2]) if m else None)
+        if target is not None and target <= addr:
+            loops.append((target, addr))
+    return sorted({(a, b) for a, b in loops
+                   if not any((c, d) != (a, b) and a <= c and d <= b
+                              for c, d in loops)})
+
+
+# Dependent-issue latency of an arithmetic instruction, in SM clocks: the
+# CUDA C++ Programming Guide ("Multiprocessor Level": "typically 4 clock
+# cycles" for most arithmetic instructions, stated for compute capability
+# 7.x); no count of this card's own backs it.  A serial chain's floor is its
+# dependent instructions times this over the SM clock.
+ALU_LATENCY_CLOCKS = 4
+# opcodes that write no register (stores, branches, barriers)
+_NO_DEST = ("ST", "RED", "BRA", "EXIT", "BAR", "CALL", "RET", "NOP", "BSYNC",
+            "BSSY", "WARPSYNC", "MEMBAR", "YIELD", "DEPBAR", "CCTL")
+
+
+def _sass_regs(operand: str) -> list:
+    """The registers and predicates an operand names (``R2.64``: R2, R3)."""
+    regs = re.findall(r"\bU?[RP]\d+\b", operand)
+    if m := re.search(r"\b(U?R)(\d+)\.64\b", operand):
+        regs.append(f"{m[1]}{int(m[2]) + 1}")
+    return regs
+
+
+def sass_chain(body: list, passes: int = 16) -> tuple:
+    """The dependent instructions one pass of a loop ``body`` (its SASS
+    instructions in order) carries to the next: how much the longest chain
+    of instructions each reading a register that the one before it wrote
+    grows a pass, over the second half of ``passes`` passes in a row (the
+    first half lets the chains that start in a pass settle); and the
+    opcodes of that chain in its middle pass.  An instruction's first
+    operand is its destination, and its second where that is a predicate
+    (a compare's or a carry's); a predicated instruction also reads what
+    it writes."""
+    nodes, last, best = [], {}, None      # node: (depth, parent, pass, op)
+    ends = []                             # the longest chain after a pass
+    for p in range(passes):
+        for text in body:
+            guard = re.match(r"@!?(U?P\d)\s+", text)
+            rest = text[guard.end():] if guard else text
+            _, _, args = rest.partition(" ")
+            ops = [a.strip() for a in args.split(",")] if args else []
+            n = 0 if sass_opcode(rest).startswith(_NO_DEST) else (
+                2 if len(ops) > 1 and re.fullmatch(r"U?P(\d|T)", ops[1])
+                else 1)
+            dests = [r for a in ops[:n] for r in _sass_regs(a)]
+            reads = [r for a in ops[n:] for r in _sass_regs(a)]
+            if guard:
+                reads += [guard[1], *dests]
+            parent = max((last[r] for r in reads if r in last),
+                         key=lambda i: nodes[i][0], default=None)
+            depth = 1 + (nodes[parent][0] if parent is not None else 0)
+            nodes.append((depth, parent, p, sass_opcode(rest)))
+            for r in dests:
+                last[r] = len(nodes) - 1
+            if best is None or depth > nodes[best][0]:
+                best = len(nodes) - 1
+        ends.append(nodes[best][0])
+    chain, i = [], best
+    while i is not None:
+        if nodes[i][2] == passes // 2:
+            chain.append(nodes[i][3])
+        i = nodes[i][1]
+    half = passes // 2
+    return (ends[-1] - ends[half - 1]) / (passes - half), chain[::-1]
 
 
 def build_copy(name: str, tag: str, edits) -> tuple[pathlib.Path, str]:
@@ -1707,27 +1851,6 @@ def _device_us(prof) -> dict:
             and e.key != "Activity Buffer Request"}
 
 
-def _device_ms(torch, fn, n: int, attempts: int = 3) -> float | None:
-    """Device milliseconds a call of ``fn``: the kernels' own time under
-    ``torch.profiler`` over ``n`` calls, after a warm-up; a session with
-    no device activity is made again, up to ``attempts`` times; None when
-    the profiler never recorded any."""
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    torch.cuda.synchronize()
-    for _ in range(attempts):
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            for _ in range(n):
-                fn()
-            torch.cuda.synchronize()
-        us = sum(_device_us(prof).values())
-        if us:
-            return us / n / 1e3
-    return None
-
-
 def _in_turns(torch, calls: dict, n: int, attempts: int = 3) -> dict:
     """Device milliseconds a call of each of ``calls`` (name -> fn) under
     one ``torch.profiler`` session in which the calls take turns ``n``
@@ -1826,27 +1949,31 @@ def _probe_work_bound(key: str, a: dict) -> dict:
                  T * L * (step + win * OPS_PROBE_WORD))
 
 
-def row_store_turns(torch) -> tuple[dict, list]:
-    """The row store (p3, pC) beside ``scatter_`` and the empty launch, in
-    turns (``_in_turns``; p3 and pC launch the same kernel: one session
-    each): ({call: device ms}, [the empty launch's ms in each session]).
-    Made before any other profiler session of the process: after the
-    profiled encodes of phases 6 and 7, these short sessions lost the empty
-    launch's and ``scatter_``'s kernels in every attempt."""
+def one_shot_turns(torch) -> dict:
+    """Each one-shot probe beside the empty launch and, where there is
+    one, its library call, in turns (``_in_turns``), one profiler session
+    a probe, so that a probe's share of the launch floor and its library
+    call's time come from the clocks its own time met (from one session to
+    the next a one-shot kernel's time moves by a third): {key: {"empty",
+    key, "library": device ms}}.  Made before any other profiler session
+    of the process: after the profiled encodes of phases 6 and 7, short
+    sessions lost the empty launch's and ``scatter_``'s kernels in every
+    attempt."""
     from llcomp_tpu_torch import probes
-    from llcomp_tpu_torch.probes import mosaic, mosaic2
+    from llcomp_tpu_torch.probes import mosaic, mosaic2, mosaic3, reduce
 
     dev = torch.device("cuda")
-    empty, turn_ms, floors = _empty_launch(torch), {}, []
-    for k, p in (("p3", mosaic.PROBES["p3"]), ("pC", mosaic2.PROBES["pC"])):
-        a = p.make(0, 128, probes.ROWS, dev)
-        t = _in_turns(torch, {"empty": empty,
-                              k: functools.partial(p.fn, **a),
-                              f"{k} scatter_": _library_call(torch, k, a)},
-                      probes.LAUNCHES)
-        floors.append(t.pop("empty"))
-        turn_ms.update(t)
-    return turn_ms, floors
+    empty, out = _empty_launch(torch), {}
+    for m in (mosaic, mosaic2, mosaic3, reduce):
+        for key, p in m.PROBES.items():
+            if p.T:
+                continue
+            a = p.make(0, 128, probes.ROWS, dev)
+            calls = {"empty": empty, key: functools.partial(p.fn, **a)}
+            if (call := _library_call(torch, key, a)) is not None:
+                calls["library"] = call
+            out[key] = _in_turns(torch, calls, probes.LAUNCHES)
+    return out
 
 
 def ph_copies(torch, variants: dict) -> dict:
@@ -1892,7 +2019,134 @@ def ph_copies(torch, variants: dict) -> dict:
     return out
 
 
-def phase_probes(torch, log, card: str, turns: tuple,
+def p7_hazard_cases() -> list:
+    """p7's inputs where its row ring meets its hazards, at every ring depth
+    of ``ROW_DEPTHS``: [(name, idx [1, lanes] int32, rows, T)].  On the
+    15,872-row plane the lanes at x = 7110 and 7110 + 15,871 (every third
+    and the ones after) land on row 7110 at every step (x + 40503 is a
+    multiple of 15,871); planes of 2, 3 and 17 rows repeat rows within any
+    ring; T around each depth leaves the ring part full."""
+    rng = np.random.default_rng(7110)
+
+    def idx(lanes):
+        return rng.integers(0, 2**31, (1, lanes), dtype=np.int32)
+
+    same = idx(128)
+    same[0, ::3], same[0, 1::3] = 7110, 7110 + 15871
+    cases = [("7110 lanes", same, 15872, 64)]
+    cases += [(f"{rows} rows", idx(128), rows, 64) for rows in (2, 3, 17)]
+    cases += [(f"T {T}", idx(33), 17, T) for T in sorted(
+        {0, 1} | {d + e for d in ROW_DEPTHS for e in (-1, 0, 1)})]
+    return cases
+
+
+def p9_hazard_idx(lanes: int = 128) -> np.ndarray:
+    """p9's idx [1, lanes] at the byte's edges: bytes 0xFF (the step to
+    0x00 wraps) and 0x00, and values past 255 (only the low byte is
+    read), then random words."""
+    out = np.random.default_rng(255).integers(0, 2**31, (1, lanes),
+                                              dtype=np.int32)
+    edges = [0xFF, 0, 0x1FF, 0x100, 0xFFFF, 2**31 - 1, 0x80, 0xFE]
+    out[0, :len(edges)] = edges[:lanes]
+    return out
+
+
+def p7_p9_copies(torch, variants: dict) -> dict:
+    """Probes p7 and p9 beside their copies ``PROBE_TAGS`` (the serial
+    step they replaced, p7 at the other ring depths, p9 unrolled).  Each
+    copy is held exactly (output and planes) against one plain output a
+    case: p7 on ``p7_hazard_cases``, p9 on ``p9_hazard_idx`` at T 0, 1, 2
+    and 64, both at ``PROBE_LANES`` x T 512 on planes of random words; the
+    plain version runs once a case, each copy on a copy of its inputs.
+    Then ns a step at ``PROBE_LANES`` x T 512 in turns, ``PROBE_ROUNDS``
+    rounds (``probes.run_probe``: median of 3 fresh inputs, zeroed
+    planes), the SM clock read after them.  -> {"cases": n, "ns":
+    {(key, lanes): {tag: [ns]}}, "clock_mhz": (SM clock, its maximum)}"""
+    from llcomp_tpu_torch import probes
+    from llcomp_tpu_torch.probes import mosaic
+
+    dev = torch.device("cuda")
+
+    def under(tag):
+        return (contextlib.nullcontext() if tag == "shipped" else
+                running("probe_mosaic", variants["probe_mosaic", tag]))
+
+    def copied(kw):
+        return {k: v.clone() if isinstance(v, torch.Tensor) else v
+                for k, v in kw.items()}
+
+    def held(key, kw, what):
+        p, ref = mosaic.PROBES[key], copied(kw)
+        want = p.plain(**ref)
+        for tag in ("shipped", *PROBE_TAGS[key]):
+            a = copied(kw)
+            with under(tag):
+                out = p.fn(**a)
+            check(torch.equal(out, want) and all(
+                torch.equal(v, ref[k]) for k, v in a.items()
+                if isinstance(v, torch.Tensor)),
+                f"{key} {tag}, {what}: kernel != plain")
+
+    cases = 0
+    for name, idx, rows, T in p7_hazard_cases():
+        held("p7", {"idx": torch.from_numpy(idx).to(dev), "T": T,
+                    "model": probes.words(rows, (2, rows, idx.shape[1]),
+                                          dev)}, name)
+        cases += 1
+    for T in (0, 1, 2, 64):
+        held("p9", {"idx": torch.from_numpy(p9_hazard_idx()).to(dev),
+                    "T": T}, f"byte edges, T {T}")
+        cases += 1
+    for key in PROBE_TAGS:
+        p = mosaic.PROBES[key]
+        for lanes in PROBE_LANES:
+            kw = {**p.make(0, lanes, probes.ROWS, dev), "T": p.T}
+            if "model" in kw:
+                kw["model"] = probes.words(0, kw["model"].shape, dev)
+            held(key, kw, f"{lanes} lanes, T {p.T}")
+            cases += 1
+    ns = {}
+    for key, tags in PROBE_TAGS.items():
+        p = mosaic.PROBES[key]
+        for lanes in PROBE_LANES:
+            row = ns[key, lanes] = {tag: [] for tag in ("shipped", *tags)}
+            for _ in range(PROBE_ROUNDS):
+                for tag, v in row.items():
+                    with under(tag):
+                        v.append(probes.run_probe(p, dev, lanes=lanes,
+                                                  check=False)["ns_step"])
+    clock = subprocess.run(
+        ["nvidia-smi", "-i", "0", "--query-gpu=clocks.sm,clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        check=True).stdout.split(",")
+    return {"cases": cases, "ns": ns,
+            "clock_mhz": tuple(float(c) for c in clock)}
+
+
+def decision_sass(variants: dict) -> dict:
+    """p9's decision loop in the shipped build and its copies, from the
+    SASS: {tag: (kernel, instructions a decision, dependent instructions a
+    decision on the loop's carried chain (``sass_chain``), that chain's
+    opcodes)}.  The rolled kernels' innermost loop is one decision; the
+    unrolled copy's is a step of 24."""
+    from llcomp_tpu_torch.kernels import build
+
+    kernels = {"shipped": ("decisions_perm<false>", 1),
+               "serial step": ("decisions_only<false>", 1),
+               "p9 unrolled": ("decisions_perm<true>", 24)}
+    out = {}
+    for tag, (name, per) in kernels.items():
+        so = (build.build("probe_mosaic") if tag == "shipped"
+              else variants["probe_mosaic", tag])
+        ins, labels = sass_functions(sass(so))[name]
+        a, b = max(inner_loops(ins, labels), key=lambda ab: ab[1] - ab[0])
+        body = [t for x, t in ins if a <= x <= b]
+        chain, ops = sass_chain(body)
+        out[tag] = (name, len(body) / per, chain / per, ops)
+    return out
+
+
+def phase_probes(torch, log, card: str, turns: dict,
                  variants: dict) -> dict:
     """Phase 8: the 21 probes of ``llcomp_tpu_torch.probes`` (the TPU
     probes of ``tools/``) on the card.  Their path: every probe through
@@ -1902,9 +2156,12 @@ def phase_probes(torch, log, card: str, turns: tuple,
     Then each probe's kernel against its plain version, exactly (outputs
     and planes of random words; at 1,024 lanes too for the stepped ones),
     on inputs where the plain output differs across lanes or a plane
-    changes; pH beside its copies ``variants`` (``ph_copies``); the
-    kernels' device time (p3's and pC's, beside ``scatter_`` and the
-    launch floor, from ``turns``: ``row_store_turns``); the one PyTorch
+    changes; pH beside its copies ``variants`` (``ph_copies``); p7 and p9
+    beside theirs (``p7_p9_copies``), their decision loop's SASS
+    (``decision_sass``) and chain floors; the one-shot probes' device
+    time, each beside the launch floor and its library call in turns in a
+    profiler session of its own (``turns``: ``one_shot_turns``), and the
+    floor's share of it; the one PyTorch
     call that computes the same function where there is one; and
     bounds."""
     from llcomp_tpu_torch import probes
@@ -1970,8 +2227,41 @@ def phase_probes(torch, log, card: str, turns: tuple,
                 for tag, ns in row.items())
             for (key, lanes, T), row in ph.items()))
 
-    turn_ms, floors = turns      # the floor is the lesser empty launch
-    floor_ms = min((f for f in floors if f is not None), default=None)
+    pp = p7_p9_copies(torch, variants)
+    clock, clock_max = pp["clock_mhz"]
+    log(f"phase 8 p7 and p9 beside their copies ({PROBE_TAGS}), every copy "
+        f"exact against one plain output a case, outputs and planes, on "
+        f"{pp['cases']} cases (p7: the 7110 lanes, planes of 2, 3 and 17 "
+        f"rows, T around each ring depth {ROW_DEPTHS}; p9: idx bytes 0xFF, "
+        f"0x00 and past 255; both at {PROBE_LANES} lanes, T 512, planes of "
+        f"random words); ns a step in turns, {PROBE_ROUNDS} rounds, on "
+        f"{card}, SM clock after them {clock:g} MHz (max {clock_max:g}): "
+        + "; ".join(f"{key} {lanes} lanes: " + ", ".join(
+            f"{tag} " + ", ".join(f"{v:.1f}" for v in ns)
+            for tag, ns in row.items())
+            for (key, lanes), row in pp["ns"].items()))
+    dsass = decision_sass(variants)
+    log("phase 8 SASS of p9's decision loop (cuobjdump -sass), a decision: "
+        + "; ".join(f"{tag} {name}: {n:.2f} instructions, {c:.2f} dependent "
+                    f"on the carried chain ({' '.join(ops)})"
+                    for tag, (name, n, c, ops) in dsass.items()))
+    # chain floors at T 512: p9's, its carried chain's dependent
+    # instructions at ALU_LATENCY_CLOCKS each; p7's, p9's measured step
+    T = mosaic.PROBES["p9"].T
+    chain_ms = {
+        "p9": 24 * T * dsass["shipped"][2] * ALU_LATENCY_CLOCKS
+        / (clock * 1e3),
+        "p7": min(pp["ns"]["p9", 128]["shipped"]) * T / 1e6}
+    log(f"phase 8 chain floors, T {T}: p9 24 x T x "
+        f"{dsass['shipped'][2]:.2f} dependent instructions x "
+        f"{ALU_LATENCY_CLOCKS} clocks at {clock:g} MHz = "
+        f"{chain_ms['p9']:.5f} ms; p7 p9's step at 128 lanes x T = "
+        f"{chain_ms['p7']:.5f} ms")
+
+    floors = {k: t["empty"] for k, t in turns.items()}
+    # the bounds' floor is the least empty launch
+    floor_ms = min((f for f in floors.values() if f is not None),
+                   default=None)
     library, library_ev, device, bounds = {}, {}, {}, {}
     for key, p in allp.items():
         a = p.make(0, 128, probes.ROWS, dev)
@@ -1979,22 +2269,21 @@ def phase_probes(torch, log, card: str, turns: tuple,
             a["T"] = p.T
         call = _library_call(torch, key, a)
         if not p.T:      # the kernels' own time, without the host's
-            device[key] = turn_ms[key] if key in turn_ms else _device_ms(
-                torch, lambda: p.fn(**a), probes.LAUNCHES)
+            device[key] = turns[key][key]
         if call is not None:
             check(torch.equal(call(), p.fn(**p.make(0, 128, probes.ROWS,
                                                       dev))),
                   f"probe {key}: the library call != the kernel")
             library_ev[key] = _time_cuda(torch, call, calls=probes.LAUNCHES)
-            library[key] = (turn_ms[f"{key} scatter_"] if key in turn_ms
-                            else _device_ms(torch, call, probes.LAUNCHES))
+            library[key] = turns[key].get("library")
         bounds[key] = _probe_bound(key, a, floor_ms)
     log("phase 8 library calls, ms a call (CUDA events, "
         f"{probes.LAUNCHES} calls back to back, median of 3; host-bound), "
         "equal to the kernels: " + ", ".join(
             f"{k} {v:.5f}" for k, v in library_ev.items()))
-    log(f"phase 8 device ms a call (torch.profiler, {probes.LAUNCHES} calls) "
-        "of the one-shot probes' kernels | the library calls: " + ", ".join(
+    log(f"phase 8 device ms a call (torch.profiler, {probes.LAUNCHES} turns "
+        "with the empty launch in one session a probe) of the one-shot "
+        "probes' kernels | the library calls: " + ", ".join(
             f"{k} " + " | ".join(f"{v:.5f}" if v is not None
                                  else "not measured" for v in pair)
             for k, pair in ((k, (device[k], library.get(k)))
@@ -2003,9 +2292,14 @@ def phase_probes(torch, log, card: str, turns: tuple,
     def us(ms):
         return f"{ms * 1e3:.3f}" if ms is not None else "not measured"
 
+    shares = {k: floors[k] / v for k, v in device.items()
+              if v and floors[k] is not None}
     log(f"phase 8 device us a call (torch.profiler, {probes.LAUNCHES} turns "
-        f"in one session each): launch floor (an empty kernel, one warp) "
-        f"{' and '.join(map(us, floors))}; row store " + ", ".join(
+        f"in one session a probe): the launch floor (an empty kernel, one "
+        f"warp) in each session and its share of the probe's time: "
+        + ", ".join(f"{k} {us(floors[k])} ({shares[k]:.1%} of "
+                    f"{us(device[k])})" for k in shares)
+        + "; row store " + ", ".join(
             f"{k} {us(device[k])} (scatter_ {us(library[k])})"
             for k in ("p3", "pC")))
     log("phase 8 bounds at 128 lanes (a one-shot probe's at least the "
@@ -2040,7 +2334,12 @@ def phase_probes(torch, log, card: str, turns: tuple,
             **({} if allp[k].T else {
                 "wrapper_ms": ev_ms, "launch_floor_ms": floor_ms,
                 "launch_bound_ms": b["bound_ms"],
-                "launch_bound_by": b["bound_by"]}),
+                "launch_bound_by": b["bound_by"],
+                "launch_floor_share": shares.get(k)}),
+            **({"chain_floor_ms": chain_ms[row], "copies_ns_step": {
+                f"{row} {lanes} T {allp[k].T}": {
+                    tag: min(v) for tag, v in pp["ns"][row, lanes].items()}
+                for lanes in PROBE_LANES}} if row in chain_ms else {}),
             **({"copies_ns_step": {
                 f"{key} {lanes} T {T}": {
                     tag: min(v) if isinstance(v, list) else v
@@ -2083,7 +2382,7 @@ def main() -> int:
             list(pool.map(build.build, KERNEL_SOURCES))
         log(f"phase 2 build: {len(KERNEL_SOURCES)} kernel sources from "
             f"llcomp_tpu_torch/csrc and {len(VARIANTS)} copies of kernels "
-            f"1-8 and probe pH, one nvcc each in parallel, in "
+            f"1-8 and probes p7, p9 and pH, one nvcc each in parallel, in "
             f"{time.perf_counter() - t0:.2f} s")
         regs = {name: registers(build.compiler_log(name))
                 for name in PTXAS_SOURCES}
@@ -2104,7 +2403,7 @@ def main() -> int:
                                        for k, v in copied.items()))
         variants = {k: so for k, (so, _) in variants.items()}
 
-        turns = row_store_turns(torch)       # phase 8's, made first
+        turns = one_shot_turns(torch)        # phase 8's, made first
         errs = phase_kernels_vs_plain(torch, log)
         counts = phase_main_path(torch, log)
         bench = phase_bench(torch, log, card, variants)

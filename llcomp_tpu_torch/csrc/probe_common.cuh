@@ -46,7 +46,8 @@ __device__ __forceinline__ int32_t step_row(int32_t x, int s, int32_t m) {
 // picks byte ctx of the lane's 8-byte model row, acc = (acc*5 + byte + 1)
 // & 0x7FFF, and the byte steps to (byte + 1) & 0xFF.  The row stays in two
 // 32-bit registers (bytes 0-3 in lo, 4-7 in hi), read and written with
-// shifts: an int[8] indexed by ctx would live in local memory.
+// shifts: an int[8] indexed by ctx would live in local memory.  p10 and pF
+// take this step; p7 and p9 take decide_perm below.
 __device__ __forceinline__ void decide(uint32_t& lo, uint32_t& hi,
                                        int32_t& acc, int d) {
   const int ctx = (acc + d) & 7;
@@ -74,6 +75,70 @@ __device__ __forceinline__ void decide24(uint32_t& lo, uint32_t& hi,
 #pragma unroll 1
     for (int d = 0; d < 24; ++d) decide(lo, hi, acc, d);
   }
+}
+
+// PTX prmt: the bytes of {b:a} that the four low nibbles of s select
+// (values 0-7 here).  __byte_perm masks s with 0x7777 first, one more
+// instruction, which would sit on decide_perm's chain.
+__device__ __forceinline__ uint32_t prmt(uint32_t a, uint32_t b, uint32_t s) {
+  uint32_t d;
+  asm("prmt.b32 %0, %1, %2, %3;" : "=r"(d) : "r"(a), "r"(b), "r"(s));
+  return d;
+}
+
+// The prmt selector that writes byte 0 of the second word over byte c of
+// the first where m is 0xF << 4c (nibble c 4, the rest 0x3210), and keeps
+// the first word where m's nibble lies in the upper half, which prmt does
+// not read: 0x3210 ^ (0x7654 & m), one LOP3.
+__device__ __forceinline__ uint32_t put_byte_sel(uint32_t m) {
+  uint32_t d;
+  asm("lop3.b32 %0, %1, %2, %3, 0x6a;"
+      : "=r"(d) : "r"(m), "r"(0x7654u), "r"(0x3210u));
+  return d;
+}
+
+// The same decision as decide, its chain cut to what the next ctx needs
+// (p7, p9; p10 and pF keep decide).  acc is carried as t = acc + d in 32
+// bits, wrapping and unmasked: acc's & 0x7FFF commutes with wrapping
+// arithmetic (2^15 divides 2^32), so the caller masks once, where acc
+// leaves.  Then ctx = t & 7, and t' = 5t + byte + k with k = 2 - 4d (d's
+// and the +1's constants folded).  ctx is a chain of its own, three
+// dependent instructions: one prmt reads byte ctx of {hi:lo} into byte 0
+// (bytes 1-3 are lo's byte 0, which no bit of ctx' sees), then ctx' = (raw
+// + 5ctx + k) & 7, 5ctx + k formed beside the read.  The row and t hang
+// off that chain: one prmt a word writes byte 0 of raw + 1, (byte + 1) &
+// 0xFF, over byte ctx & 3 of the word ctx is in, its selector from a
+// rotate of a nibble mask by 4ctx (put_byte_sel).
+__device__ __forceinline__ void decide_perm(uint32_t& lo, uint32_t& hi,
+                                            uint32_t& ctx, uint32_t& t,
+                                            uint32_t k) {
+  const uint32_t raw = prmt(lo, hi, ctx);
+  const uint32_t sh = ctx << 2;
+  const uint32_t ahead = ctx * 5u + k;
+  const uint32_t next = raw + 1u;
+  lo = prmt(lo, next, put_byte_sel(__funnelshift_l(0xFu, 0xFu, sh)));
+  hi = prmt(hi, next, put_byte_sel(__funnelshift_l(0xF0000u, 0xF0000u, sh)));
+  uint32_t sum;   // raw + ahead as its own add, after the read
+  asm("add.u32 %0, %1, %2;" : "=r"(sum) : "r"(raw), "r"(ahead));
+  ctx = sum & 7u;
+  t = t * 5u + (raw & 0xFFu) + k;
+}
+
+// One step of 24 decide_perm, the loop kept (Unroll false) or unrolled
+// (true): t goes in and out as acc (t - 24 after decision 23 is the next
+// step's t at d = 0), ctx = t & 7 on both sides.
+template <bool Unroll>
+__device__ __forceinline__ void decide24_perm(uint32_t& lo, uint32_t& hi,
+                                              uint32_t& ctx, uint32_t& t) {
+  if constexpr (Unroll) {
+#pragma unroll
+    for (int d = 0; d < 24; ++d) decide_perm(lo, hi, ctx, t, 2u - 4u * d);
+  } else {
+#pragma unroll 1
+    for (uint32_t k = 2u; k != 2u - 96u; k -= 4u)
+      decide_perm(lo, hi, ctx, t, k);
+  }
+  t -= 24u;
 }
 
 // Per-lane window gather: out[i, l] = src[r + i, l] for i < win, where

@@ -16,8 +16,9 @@ import torch
 
 from chip_smoke import (CODERS, EDGE_RESIDUALS, PH_CLUSTERS, WALK_LANES,
                         build_variant, coder_cases, coder_depth,
-                        off_record_cases, pack_quads, repeat_lanes, running,
-                        skewed_recs, walk_case_errs, walk_steps)
+                        off_record_cases, p9_hazard_idx, pack_quads,
+                        repeat_lanes, running, skewed_recs, walk_case_errs,
+                        walk_steps)
 from llcomp_tpu_torch import api, coder, decode, encode, probes, seed
 from llcomp_tpu_torch.core.config import REV2
 from llcomp_tpu_torch.kernels import build
@@ -456,6 +457,64 @@ def test_staging_probes_equal_plain_on_random_planes(dev, key):
            for k, v in a.items()}
     assert torch.equal(p.fn(**a), p.plain(**ref))
     assert torch.equal(a["model"], ref["model"])
+
+
+def _p7_equals_plain(dev, idx: np.ndarray, rows: int, T: int) -> None:
+    """p7 on ``idx`` [1, lanes] and two planes of ``rows`` rows of random
+    words against ``p7_symbol_step_cost_plain``: output and planes exact,
+    one launch counted."""
+    rng = np.random.default_rng(rows + T + idx.shape[1])
+    model = torch.from_numpy(rng.integers(-2**31, 2**31, (2, rows,
+                                                          idx.shape[1]),
+                                          dtype=np.int32))
+    ref = model.clone()
+    model = model.to(dev)
+    before = mosaic.p7_symbol_step_cost.launches
+    out = mosaic.p7_symbol_step_cost(torch.from_numpy(idx).to(dev), T, model)
+    assert mosaic.p7_symbol_step_cost.launches == before + 1
+    want = mosaic.p7_symbol_step_cost_plain(torch.from_numpy(idx), T, ref)
+    assert torch.equal(out.cpu(), want)
+    assert torch.equal(model.cpu(), ref)
+
+
+@pytest.mark.parametrize("rows", [2, 3, 17, 15872])
+def test_p7_equals_plain_where_rows_repeat(dev, rows):
+    """p7's row ring where a pending row is stored again: planes of 2, 3
+    and 17 rows (rows repeat within any ring depth), and the full plane
+    with the lanes whose every step lands on row 7110 (x = 7110 and 7110 +
+    15,871: x + 40503 is a multiple of 15,871), 64 steps."""
+    idx = np.random.default_rng(rows).integers(0, 2**31, (1, 128),
+                                                dtype=np.int32)
+    if rows == 15872:
+        idx[0, ::3], idx[0, 1::3] = 7110, 7110 + 15871
+    _p7_equals_plain(dev, idx, rows, 64)
+
+
+@pytest.mark.parametrize("lanes", [1, 31, 33, 128, 1024])
+@pytest.mark.parametrize("steps", ["0", "1", "D-1", "D", "D+1", "512"])
+def test_p7_equals_plain_around_the_ring_depth(dev, steps, lanes):
+    """p7 at T around its row ring's depth D (``kRowDepth``: the ring
+    part full, full, and one past it) and at the probe's 512, a 17-row
+    plane, at lane counts around a warp."""
+    D = build.constant("probe_mosaic", "kRowDepth")
+    T = (D + {"D-1": -1, "D": 0, "D+1": 1}[steps] if steps[0] == "D"
+         else int(steps))
+    idx = np.random.default_rng(lanes).integers(0, 2**31, (1, lanes),
+                                                dtype=np.int32)
+    _p7_equals_plain(dev, idx, 17, T)
+
+
+@pytest.mark.parametrize("lanes", [1, 33, 1024])
+@pytest.mark.parametrize("T", [0, 1, 2, 512])
+def test_p9_equals_plain_at_the_byte_edges(dev, T, lanes):
+    """p9 on idx bytes 0xFF (the byte's step wraps to 0) and 0x00 and idx
+    past 255 (only its low byte is read), then random words: output
+    exact, one launch counted."""
+    idx = torch.from_numpy(p9_hazard_idx(lanes))
+    before = mosaic.p9_decision_only_cost.launches
+    out = mosaic.p9_decision_only_cost(idx.to(dev), T)
+    assert mosaic.p9_decision_only_cost.launches == before + 1
+    assert torch.equal(out.cpu(), mosaic.p9_decision_only_cost_plain(idx, T))
 
 
 @pytest.mark.parametrize("lanes", [1, 33, 130])

@@ -24,6 +24,7 @@ import torch
 from jax.experimental import pallas as pl
 from jax.experimental.pallas import tpu as pltpu
 
+from chip_smoke import p7_hazard_cases, p9_hazard_idx, sass_chain
 from llcomp_tpu_torch import probes
 from llcomp_tpu_torch.probes import mosaic, mosaic2, mosaic3, reduce
 
@@ -121,6 +122,10 @@ CASES = {
            lambda m: m.p9_decision_only_cost(T=T)[0],
            functools.partial(mosaic.p9_decision_only_cost, T=T),
            lambda r: [_ints(r, 1000, (8, LANES))], lambda: {}),
+    "p9 byte edges": ("probe_mosaic", "zero",
+                      lambda m: m.p9_decision_only_cost(T=T)[0],
+                      functools.partial(mosaic.p9_decision_only_cost, T=T),
+                      lambda r: [p9_hazard_idx(LANES)], lambda: {}),
     "p10": ("probe_mosaic", "zero",
             lambda m: m.p10_decision_unrolled(T=T)[0],
             functools.partial(mosaic.p10_decision_unrolled, T=T),
@@ -199,6 +204,68 @@ def test_plain_equals_tpu_probe(case, monkeypatch):
         assert want.any() == (case == "pH window")
     else:
         assert (want != want[:, :1]).any(), "the same output in every lane"
+
+
+@pytest.mark.parametrize("case, rows", [("7110 lanes", 15872),
+                                        ("8 rows", 8), ("13 rows", 13),
+                                        ("17 rows", 17)])
+def test_p7_plain_equals_tpu_probe_where_rows_repeat(case, rows,
+                                                     monkeypatch):
+    """p7 where the CUDA kernel's row ring meets a row it holds pending:
+    the full 15,872-row plane with lanes whose every step lands on row
+    7110 (x = 7110 and 7110 + 15,871), and planes of 8-17 rows, where rows
+    repeat within any ring depth; 10 steps, idx over the whole
+    non-negative int32 range (x*(s+1) wraps)."""
+    mod = _tpu_probes("probe_mosaic", "zero")
+    monkeypatch.setattr(mod, "ROWS", rows)
+    idx = np.random.default_rng(rows).integers(0, 2**31, (8, LANES),
+                                               dtype=np.int32)
+    if rows == 15872:
+        idx[0, ::3], idx[0, 1::3] = 7110, 7110 + 15871
+    want = np.asarray(jax.jit(mod.p7_symbol_step_cost(T=10)[0])(
+        jnp.asarray(idx)))
+    got = mosaic.p7_symbol_step_cost(
+        torch.from_numpy(idx), 10,
+        torch.zeros((2, rows, LANES), dtype=torch.int32))
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert (want != want[:, :1]).any(), "the same output in every lane"
+
+
+def test_p7_hazard_cases_hold_every_hazard():
+    """``chip_smoke.p7_hazard_cases``, which the card's checks run: on the
+    full plane the 7110 lanes stay on row 7110 for all their steps, the
+    small planes repeat a row within 2 steps, and T runs around every
+    ring depth."""
+    cases = {name: (idx, rows, T) for name, idx, rows, T in p7_hazard_cases()}
+    idx, rows, T = cases["7110 lanes"]
+    x = torch.from_numpy(idx[0, :2]).long()
+    assert rows == probes.ROWS and T > 8
+    for s in range(T):
+        assert probes.step_row(x, s, rows - 1).tolist() == [7110, 7110]
+    for rows in (2, 3, 17):
+        _, got_rows, T = cases[f"{rows} rows"]
+        assert got_rows == rows and T > 8
+    assert {name for name in cases if name.startswith("T ")} >= {
+        f"T {d + e}" for d in (2, 4, 8) for e in (-1, 0, 1)} | {"T 0"}
+
+
+@pytest.mark.parametrize("body, chain, ops", [
+    # ctx = t & 7, a byte permute, t' = 5t + raw: three on the chain
+    (["LOP3.LUT R3, R2, 0x7, RZ, 0xc0, !PT", "PRMT R5, R6, R3, R7",
+      "LEA R9, R2, R2, 0x2", "IADD3 R2, R9, R5, R8",
+      "IADD3 R10, R10, 0x1, RZ", "ISETP.NE.AND P0, PT, R10, 0x18, PT",
+      "@P0 BRA `(.L_x_1)"], 3.0, ["LOP3", "PRMT", "IADD3"]),
+    # a predicated write reads what it overwrites; a store writes nothing
+    (["ISETP.GE.AND P1, PT, R2, 0x4, PT", "@P1 IADD3 R2, R2, 0x1, RZ",
+      "STG.E [R4.64], R2", "BRA `(.L_x_2)"], 2.0, ["ISETP", "IADD3"]),
+    # two chains a pass, each carried alone: the longer one counts
+    (["IADD3 R1, R1, 0x1, RZ", "IMAD R2, R2, R2, RZ", "IMAD R2, R2, R2, RZ",
+      "BRA `(.L_x_3)"], 2.0, ["IMAD", "IMAD"]),
+])
+def test_sass_chain_counts_the_carried_chain(body, chain, ops):
+    """``chip_smoke.sass_chain`` on loop bodies written out: dependent
+    instructions a pass on the carried chain, and that chain's opcodes."""
+    assert sass_chain(body) == (chain, ops)
 
 
 @pytest.mark.parametrize("module", MODULES, ids=lambda m: m.__name__)

@@ -40,7 +40,6 @@ from __future__ import annotations
 import argparse
 import collections
 import pathlib
-import re
 import subprocess
 import sys
 from concurrent.futures import ThreadPoolExecutor
@@ -100,67 +99,14 @@ def copies() -> dict:
     return out
 
 
-def sass(so: pathlib.Path) -> str:
-    """The library's SASS, by the toolkit's ``cuobjdump``."""
-    from llcomp_tpu_torch.kernels import build
-
-    tool = pathlib.Path(build.nvcc()).with_name("cuobjdump")
-    return subprocess.run([str(tool), "-sass", str(so)], capture_output=True,
-                          text=True, check=True).stdout
-
-
-def _opcode(text: str) -> str:
-    """An instruction's opcode without predicate and modifiers."""
-    return re.sub(r"^@!?U?P\w+\s+", "", text).split()[0].split(".")[0]
-
-
-def functions(text: str) -> dict:
-    """SASS text -> {kernel: ([(address, instruction)], {label:
-    address})}, each kernel named by ``chip_smoke._kernel_name``."""
-    fns, fn, pending = {}, None, []
-    for line in text.splitlines():
-        if m := re.search(r"Function : (\S+)", line):
-            fn, pending = cs._kernel_name(m[1]), []
-            fns[fn] = ([], {})
-        elif fn is None:
-            continue
-        elif m := re.match(r"\s*(\.L_x_\d+):", line):
-            pending.append(m[1])
-        elif m := re.match(r"\s*/\*([0-9a-f]{4,})\*/\s+(.*?)\s*;", line):
-            addr = int(m[1], 16)
-            ins, labels = fns[fn]
-            labels.update({lb: addr for lb in pending})
-            pending = []
-            ins.append((addr, m[2]))
-    return fns
-
-
-def inner_loops(ins: list, labels: dict) -> list:
-    """A kernel's innermost loops, [(first address, last address)]: each
-    a branch back to an earlier address and what lies between, holding
-    no other loop."""
-    loops = []
-    for addr, t in ins:
-        if _opcode(t) != "BRA":
-            continue
-        m = re.search(r"(0x[0-9a-f]+)|`\((\.L_x_\d+)\)", t)
-        target = (int(m[1], 16) if m and m[1]
-                  else labels.get(m[2]) if m else None)
-        if target is not None and target <= addr:
-            loops.append((target, addr))
-    return sorted({(a, b) for a, b in loops
-                   if not any((c, d) != (a, b) and a <= c and d <= b
-                              for c, d in loops)})
-
-
 def record_loops(text: str) -> dict:
     """SASS text -> {kernel: [(first address, instructions, records a pass,
     opcode counts), ...]}: each kernel's innermost loops that code
     records."""
     out = {}
-    for fn, (ins, labels) in functions(text).items():
-        for a, b in inner_loops(ins, labels):
-            ops = collections.Counter(_opcode(t) for x, t in ins
+    for fn, (ins, labels) in cs.sass_functions(text).items():
+        for a, b in cs.inner_loops(ins, labels):
+            ops = collections.Counter(cs.sass_opcode(t) for x, t in ins
                                       if a <= x <= b)
             recs = ops["STS"] or ops["LDS"] or (
                 ops["STG"] // STORES_A_RECORD.get(fn, 1))
@@ -238,7 +184,7 @@ def main() -> int:
         regs = cs.registers(report)
         print(f"{tag}: registers, spilled B: " + ", ".join(
             f"{k} {r} {sp}" for k, (r, sp) in regs.items()))
-        text = sass(so)
+        text = cs.sass(so)
         if args.sass:
             (args.sass / f"coder_scan_{tag.replace(' ', '_')}.sass"
              ).write_text(text)

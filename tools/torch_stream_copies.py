@@ -54,7 +54,6 @@ from concurrent.futures import ThreadPoolExecutor
 sys.path.insert(0, str(pathlib.Path(__file__).resolve().parents[1]))
 
 import chip_smoke as cs  # noqa: E402
-import torch_coder_copies as cc  # noqa: E402
 
 ROUNDS = 3
 PH_LANES = (1, 128, 1024)
@@ -143,22 +142,22 @@ def slot_loops(text: str, kernel: str) -> list:
     """SASS text -> [(first address, instructions, slots a pass, calls,
     opcode counts)] of kernel ``kernel``'s innermost loops that store to
     global memory: 4 slots a 16-byte store, 1 a 4-byte one."""
-    ins, labels = cc.functions(text).get(kernel, ([], {}))
+    ins, labels = cs.sass_functions(text).get(kernel, ([], {}))
     out = []
-    for a, b in cc.inner_loops(ins, labels):
+    for a, b in cs.inner_loops(ins, labels):
         body = [t for x, t in ins if a <= x <= b]
-        stores = [t for t in body if cc._opcode(t) == "STG"]
+        stores = [t for t in body if cs.sass_opcode(t) == "STG"]
         if stores:
             out.append((a, len(body),
                         sum(4 if ".128" in t else 1 for t in stores),
-                        sum(cc._opcode(t) == "CALL" for t in body),
-                        collections.Counter(map(cc._opcode, body))))
+                        sum(cs.sass_opcode(t) == "CALL" for t in body),
+                        collections.Counter(map(cs.sass_opcode, body))))
     return out
 
 
 def sass_line(tag: str, text: str) -> str:
     """One line a copy: kernel 5's store loops, instructions a slot."""
-    names = cc.functions(text)
+    names = cs.sass_functions(text)
     kernel = next((k for k in ("build_stream_kernel<24>",
                                "build_stream_kernel") if k in names), None)
     parts = []
@@ -209,7 +208,7 @@ def main() -> int:
             f"{k} {r} {sp}" for k, (r, sp) in regs.items()
             if k.startswith(("build_stream_kernel", "stage_steps"))))
         if src == "build_stream":
-            text = cc.sass(so)
+            text = cs.sass(so)
             if args.sass:
                 (args.sass / f"build_stream_{tag.replace(' ', '_')}.sass"
                  ).write_text(text)
