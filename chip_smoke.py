@@ -12,12 +12,12 @@ Phases (each prints one line; any failure exits non-zero without the final
 1. device: CUDA must be available; prints the card's name and power limit;
 2. build: compiles the ten kernel sources of ``llcomp_tpu_torch/csrc`` (the
    eight library kernels and the 21 probes), one nvcc each, in parallel,
-   beside the copies of kernels 1-8 and probes p7, p9 and pH that phases
-   5-8 time (``VARIANTS``); prints the registers a thread of kernels 1-8,
-   the probes of ``probe_mosaic.cu`` and pH and of the copies (every coder
-   kernel of a copy of ``coder_scan.cu``, every instantiation of kernel 5
-   and pH, p7 and p9) from the compiler's ``-Xptxas -v`` report (a spill
-   fails);
+   beside the copies of kernels 1-8 and probes p7, p9, p10, pH and reduce
+   that phases 5-8 time (``VARIANTS``); prints the registers a thread of
+   kernels 1-8, the probes of ``probe_mosaic.cu``, pH and reduce and of
+   the copies (every coder kernel of a copy of ``coder_scan.cu``, every
+   instantiation of kernel 5 and pH, p7, p9, p10 and reduce) from the
+   compiler's ``-Xptxas -v`` report (a spill fails);
 3. kernel vs plain: each CUDA kernel against its plain PyTorch version on
    small lane batches (photo, flat, noise, grayscale, RGBA, C = 2 and 5,
    1-row, 1-column, odd stride, context hashes repeating every 1 to 5
@@ -87,20 +87,24 @@ Phases (each prints one line; any failure exits non-zero without the final
    time a launch and a symbol step, the one-shot probes' device time,
    each in turns with an empty kernel (the launch floor under their
    bounds, its share of the probe's time) and the library call in one
-   profiler session;
+   profiler session, the reduce probe also with copies of it (a maximum
+   on every slice, the design it replaced; one warp for the tile);
    each kernel held exactly against its plain version (outputs and model
    planes of random words, on inputs where the plain output differs across
    lanes or a plane changes); pH beside copies of it (one block, the
    design it replaced, and each cluster size), each exact, at 128 and
-   1,024 lanes and T 32, 256 and 512, with and without the window; p7 and
-   p9 beside copies of them (the serial step they replaced, p7 at other
-   row ring depths, p9 unrolled), each exact against one plain output a
-   case on p7's ring hazards (lanes whose every step lands on one row,
-   planes of 2, 3 and 17 rows, T around each depth), p9's byte edges and
-   128 and 1,024 lanes, timed in turns, with the SASS instructions of one
-   decision and its carried chain (``cuobjdump -sass``), the SM clock and
-   p7's and p9's chain floors; the one PyTorch call that computes the
-   same function, where there is one, timed and equal.
+   1,024 lanes and T 32, 256 and 512, with and without the window; p7,
+   p9 and p10 beside copies of them (the serial step they replaced, p7 at
+   other row ring depths, p9 unrolled, p10 on the steps not taken),
+   each exact against one plain output a case on p7's ring hazards
+   (lanes whose every step lands on one row, planes of 2, 3 and 17 rows,
+   T around each depth), p9's byte edges and 128 and 1,024 lanes, timed
+   in turns, with the SASS instructions of one decision, those to the ALU
+   and the FMA pipe and its carried chain (``cuobjdump -sass``), the SM
+   clock and the chain floors; the reduce probe and its copies exact on
+   ``reduce_cases`` (flushes at gaps of 4, of 5 and more, none; rows past
+   a multiple of 32; 1, 33 and 128 lanes); the one PyTorch call that
+   computes the same function, where there is one, timed and equal.
 
 Phases 5-8 compute each kernel's bound (``bound``): the least time the
 card could take for the bytes and integer operations of its work on this
@@ -136,20 +140,24 @@ KERNEL_SOURCES = ("encode_fused", "decode_kernel", "walk_symbols",
 # their registers and spills
 PTXAS_SOURCES = ("encode_fused", "decode_kernel", "walk_symbols",
                  "walk_probs", "coder_scan", "build_stream", "probe_mosaic",
-                 "probe_mosaic3")
-# Copies of kernels 1-8 and probes p7, p9 and pH that phases 5-8 time
-# beside the shipped ones, each built from the shipped source with one
+                 "probe_mosaic3", "probe_reduce")
+# Copies of kernels 1-8 and probes p7, p9, p10, pH and reduce that phases
+# 5-8 time beside the shipped ones, each built from the shipped source with one
 # edit (old, new): other lanes a block (kernels 1 and 7's constants,
 # kernel 2's rule), other look-ahead depths of kernels 1, 3, 6 and 7,
 # other chunk counts of the walks (kernels 3 and 6), other hand-over
 # batches and stages of kernels 4 and 8, other tiles of kernel 5 and its
-# scalar stores, other cluster sizes of pH, other row ring depths of p7
-# and p9 unrolled (the measurements behind those choices), and kernel 1
+# scalar stores, other cluster sizes of pH, other row ring depths of p7,
+# p9 unrolled, p10 on a step of fewer instructions and on one split
+# between the ALU and the FMA pipes (the measurements behind those
+# choices; each includes its step from ``tools/designs/``), and kernel 1
 # with each symbol's decisions replaced by one byte out (the split of a
-# symbol's time); or a whole source of ``tools/designs/`` (a path):
-# kernel 5 as one thread a slot, pH as one block and p7 and p9 as a
-# serial step (the row loaded after the previous step's store, the
-# shift-and-select decision), the designs they replaced.
+# symbol's time); or a whole source of
+# ``tools/designs/`` (a path): kernel 5 as one thread a slot, pH as one
+# block, p7, p9 and p10 as a serial step (the row loaded after the
+# previous step's store, the shift-and-select decision) and the reduce
+# probe with a maximum on every slice, the designs they replaced, and the
+# reduce probe as one warp, the design not taken.
 _BLOCK, _DEPTH = "constexpr int kBlock = 1;", "constexpr int kDepth = 2;"
 _RULE = "  return e;\n"       # the end of kernel 2's lanes_a_block
 _CODER_BLOCK = "constexpr int kBlock = 32;"
@@ -181,6 +189,7 @@ _PH_RULE = "  const int pick = lanes > 512 ? 16 : 8;\n"
 ROW_SHIPPED, ROW_DEPTHS = 4, (2, 4, 8)
 _ROW_DEPTH = f"constexpr int kRowDepth = {ROW_SHIPPED};"
 _P9_LAUNCH = "  decisions_perm<false>\n      <<<"
+_P10_LAUNCH = "  decisions_perm<true>\n      <<<"
 # the walks' shipped chunk counts and ring depths, and those of their
 # copies (kernel 3 spills at depth 32)
 WALK_SHIPPED = {"walk_symbols": (64, 4), "walk_probs": (64, 16)}
@@ -195,9 +204,21 @@ COPIED_KERNEL = {"encode_fused": ("encode_fused_kernel",),
                  "walk_symbols": ("walk_symbols_kernel",),
                  "walk_probs": ("walk_probs_kernel",),
                  "build_stream": ("build_stream_kernel",),
-                 "probe_mosaic": ("symbol_steps", "decisions_perm",
-                                  "decisions_only<false>"),
-                 "probe_mosaic3": ("stage_steps",)}
+                 "probe_mosaic": ("symbol_steps", "decisions"),
+                 "probe_mosaic3": ("stage_steps",),
+                 "probe_reduce": ("fill_flush",)}
+
+
+def _p10_step(design: str, kernel: str, args: str = "") -> list:
+    """p10's copy on the step of ``tools/designs/<design>``: that file
+    included into probe_mosaic.cu's namespace, its kernel ``kernel``
+    launched for p10 with the extra arguments ``args``."""
+    end = ("io(out), lanes, T);\n  return done();\n}\n\n"
+           "extern \"C\" int llct_probe_p11")
+    return [("using namespace probe;\n", "using namespace probe;\n#include "
+             f"\"../../tools/designs/{design}\"\n"),
+            (_P10_LAUNCH, f"  {kernel}\n      <<<"),
+            *([(end, end.replace("T)", f"T{args})"))] if args else [])]
 
 
 def _walk_variants() -> dict:
@@ -257,11 +278,20 @@ VARIANTS = {
        for d in ROW_DEPTHS if d != ROW_SHIPPED},
     ("probe_mosaic", "p9 unrolled"): (
         _P9_LAUNCH, _P9_LAUNCH.replace("false", "true")),
+    ("probe_mosaic", "p10 split"): _p10_step("probe_p10_split_step.cuh",
+                                             "decisions_split"),
+    ("probe_mosaic", "p10 pipes"): _p10_step("probe_p10_pipes_step.cuh",
+                                             "decisions_pipes", ", 1u"),
+    ("probe_reduce", "every slice"): DESIGNS / "probe_reduce_every_slice.cu",
+    ("probe_reduce", "one warp"): DESIGNS / "probe_reduce_one_warp.cu",
 }
-# the copies of probe_mosaic.cu that p7 and p9 are timed beside
+# the copies of probe_mosaic.cu that p7, p9 and p10 are timed beside, and
+# of probe_reduce.cu that the reduce probe is
 PROBE_TAGS = {"p7": ("serial step", *(f"depth {d}" for d in ROW_DEPTHS
                                       if d != ROW_SHIPPED)),
-              "p9": ("serial step", "p9 unrolled")}
+              "p9": ("serial step", "p9 unrolled"),
+              "p10": ("serial step", "p10 split", "p10 pipes")}
+REDUCE_TAGS = ("every slice", "one warp")
 # the copies of coder_scan.cu that each coder is timed beside
 CODER_TAGS = {
     "coder_scan_off": ("1 lanes", "4 lanes",
@@ -318,7 +348,7 @@ PROBE_ROWS = {
 }
 PROBE_LANES = (128, 1024)   # the TPU probes' lanes and the bench batch's
 PH_STEPS = (32, 256, 512)
-PROBE_ROUNDS = 3            # rounds of p7's and p9's copies in turns
+PROBE_ROUNDS = 10           # rounds of p7's, p9's and p10's copies in turns
 
 # sha256 of the test images (generator check) and of the expected bytes
 IMAGE_SHA = {
@@ -1949,16 +1979,26 @@ def _probe_work_bound(key: str, a: dict) -> dict:
                  T * L * (step + win * OPS_PROBE_WORD))
 
 
-def one_shot_turns(torch) -> dict:
+def _call_under(name: str, so: pathlib.Path, fn):
+    """``fn`` as a call that launches the library ``so`` in place of
+    ``csrc/<name>.cu``'s build (``running``)."""
+    def call():
+        with running(name, so):
+            return fn()
+    return call
+
+
+def one_shot_turns(torch, variants: dict) -> dict:
     """Each one-shot probe beside the empty launch and, where there is
     one, its library call, in turns (``_in_turns``), one profiler session
     a probe, so that a probe's share of the launch floor and its library
     call's time come from the clocks its own time met (from one session to
     the next a one-shot kernel's time moves by a third): {key: {"empty",
-    key, "library": device ms}}.  Made before any other profiler session
-    of the process: after the profiled encodes of phases 6 and 7, short
-    sessions lost the empty launch's and ``scatter_``'s kernels in every
-    attempt."""
+    key, "library": device ms}}; the reduce probe also beside its copies
+    ``REDUCE_TAGS`` of ``variants`` in the same session ({tag: device
+    ms}).  Made before any other profiler session of the process: after
+    the profiled encodes of phases 6 and 7, short sessions lost the empty
+    launch's and ``scatter_``'s kernels in every attempt."""
     from llcomp_tpu_torch import probes
     from llcomp_tpu_torch.probes import mosaic, mosaic2, mosaic3, reduce
 
@@ -1972,6 +2012,10 @@ def one_shot_turns(torch) -> dict:
             calls = {"empty": empty, key: functools.partial(p.fn, **a)}
             if (call := _library_call(torch, key, a)) is not None:
                 calls["library"] = call
+            if key == "reduce":
+                calls.update({tag: _call_under(
+                    m.SRC, variants[m.SRC, tag], calls[key])
+                    for tag in REDUCE_TAGS})
             out[key] = _in_turns(torch, calls, probes.LAUNCHES)
     return out
 
@@ -2040,6 +2084,40 @@ def p7_hazard_cases() -> list:
     return cases
 
 
+REDUCE_SHAPES = ((32, 1), (32, 128), (64, 33), (64, 128), (100, 33),
+                 (100, 128), (160, 1), (160, 128))   # (rows, lanes)
+
+
+def reduce_cases() -> list:
+    """The reduce probe's inputs where its skip rule meets its edges:
+    [(name, x [rows, lanes] int32)] at each of ``REDUCE_SHAPES`` (rows
+    past the last multiple of 32 unread; acc restarting every 32 rows
+    while the count of slices since the last flush runs on).  Each
+    shape takes every pattern: all words odd (a flush every 4th slice),
+    all even (never a flush, a maximum on every slice from the 4th), one
+    odd word a slice in one lane (the first flush at slice 3), sparse odd
+    words in one lane (flushes at gaps of 5 and more), words over the
+    whole int32 range (``v & 1`` of a negative word), and the probe's own
+    words 0-3."""
+    rng = np.random.default_rng(3)
+    cases = []
+    for rows, lanes in REDUCE_SHAPES:
+        def words(low, high):
+            return rng.integers(low, high, (rows, lanes), dtype=np.int64)
+
+        even = 2 * words(-2**30, 2**30)
+        one = even.copy()
+        one[::8, lanes // 2] |= 1
+        sparse = even.copy()
+        sparse[::8, lanes - 1] |= rng.random(-(-rows // 8)) < 0.6
+        for name, x in (("odd", 2 * words(-2**30, 2**30) + 1),
+                        ("even", even), ("one odd", one),
+                        ("sparse", sparse), ("int32", words(-2**31, 2**31)),
+                        ("0-3", words(0, 4))):
+            cases.append((f"{name} {rows}x{lanes}", x.astype(np.int32)))
+    return cases
+
+
 def p9_hazard_idx(lanes: int = 128) -> np.ndarray:
     """p9's idx [1, lanes] at the byte's edges: bytes 0xFF (the step to
     0x00 wraps) and 0x00, and values past 255 (only the low byte is
@@ -2051,17 +2129,20 @@ def p9_hazard_idx(lanes: int = 128) -> np.ndarray:
     return out
 
 
-def p7_p9_copies(torch, variants: dict) -> dict:
-    """Probes p7 and p9 beside their copies ``PROBE_TAGS`` (the serial
-    step they replaced, p7 at the other ring depths, p9 unrolled).  Each
-    copy is held exactly (output and planes) against one plain output a
-    case: p7 on ``p7_hazard_cases``, p9 on ``p9_hazard_idx`` at T 0, 1, 2
-    and 64, both at ``PROBE_LANES`` x T 512 on planes of random words; the
-    plain version runs once a case, each copy on a copy of its inputs.
-    Then ns a step at ``PROBE_LANES`` x T 512 in turns, ``PROBE_ROUNDS``
-    rounds (``probes.run_probe``: median of 3 fresh inputs, zeroed
-    planes), the SM clock read after them.  -> {"cases": n, "ns":
-    {(key, lanes): {tag: [ns]}}, "clock_mhz": (SM clock, its maximum)}"""
+def step_copies(torch, variants: dict) -> dict:
+    """Probes p7, p9 and p10 beside their copies ``PROBE_TAGS`` (the
+    serial step they replaced, p7 at the other ring depths, p9 unrolled,
+    p10 on the steps not taken).  Each copy is held exactly (output and
+    planes)
+    against one plain output a case: p7 on ``p7_hazard_cases``, p9 and p10
+    on ``p9_hazard_idx`` at T 0, 1, 2 and 64, all at ``PROBE_LANES`` x T
+    512 on planes of random words; the plain version runs once a case,
+    each copy on a copy of its inputs.  Then ns a step at ``PROBE_LANES``
+    x T 512 in turns, ``PROBE_ROUNDS`` rounds, the order reversed in
+    every other round (``probes.run_probe``:
+    median of 3 fresh inputs, zeroed planes), the SM clock read after
+    them.  -> {"cases": n, "ns": {(key, lanes): {tag: [ns]}},
+    "clock_mhz": (SM clock, its maximum)}"""
     from llcomp_tpu_torch import probes
     from llcomp_tpu_torch.probes import mosaic
 
@@ -2093,10 +2174,11 @@ def p7_p9_copies(torch, variants: dict) -> dict:
                     "model": probes.words(rows, (2, rows, idx.shape[1]),
                                           dev)}, name)
         cases += 1
-    for T in (0, 1, 2, 64):
-        held("p9", {"idx": torch.from_numpy(p9_hazard_idx()).to(dev),
-                    "T": T}, f"byte edges, T {T}")
-        cases += 1
+    for key in ("p9", "p10"):
+        for T in (0, 1, 2, 64):
+            held(key, {"idx": torch.from_numpy(p9_hazard_idx()).to(dev),
+                       "T": T}, f"byte edges, T {T}")
+            cases += 1
     for key in PROBE_TAGS:
         p = mosaic.PROBES[key]
         for lanes in PROBE_LANES:
@@ -2110,8 +2192,9 @@ def p7_p9_copies(torch, variants: dict) -> dict:
         p = mosaic.PROBES[key]
         for lanes in PROBE_LANES:
             row = ns[key, lanes] = {tag: [] for tag in ("shipped", *tags)}
-            for _ in range(PROBE_ROUNDS):
-                for tag, v in row.items():
+            for r in range(PROBE_ROUNDS):
+                turn = list(row.items())    # reversed every other round
+                for tag, v in turn if r % 2 == 0 else turn[::-1]:
                     with under(tag):
                         v.append(probes.run_probe(p, dev, lanes=lanes,
                                                   check=False)["ns_step"])
@@ -2123,26 +2206,63 @@ def p7_p9_copies(torch, variants: dict) -> dict:
             "clock_mhz": tuple(float(c) for c in clock)}
 
 
+def reduce_copies(torch, variants: dict) -> int:
+    """The reduce probe and its copies ``REDUCE_TAGS`` against
+    ``run_plain``, exactly, on every ``reduce_cases`` input: the number
+    of cases."""
+    from llcomp_tpu_torch.probes import reduce
+
+    cases = reduce_cases()
+    for name, x in cases:
+        x = torch.from_numpy(x).cuda()
+        want = reduce.run_plain(x)
+        for tag in ("shipped", *REDUCE_TAGS):
+            with (contextlib.nullcontext() if tag == "shipped" else
+                  running(reduce.SRC, variants[reduce.SRC, tag])):
+                out = reduce.run(x)
+            check(torch.equal(out, want), f"reduce {tag}, {name}: kernel "
+                  "!= plain")
+    return len(cases)
+
+
+# The integer pipes of an SM sub-partition that each opcode issues to:
+# the ALU pipe and the FMA pipe (IMAD in all its forms), each taking a
+# warp instruction every two clocks.
+ALU_OPCODES = ("IADD3", "LOP3", "PRMT", "SHF", "LEA", "ISETP", "SEL")
+FMA_OPCODES = ("IMAD",)
+# Each decision loop's kernel, the copy it is built in (shipped: the
+# shipped source) and the decisions its innermost loop takes
+DECISION_LOOPS = {
+    ("p9", "shipped"): ("decisions_perm<false>", 1),
+    ("p9", "serial step"): ("decisions_only<false>", 1),
+    ("p9", "p9 unrolled"): ("decisions_perm<true>", 24),
+    ("p10", "shipped"): ("decisions_perm<true>", 24),
+    ("p10", "serial step"): ("decisions_only<true>", 24),
+    ("p10", "p10 split"): ("decisions_split", 24),
+    ("p10", "p10 pipes"): ("decisions_pipes", 24)}
+
+
 def decision_sass(variants: dict) -> dict:
-    """p9's decision loop in the shipped build and its copies, from the
-    SASS: {tag: (kernel, instructions a decision, dependent instructions a
-    decision on the loop's carried chain (``sass_chain``), that chain's
-    opcodes)}.  The rolled kernels' innermost loop is one decision; the
-    unrolled copy's is a step of 24."""
+    """p9's and p10's decision loops in the shipped build and their
+    copies, from the SASS: {(probe, tag): (kernel, instructions a
+    decision, dependent instructions a decision on the loop's carried
+    chain (``sass_chain``), that chain's opcodes, instructions a decision
+    to the ALU pipe, to the FMA pipe)}.  The rolled kernels' innermost
+    loop is one decision; the unrolled ones' a step of 24."""
     from llcomp_tpu_torch.kernels import build
 
-    kernels = {"shipped": ("decisions_perm<false>", 1),
-               "serial step": ("decisions_only<false>", 1),
-               "p9 unrolled": ("decisions_perm<true>", 24)}
     out = {}
-    for tag, (name, per) in kernels.items():
+    for (key, tag), (name, per) in DECISION_LOOPS.items():
         so = (build.build("probe_mosaic") if tag == "shipped"
               else variants["probe_mosaic", tag])
         ins, labels = sass_functions(sass(so))[name]
         a, b = max(inner_loops(ins, labels), key=lambda ab: ab[1] - ab[0])
         body = [t for x, t in ins if a <= x <= b]
         chain, ops = sass_chain(body)
-        out[tag] = (name, len(body) / per, chain / per, ops)
+        pipe = [sass_opcode(t) for t in body]
+        out[key, tag] = (name, len(body) / per, chain / per, ops,
+                         sum(o in ALU_OPCODES for o in pipe) / per,
+                         sum(o in FMA_OPCODES for o in pipe) / per)
     return out
 
 
@@ -2156,12 +2276,14 @@ def phase_probes(torch, log, card: str, turns: dict,
     Then each probe's kernel against its plain version, exactly (outputs
     and planes of random words; at 1,024 lanes too for the stepped ones),
     on inputs where the plain output differs across lanes or a plane
-    changes; pH beside its copies ``variants`` (``ph_copies``); p7 and p9
-    beside theirs (``p7_p9_copies``), their decision loop's SASS
-    (``decision_sass``) and chain floors; the one-shot probes' device
-    time, each beside the launch floor and its library call in turns in a
-    profiler session of its own (``turns``: ``one_shot_turns``), and the
-    floor's share of it; the one PyTorch
+    changes; pH beside its copies ``variants`` (``ph_copies``); p7, p9 and
+    p10 beside theirs (``step_copies``), the decision loops' SASS
+    (``decision_sass``) and chain floors; the reduce probe and its copies
+    exact on ``reduce_cases`` (``reduce_copies``); the one-shot probes'
+    device time, each beside the launch floor and its library call in
+    turns in a profiler session of its own (``turns``:
+    ``one_shot_turns``; the reduce probe's copies in its session), and
+    the floor's share of it; the one PyTorch
     call that computes the same function where there is one; and
     bounds."""
     from llcomp_tpu_torch import probes
@@ -2227,36 +2349,50 @@ def phase_probes(torch, log, card: str, turns: dict,
                 for tag, ns in row.items())
             for (key, lanes, T), row in ph.items()))
 
-    pp = p7_p9_copies(torch, variants)
+    pp = step_copies(torch, variants)
     clock, clock_max = pp["clock_mhz"]
-    log(f"phase 8 p7 and p9 beside their copies ({PROBE_TAGS}), every copy "
-        f"exact against one plain output a case, outputs and planes, on "
+    log(f"phase 8 p7, p9 and p10 beside their copies ({PROBE_TAGS}), every "
+        f"copy exact against one plain output a case, outputs and planes, on "
         f"{pp['cases']} cases (p7: the 7110 lanes, planes of 2, 3 and 17 "
-        f"rows, T around each ring depth {ROW_DEPTHS}; p9: idx bytes 0xFF, "
-        f"0x00 and past 255; both at {PROBE_LANES} lanes, T 512, planes of "
-        f"random words); ns a step in turns, {PROBE_ROUNDS} rounds, on "
+        f"rows, T around each ring depth {ROW_DEPTHS}; p9 and p10: idx bytes "
+        f"0xFF, 0x00 and past 255; all at {PROBE_LANES} lanes, T 512, planes "
+        f"of random words); ns a step in turns, {PROBE_ROUNDS} rounds, the "
+        f"order reversed every other round, median (quartiles; least-most) "
+        f"and the rounds in which a copy ran under the shipped kernel, on "
         f"{card}, SM clock after them {clock:g} MHz (max {clock_max:g}): "
         + "; ".join(f"{key} {lanes} lanes: " + ", ".join(
-            f"{tag} " + ", ".join(f"{v:.1f}" for v in ns)
+            "{} {:.1f} ({:.1f}-{:.1f}; {:.1f}-{:.1f})".format(
+                tag, statistics.median(ns),
+                *statistics.quantiles(ns)[::2], min(ns), max(ns))
+            + ("" if tag == "shipped" else ", under it in " + str(sum(
+                a < b for a, b in zip(ns, row["shipped"]))))
             for tag, ns in row.items())
             for (key, lanes), row in pp["ns"].items()))
     dsass = decision_sass(variants)
-    log("phase 8 SASS of p9's decision loop (cuobjdump -sass), a decision: "
-        + "; ".join(f"{tag} {name}: {n:.2f} instructions, {c:.2f} dependent "
-                    f"on the carried chain ({' '.join(ops)})"
-                    for tag, (name, n, c, ops) in dsass.items()))
-    # chain floors at T 512: p9's, its carried chain's dependent
-    # instructions at ALU_LATENCY_CLOCKS each; p7's, p9's measured step
+    log("phase 8 SASS of p9's and p10's decision loops (cuobjdump -sass), "
+        f"a decision (ALU pipe: {' '.join(ALU_OPCODES)}; FMA pipe: IMAD*): "
+        + "; ".join(f"{key} {tag} {name}: {n:.2f} instructions ({alu:.2f} "
+                    f"ALU, {fma:.2f} FMA), {c:.2f} dependent on the carried "
+                    f"chain ({' '.join(ops)})"
+                    for (key, tag), (name, n, c, ops, alu, fma)
+                    in dsass.items()))
+    # chain floors at T 512: p9's and p10's, their carried chain's
+    # dependent instructions at ALU_LATENCY_CLOCKS each; p7's, p9's
+    # measured step
     T = mosaic.PROBES["p9"].T
-    chain_ms = {
-        "p9": 24 * T * dsass["shipped"][2] * ALU_LATENCY_CLOCKS
-        / (clock * 1e3),
-        "p7": min(pp["ns"]["p9", 128]["shipped"]) * T / 1e6}
-    log(f"phase 8 chain floors, T {T}: p9 24 x T x "
-        f"{dsass['shipped'][2]:.2f} dependent instructions x "
-        f"{ALU_LATENCY_CLOCKS} clocks at {clock:g} MHz = "
-        f"{chain_ms['p9']:.5f} ms; p7 p9's step at 128 lanes x T = "
-        f"{chain_ms['p7']:.5f} ms")
+    chain_ms = {key: 24 * T * dsass[key, "shipped"][2] * ALU_LATENCY_CLOCKS
+                / (clock * 1e3) for key in ("p9", "p10")}
+    chain_ms["p7"] = min(pp["ns"]["p9", 128]["shipped"]) * T / 1e6
+    log(f"phase 8 chain floors, T {T}: " + "; ".join(
+        f"{key} 24 x T x {dsass[key, 'shipped'][2]:.2f} dependent "
+        f"instructions x {ALU_LATENCY_CLOCKS} clocks at {clock:g} MHz = "
+        f"{chain_ms[key]:.5f} ms" for key in ("p9", "p10"))
+        + f"; p7 p9's step at 128 lanes x T = {chain_ms['p7']:.5f} ms")
+    n_reduce = reduce_copies(torch, variants)
+    log(f"phase 8 reduce and its copies ({REDUCE_TAGS}) exact against "
+        f"run_plain on {n_reduce} cases (reduce_cases: rows and lanes "
+        f"{REDUCE_SHAPES}, words all odd, all even, one odd word a slice, "
+        f"sparse, over int32, 0-3)")
 
     floors = {k: t["empty"] for k, t in turns.items()}
     # the bounds' floor is the least empty launch
@@ -2294,6 +2430,10 @@ def phase_probes(torch, log, card: str, turns: dict,
 
     shares = {k: floors[k] / v for k, v in device.items()
               if v and floors[k] is not None}
+    log(f"phase 8 reduce in turns with its copies and the empty launch "
+        f"(torch.profiler, {probes.LAUNCHES} turns, one session), device us "
+        f"a call: " + ", ".join(f"{tag} {us(turns['reduce'].get(tag))}"
+                                for tag in ("empty", "reduce", *REDUCE_TAGS)))
     log(f"phase 8 device us a call (torch.profiler, {probes.LAUNCHES} turns "
         f"in one session a probe): the launch floor (an empty kernel, one "
         f"warp) in each session and its share of the probe's time: "
@@ -2345,7 +2485,13 @@ def phase_probes(torch, log, card: str, turns: dict,
                     tag: min(v) if isinstance(v, list) else v
                     for tag, v in r.items()}
                 for (key, lanes, T), r in ph.items()}}
-               if row == "pH" else {})})
+               if row == "pH" else {}),
+            **({"sass_a_decision": {
+                tag: {"instructions": n, "chain": c, "alu": alu, "fma": fma}
+                for (key, tag), (_, n, c, _, alu, fma) in dsass.items()
+                if key == row}} if row in ("p9", "p10") else {}),
+            **({"copies_ms": {tag: turns[k].get(tag) for tag in REDUCE_TAGS}}
+               if row == "reduce" else {})})
     return {"rows": rows, "runs": runs}
 
 
@@ -2382,7 +2528,8 @@ def main() -> int:
             list(pool.map(build.build, KERNEL_SOURCES))
         log(f"phase 2 build: {len(KERNEL_SOURCES)} kernel sources from "
             f"llcomp_tpu_torch/csrc and {len(VARIANTS)} copies of kernels "
-            f"1-8 and probes p7, p9 and pH, one nvcc each in parallel, in "
+            f"1-8 and probes p7, p9, p10, pH and reduce, one nvcc each in "
+            f"parallel, in "
             f"{time.perf_counter() - t0:.2f} s")
         regs = {name: registers(build.compiler_log(name))
                 for name in PTXAS_SOURCES}
@@ -2403,7 +2550,7 @@ def main() -> int:
                                        for k, v in copied.items()))
         variants = {k: so for k, (so, _) in variants.items()}
 
-        turns = one_shot_turns(torch)        # phase 8's, made first
+        turns = one_shot_turns(torch, variants)   # phase 8's, made first
         errs = phase_kernels_vs_plain(torch, log)
         counts = phase_main_path(torch, log)
         bench = phase_bench(torch, log, card, variants)

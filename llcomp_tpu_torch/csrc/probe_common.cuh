@@ -46,8 +46,9 @@ __device__ __forceinline__ int32_t step_row(int32_t x, int s, int32_t m) {
 // picks byte ctx of the lane's 8-byte model row, acc = (acc*5 + byte + 1)
 // & 0x7FFF, and the byte steps to (byte + 1) & 0xFF.  The row stays in two
 // 32-bit registers (bytes 0-3 in lo, 4-7 in hi), read and written with
-// shifts: an int[8] indexed by ctx would live in local memory.  p10 and pF
-// take this step; p7 and p9 take decide_perm below.
+// shifts: an int[8] indexed by ctx would live in local memory.  pF takes
+// this step (p10 took it before decide24_perm); p7, p9 and p10 take
+// decide_perm below.
 __device__ __forceinline__ void decide(uint32_t& lo, uint32_t& hi,
                                        int32_t& acc, int d) {
   const int ctx = (acc + d) & 7;
@@ -98,7 +99,7 @@ __device__ __forceinline__ uint32_t put_byte_sel(uint32_t m) {
 }
 
 // The same decision as decide, its chain cut to what the next ctx needs
-// (p7, p9; p10 and pF keep decide).  acc is carried as t = acc + d in 32
+// (p7, p9, p10; pF keeps decide).  acc is carried as t = acc + d in 32
 // bits, wrapping and unmasked: acc's & 0x7FFF commutes with wrapping
 // arithmetic (2^15 divides 2^32), so the caller masks once, where acc
 // leaves.  Then ctx = t & 7, and t' = 5t + byte + k with k = 2 - 4d (d's

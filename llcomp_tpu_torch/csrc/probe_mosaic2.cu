@@ -30,7 +30,9 @@
 // row store of p3 in probe_mosaic.cu, 1.16 us against scatter_'s 1.55 us
 // in turns in one profiler session); pF takes
 // 1,081-1,172 ns a step at 128 lanes and 1,363-1,437 ns at 1,024, the
-// staging of p8 plus the unrolled decisions of p10 in probe_mosaic.cu.
+// staging of p8 plus the unrolled decisions of the serial step's p10
+// (decide24<true>, which p10 in probe_mosaic.cu took before
+// decide24_perm<true>).
 #include "probe_common.cuh"
 
 namespace {

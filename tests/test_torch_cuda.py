@@ -14,11 +14,11 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import (CODERS, EDGE_RESIDUALS, PH_CLUSTERS, WALK_LANES,
-                        build_variant, coder_cases, coder_depth,
-                        off_record_cases, p9_hazard_idx, pack_quads,
-                        repeat_lanes, running, skewed_recs, walk_case_errs,
-                        walk_steps)
+from chip_smoke import (CODERS, EDGE_RESIDUALS, PH_CLUSTERS, PROBE_TAGS,
+                        REDUCE_TAGS, WALK_LANES, build_variant, coder_cases,
+                        coder_depth, off_record_cases, p9_hazard_idx,
+                        pack_quads, reduce_cases, repeat_lanes, running,
+                        skewed_recs, walk_case_errs, walk_steps)
 from llcomp_tpu_torch import api, coder, decode, encode, probes, seed
 from llcomp_tpu_torch.core.config import REV2
 from llcomp_tpu_torch.kernels import build
@@ -290,9 +290,15 @@ def test_build_kernel_takes_more_lanes_than_a_grid_row(dev):
 
 
 @functools.lru_cache(maxsize=None)
-def _ph_copy(tag: str):
-    """pH's copy ``tag`` of ``chip_smoke.VARIANTS``, built once."""
-    return build_variant(("probe_mosaic3", tag))[0]
+def _copy(source: str, tag: str):
+    """The copy ``tag`` of ``csrc/<source>.cu`` (``chip_smoke.VARIANTS``),
+    built once."""
+    return build_variant((source, tag))[0]
+
+
+def _under(source: str, tag: str):
+    return (contextlib.nullcontext() if tag == "shipped"
+            else running(source, _copy(source, tag)))
 
 
 @pytest.mark.parametrize("window", [True, False])
@@ -315,8 +321,7 @@ def test_pH_equals_plain_at_every_cluster_size(dev, copy, lanes, T, window):
     ref = {k: v.clone() if isinstance(v, torch.Tensor) else v
            for k, v in a.items()}
     before = mosaic3.pH_stage.launches
-    with (contextlib.nullcontext() if copy == "shipped"
-          else running("probe_mosaic3", _ph_copy(copy))):
+    with _under("probe_mosaic3", copy):
         out = mosaic3.pH_stage(**a)
     assert mosaic3.pH_stage.launches == before + 1
     assert torch.equal(out, p.plain(**ref))
@@ -515,6 +520,38 @@ def test_p9_equals_plain_at_the_byte_edges(dev, T, lanes):
     out = mosaic.p9_decision_only_cost(idx.to(dev), T)
     assert mosaic.p9_decision_only_cost.launches == before + 1
     assert torch.equal(out.cpu(), mosaic.p9_decision_only_cost_plain(idx, T))
+
+
+@pytest.mark.parametrize("copy", ["shipped", *PROBE_TAGS["p10"]])
+@pytest.mark.parametrize("lanes", [1, 33, 1024])
+@pytest.mark.parametrize("T", [0, 1, 2, 512])
+def test_p10_equals_plain_at_the_byte_edges(dev, T, lanes, copy):
+    """p10, shipped and each copy (the serial step it replaced, the two
+    steps not taken), on idx bytes 0xFF (the byte's step wraps to 0) and
+    0x00 and idx past 255 (only its low byte is read), then random words:
+    output exact, one launch counted."""
+    idx = torch.from_numpy(p9_hazard_idx(lanes))
+    before = mosaic.p10_decision_unrolled.launches
+    with _under("probe_mosaic", copy):
+        out = mosaic.p10_decision_unrolled(idx.to(dev), T)
+    assert mosaic.p10_decision_unrolled.launches == before + 1
+    assert torch.equal(out.cpu(), mosaic.p10_decision_unrolled_plain(idx, T))
+
+
+@pytest.mark.parametrize("copy", ["shipped", *REDUCE_TAGS])
+def test_reduce_equals_plain_on_every_case(dev, copy):
+    """The reduce probe, shipped and each copy (a maximum on every slice,
+    the design it replaced; one warp for the tile), on every
+    ``chip_smoke.reduce_cases`` input (flushes at gaps of 4, of 5 and
+    more, and none; rows past a multiple of 32; 1, 33 and 128 lanes;
+    negative words): output exact, one launch a case counted."""
+    for name, x in reduce_cases():
+        x = torch.from_numpy(x)
+        before = reduce.run.launches
+        with _under("probe_reduce", copy):
+            out = reduce.run(x.to(dev))
+        assert reduce.run.launches == before + 1, name
+        assert torch.equal(out.cpu(), reduce.run_plain(x)), name
 
 
 @pytest.mark.parametrize("lanes", [1, 33, 130])

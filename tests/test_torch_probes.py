@@ -24,7 +24,8 @@ import torch
 from jax.experimental import pallas as pl
 from jax.experimental.pallas import tpu as pltpu
 
-from chip_smoke import p7_hazard_cases, p9_hazard_idx, sass_chain
+from chip_smoke import (p7_hazard_cases, p9_hazard_idx, reduce_cases,
+                        sass_chain)
 from llcomp_tpu_torch import probes
 from llcomp_tpu_torch.probes import mosaic, mosaic2, mosaic3, reduce
 
@@ -394,3 +395,170 @@ def test_a_check_tells_only_on_a_plane_that_moves_it(key, fill, tells):
     before = {"model": a["model"].clone()}
     out = p.plain(**a, T=T)
     assert probes.telling(out, before, {"model": a["model"]}) is tells
+
+
+M32 = 0xFFFFFFFF
+
+
+def _prmt(a, b, sel):
+    """PTX ``prmt.b32`` on uint64 arrays of 32-bit words: byte i of the
+    result is byte ``n & 7`` of {b:a}, n nibble i of ``sel``, or that
+    byte's sign in all 8 bits where n's bit 3 is set."""
+    src = (b << np.uint64(32)) | a
+    out = np.zeros_like(a)
+    for i in range(4):
+        n = (sel >> np.uint64(4 * i)) & np.uint64(0xF)
+        byte = (src >> (np.uint64(8) * (n & np.uint64(7)))) & np.uint64(0xFF)
+        sign = np.where(byte & np.uint64(0x80), np.uint64(0xFF), np.uint64(0))
+        byte = np.where(n & np.uint64(8), sign, byte)
+        out |= byte << np.uint64(8 * i)
+    return out
+
+
+def _rotl(x, sh):
+    """32-bit rotate left of uint64 arrays by ``sh`` mod 32 (the funnel
+    shift of a word with itself)."""
+    sh = sh & np.uint64(31)
+    return ((x << sh) | (x >> ((np.uint64(32) - sh) & np.uint64(63)))) \
+        & np.uint64(M32)
+
+
+def _put_byte_sel(m):
+    return (m & np.uint64(0x7654)) ^ np.uint64(0x3210)
+
+
+def _decide24_perm(lo, hi, ctx, t):
+    """``decide24_perm<true>`` of ``csrc/probe_common.cuh`` (p10's step) on
+    uint64 arrays of 32-bit words, instruction for instruction: every sum
+    and product wraps in 32 bits, the rotate takes its amount mod 32."""
+    m32, u = np.uint64(M32), np.uint64
+    for d in range(24):
+        k = u((2 - 4 * d) & M32)
+        raw = _prmt(lo, hi, ctx)
+        sh = (ctx << u(2)) & m32
+        ahead = (ctx * u(5) + k) & m32
+        nxt = (raw + u(1)) & m32
+        sel_lo = _put_byte_sel(_rotl(u(0xF), sh))
+        sel_hi = _put_byte_sel(_rotl(u(0xF0000), sh))
+        lo, hi = _prmt(lo, nxt, sel_lo), _prmt(hi, nxt, sel_hi)
+        ctx = (raw + ahead) & m32 & u(7)
+        t = (t * u(5) + (raw & u(0xFF)) + k) & m32
+    return lo, hi, ctx, (t - u(24)) & m32
+
+
+def _p10_perm(idx: np.ndarray, T: int) -> np.ndarray:
+    """p10's kernel (``decisions_perm<true>``) on idx [1, lanes] int32, in
+    32-bit arithmetic: out [1, lanes]."""
+    lo = (idx[0].astype(np.uint64) & np.uint64(0xFF)) * np.uint64(0x01010101)
+    hi, ctx, t = lo.copy(), np.zeros_like(lo), np.zeros_like(lo)
+    for _ in range(T):
+        lo, hi, ctx, t = _decide24_perm(lo, hi, ctx, t)
+    return (t & np.uint64(0x7FFF)).astype(np.int32)[None]
+
+
+def test_p10_step_equals_decide24_plain_on_random_rows():
+    """One step of p10's decision (``decide24_perm<true>``) on random rows
+    of 8 bytes (0xFF among them) and random acc: its row, its acc masked
+    and its ctx (acc mod 8) equal ``decide24_plain``'s."""
+    rng = np.random.default_rng(24)
+    b = rng.integers(0, 256, (8, 4096))
+    b[:, ::7] = 0xFF
+    acc = rng.integers(0, 0x8000, 4096)
+    want_b, want_acc = mosaic.decide24_plain(torch.from_numpy(b),
+                                             torch.from_numpy(acc))
+    lo, hi = probes.row_words(torch.from_numpy(b))
+    u = (lo.numpy().astype(np.int64) & M32).astype(np.uint64)
+    v = (hi.numpy().astype(np.int64) & M32).astype(np.uint64)
+    a = acc.astype(np.uint64)
+    lo, hi, ctx, t = _decide24_perm(u, v, a & np.uint64(7), a)
+    got_b = probes.row_bytes(torch.from_numpy(lo.astype(np.int64)),
+                             torch.from_numpy(hi.astype(np.int64)))
+    assert torch.equal(got_b, want_b)
+    np.testing.assert_array_equal(t & np.uint64(0x7FFF), want_acc.numpy())
+    np.testing.assert_array_equal(ctx, want_acc.numpy() & 7)
+
+
+@pytest.mark.parametrize("T", [0, 1, 2, 64])
+def test_p10_step_equals_tpu_probe_at_the_byte_edges(T):
+    """p10's kernel modelled in 32-bit arithmetic (``_p10_perm``) on
+    ``chip_smoke.p9_hazard_idx`` (bytes 0xFF and 0x00, idx past 255)
+    against the JAX ``p10_decision_unrolled`` in interpret mode and the
+    plain version."""
+    idx = p9_hazard_idx(LANES)
+    mod = _tpu_probes("probe_mosaic", "zero")
+    want = np.asarray(jax.jit(mod.p10_decision_unrolled(T=T)[0])(
+        jnp.asarray(np.repeat(idx, 8, 0))))
+    got = _p10_perm(idx, T)
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(
+        mosaic.p10_decision_unrolled(torch.from_numpy(idx), T).numpy(), want)
+    assert T == 0 or (want != want[:, :1]).any()
+
+
+def _reduce_skip(x: np.ndarray):
+    """The reduce probe with its kernel's skip rule: the maximum taken only
+    where 4 or more slices have passed since the last flush.  -> (out
+    [16, lanes] int32, the slices that flushed, the maxima taken)."""
+    lanes = x.shape[1]
+    fill = np.zeros((8, lanes), np.int64)
+    flushed, acc = fill.copy(), fill.copy()
+    since, flushes, maxima = 0, [], 0
+    for c in range(x.shape[0] // 32):
+        acc = np.zeros_like(fill)
+        for j in range(4):
+            v = x[c * 32 + j * 8: c * 32 + j * 8 + 8].astype(np.int64)
+            fill += v & 1
+            acc += v
+            since += 1
+            if since < 4:
+                continue
+            maxima += 1
+            if fill.max() > 3:
+                flushed += fill
+                fill[:] = 0
+                since = 0
+                flushes.append(4 * c + j)
+    out = np.concatenate([flushed, acc])
+    return ((out + 2**31) % 2**32 - 2**31).astype(np.int32), flushes, maxima
+
+
+REDUCE_CASES = dict(reduce_cases())
+
+
+@pytest.mark.parametrize("case", list(REDUCE_CASES))
+def test_reduce_skip_rule_equals_plain_and_tpu_probe(case, monkeypatch):
+    """The skip rule (``_reduce_skip``) against ``run_plain`` and the JAX
+    probe (``tools/probe_reduce.py`` ``run``, interpret mode, its lanes
+    set to the case's) on ``chip_smoke.reduce_cases``."""
+    x = REDUCE_CASES[case]
+    mod = _tpu_probes("probe_reduce", "zero")
+    monkeypatch.setattr(mod, "LANES", x.shape[1])
+    want = np.asarray(mod.run(jnp.asarray(x)))
+    got, _, _ = _reduce_skip(x)
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(reduce.run(torch.from_numpy(x)).numpy(),
+                                  want)
+
+
+def _gaps(flushes):
+    return np.diff([-1, *flushes]).tolist()
+
+
+def test_reduce_cases_flush_at_every_gap():
+    """``reduce_cases`` make flushes at gaps of exactly 4 slices (the first
+    at slice 3), at gaps of 5 and more, and no flush at all; at the probe's
+    own shape (64 x 128, words 0-3) the skip rule takes 2 maxima where
+    every slice would take 8."""
+    gaps, never = set(), 0
+    for name, x in reduce_cases():
+        _, flushes, _ = _reduce_skip(x)
+        gaps.update(_gaps(flushes))
+        never += not flushes
+        if name.startswith(("odd", "one odd")):
+            assert _gaps(flushes) == [4] * (x.shape[0] // 32)
+        if name.startswith("even"):
+            assert not flushes
+    assert 4 in gaps and max(gaps) >= 5 and never
+    x = reduce.PROBES["reduce"].make(0, LANES, probes.ROWS, "cpu")["x"]
+    _, flushes, maxima = _reduce_skip(x.numpy())
+    assert (x.shape, flushes, maxima) == ((64, LANES), [3, 7], 2)
