@@ -12,11 +12,12 @@ Phases (each prints one line; any failure exits non-zero without the final
 1. device: CUDA must be available; prints the card's name and power limit;
 2. build: compiles the ten kernel sources of ``llcomp_tpu_torch/csrc`` (the
    eight library kernels and the 21 probes), one nvcc each, in parallel,
-   beside the copies of kernels 1-8 and probes p7, p9, p10, pH and reduce
+   beside the copies of kernels 1-8 and probes p7-p10, pF, pH and reduce
    that phases 5-8 time (``VARIANTS``); prints the registers a thread of
-   kernels 1-8, the probes of ``probe_mosaic.cu``, pH and reduce and of
-   the copies (every coder kernel of a copy of ``coder_scan.cu``, every
-   instantiation of kernel 5 and pH, p7, p9, p10 and reduce) from the
+   kernels 1-8, the probes of ``probe_mosaic.cu`` and
+   ``probe_mosaic2.cu``, pH and reduce and of the copies (every coder
+   kernel of a copy of ``coder_scan.cu``, every instantiation of kernel 5
+   and pH, p7-p10, pF and reduce) from the
    compiler's ``-Xptxas -v`` report (a spill fails);
 3. kernel vs plain: each CUDA kernel against its plain PyTorch version on
    small lane batches (photo, flat, noise, grayscale, RGBA, C = 2 and 5,
@@ -93,15 +94,18 @@ Phases (each prints one line; any failure exits non-zero without the final
    planes of random words, on inputs where the plain output differs across
    lanes or a plane changes); pH beside copies of it (one block, the
    design it replaced, and each cluster size), each exact, at 128 and
-   1,024 lanes and T 32, 256 and 512, with and without the window; p7,
-   p9 and p10 beside copies of them (the serial step they replaced, p7 at
-   other row ring depths, p9 unrolled, p10 on the steps not taken),
-   each exact against one plain output a case on p7's ring hazards
-   (lanes whose every step lands on one row, planes of 2, 3 and 17 rows,
-   T around each depth), p9's byte edges and 128 and 1,024 lanes, timed
-   in turns, with the SASS instructions of one decision, those to the ALU
-   and the FMA pipe and its carried chain (``cuobjdump -sass``), the SM
-   clock and the chain floors; the reduce probe and its copies exact on
+   1,024 lanes and T 32, 256 and 512, with and without the window; p7-p10
+   and pF beside copies of them (the serial step they replaced, p7, p8
+   and pF at other row ring depths, p9 unrolled, p10 and pF on the steps
+   not taken, p8 with its rows stepped by additions), each exact against
+   one plain output a case on p7's ring hazards (lanes whose every step
+   lands on one row, planes of 2, 3 and 17 rows, T around each depth;
+   p8's too), pF's (lanes whose every step lands on one pair, planes of
+   4, 6 and 36 rows, T around each depth), p9's byte edges and 128 and
+   1,024 lanes, timed in turns, with the SASS instructions of one
+   decision, those to the ALU and the FMA pipe and its carried chain
+   (``cuobjdump -sass``), those of one step of p8 and pF and their
+   carried chain, the SM clock and the chain floors; the reduce probe and its copies exact on
    ``reduce_cases`` (flushes at gaps of 4, of 5 and more, none; rows past
    a multiple of 32; 1, 33 and 128 lanes); the one PyTorch call that
    computes the same function, where there is one, timed and equal.
@@ -140,21 +144,23 @@ KERNEL_SOURCES = ("encode_fused", "decode_kernel", "walk_symbols",
 # their registers and spills
 PTXAS_SOURCES = ("encode_fused", "decode_kernel", "walk_symbols",
                  "walk_probs", "coder_scan", "build_stream", "probe_mosaic",
-                 "probe_mosaic3", "probe_reduce")
-# Copies of kernels 1-8 and probes p7, p9, p10, pH and reduce that phases
+                 "probe_mosaic2", "probe_mosaic3", "probe_reduce")
+# Copies of kernels 1-8 and probes p7-p10, pF, pH and reduce that phases
 # 5-8 time beside the shipped ones, each built from the shipped source with one
 # edit (old, new): other lanes a block (kernels 1 and 7's constants,
 # kernel 2's rule), other look-ahead depths of kernels 1, 3, 6 and 7,
 # other chunk counts of the walks (kernels 3 and 6), other hand-over
 # batches and stages of kernels 4 and 8, other tiles of kernel 5 and its
 # scalar stores, other cluster sizes of pH, other row ring depths of p7,
-# p9 unrolled, p10 on a step of fewer instructions and on one split
-# between the ALU and the FMA pipes (the measurements behind those
-# choices; each includes its step from ``tools/designs/``), and kernel 1
+# p8 and pF, p8 and pF with a warp's lanes spread over more blocks, p9
+# unrolled, p10 and pF on a step of fewer instructions, p10 on one split
+# between the ALU and the FMA pipes, p8 with its rows stepped by
+# additions (the measurements behind those choices; each includes its
+# step from ``tools/designs/``), and kernel 1
 # with each symbol's decisions replaced by one byte out (the split of a
 # symbol's time); or a whole source of
 # ``tools/designs/`` (a path): kernel 5 as one thread a slot, pH as one
-# block, p7, p9 and p10 as a serial step (the row loaded after the
+# block, p7-p10 and pF as a serial step (the row loaded after the
 # previous step's store, the shift-and-select decision) and the reduce
 # probe with a maximum on every slice, the designs they replaced, and the
 # reduce probe as one warp, the design not taken.
@@ -188,8 +194,16 @@ _PH_RULE = "  const int pick = lanes > 512 ? 16 : 8;\n"
 # p7's row ring depths: the shipped one and its copies'
 ROW_SHIPPED, ROW_DEPTHS = 4, (2, 4, 8)
 _ROW_DEPTH = f"constexpr int kRowDepth = {ROW_SHIPPED};"
+# p8's and pF's: the shipped one and their copies'
+STAGE_SHIPPED, STAGE_DEPTHS = 16, (2, 4, 8, 16, 32)
+PAIR_SHIPPED, PAIR_DEPTHS = 4, (2, 3, 4, 8)
+# the lanes a block of p8's and pF's copies that spread a launch's lanes
+# over more SMs (the shipped kernels take kLaneBlock, a warp)
+STEP_BLOCK = 8
 _P9_LAUNCH = "  decisions_perm<false>\n      <<<"
 _P10_LAUNCH = "  decisions_perm<true>\n      <<<"
+_P8_LAUNCH = "  stage_only<StepRows>\n      <<<"
+_WARP_GRID = "lane_blocks(lanes), kLaneBlock,"
 # the walks' shipped chunk counts and ring depths, and those of their
 # copies (kernel 3 spills at depth 32)
 WALK_SHIPPED = {"walk_symbols": (64, 4), "walk_probs": (64, 16)}
@@ -204,9 +218,17 @@ COPIED_KERNEL = {"encode_fused": ("encode_fused_kernel",),
                  "walk_symbols": ("walk_symbols_kernel",),
                  "walk_probs": ("walk_probs_kernel",),
                  "build_stream": ("build_stream_kernel",),
-                 "probe_mosaic": ("symbol_steps", "decisions"),
+                 "probe_mosaic": ("symbol_steps", "stage_only", "decisions"),
+                 "probe_mosaic2": ("pair_steps",),
                  "probe_mosaic3": ("stage_steps",),
                  "probe_reduce": ("fill_flush",)}
+
+
+def _include(design: str) -> tuple[str, str]:
+    """The edit that includes ``tools/designs/<design>`` into a probe
+    source's namespace."""
+    return ("using namespace probe;\n",
+            f"using namespace probe;\n#include \"{design}\"\n")
 
 
 def _p10_step(design: str, kernel: str, args: str = "") -> list:
@@ -215,9 +237,7 @@ def _p10_step(design: str, kernel: str, args: str = "") -> list:
     launched for p10 with the extra arguments ``args``."""
     end = ("io(out), lanes, T);\n  return done();\n}\n\n"
            "extern \"C\" int llct_probe_p11")
-    return [("using namespace probe;\n", "using namespace probe;\n#include "
-             f"\"../../tools/designs/{design}\"\n"),
-            (_P10_LAUNCH, f"  {kernel}\n      <<<"),
+    return [_include(design), (_P10_LAUNCH, f"  {kernel}\n      <<<"),
             *([(end, end.replace("T)", f"T{args})"))] if args else [])]
 
 
@@ -282,15 +302,46 @@ VARIANTS = {
                                              "decisions_split"),
     ("probe_mosaic", "p10 pipes"): _p10_step("probe_p10_pipes_step.cuh",
                                              "decisions_pipes", ", 1u"),
+    **{("probe_mosaic", f"p8 depth {d}"): (
+        f"constexpr int kStageDepth = {STAGE_SHIPPED};",
+        f"constexpr int kStageDepth = {d};")
+       for d in STAGE_DEPTHS if d != STAGE_SHIPPED},
+    ("probe_mosaic", "p8 row step"): [
+        _include("probe_p8_row_step.cuh"),
+        (_P8_LAUNCH, _P8_LAUNCH.replace("StepRows", "StepRowsAdd"))],
+    ("probe_mosaic", f"p8 {STEP_BLOCK} lanes"): (
+        _P8_LAUNCH + _WARP_GRID, _P8_LAUNCH + _WARP_GRID.replace(
+            "lane_blocks(lanes), kLaneBlock",
+            f"(lanes + {STEP_BLOCK - 1}) / {STEP_BLOCK}, {STEP_BLOCK}")),
+    ("probe_mosaic2", "serial step"): DESIGNS / "probe_mosaic2_serial_step.cu",
+    **{("probe_mosaic2", f"pF depth {d}"): (
+        f"constexpr int kPairDepth = {PAIR_SHIPPED};",
+        f"constexpr int kPairDepth = {d};")
+       for d in PAIR_DEPTHS if d != PAIR_SHIPPED},
+    ("probe_mosaic2", f"pF {STEP_BLOCK} lanes"): (
+        "pair_steps<<<" + _WARP_GRID, "pair_steps<<<" + _WARP_GRID.replace(
+            "lane_blocks(lanes), kLaneBlock",
+            f"(lanes + {STEP_BLOCK - 1}) / {STEP_BLOCK}, {STEP_BLOCK}")),
+    ("probe_mosaic2", "pF split"): [
+        _include("probe_p10_split_step.cuh"),
+        ("decide24_perm<true>(wlo, whi, ctx, t);",
+         "decide24_split(wlo, whi, ctx, t);")],
     ("probe_reduce", "every slice"): DESIGNS / "probe_reduce_every_slice.cu",
     ("probe_reduce", "one warp"): DESIGNS / "probe_reduce_one_warp.cu",
 }
-# the copies of probe_mosaic.cu that p7, p9 and p10 are timed beside, and
-# of probe_reduce.cu that the reduce probe is
+# the copies of probe_mosaic.cu that p7-p10 are timed beside, of
+# probe_mosaic2.cu that pF is, and of probe_reduce.cu that the reduce
+# probe is
 PROBE_TAGS = {"p7": ("serial step", *(f"depth {d}" for d in ROW_DEPTHS
                                       if d != ROW_SHIPPED)),
+              "p8": ("serial step", *(f"p8 depth {d}" for d in STAGE_DEPTHS
+                                      if d != STAGE_SHIPPED),
+                     "p8 row step", f"p8 {STEP_BLOCK} lanes"),
               "p9": ("serial step", "p9 unrolled"),
-              "p10": ("serial step", "p10 split", "p10 pipes")}
+              "p10": ("serial step", "p10 split", "p10 pipes"),
+              "pF": ("serial step", *(f"pF depth {d}" for d in PAIR_DEPTHS
+                                      if d != PAIR_SHIPPED), "pF split",
+                     f"pF {STEP_BLOCK} lanes")}
 REDUCE_TAGS = ("every slice", "one warp")
 # the copies of coder_scan.cu that each coder is timed beside
 CODER_TAGS = {
@@ -348,7 +399,7 @@ PROBE_ROWS = {
 }
 PROBE_LANES = (128, 1024)   # the TPU probes' lanes and the bench batch's
 PH_STEPS = (32, 256, 512)
-PROBE_ROUNDS = 10           # rounds of p7's, p9's and p10's copies in turns
+PROBE_ROUNDS = 10           # rounds of the stepped probes' copies in turns
 
 # sha256 of the test images (generator check) and of the expected bytes
 IMAGE_SHA = {
@@ -595,8 +646,8 @@ def sass_chain(body: list, passes: int = 16) -> tuple:
 def build_copy(name: str, tag: str, edits) -> tuple[pathlib.Path, str]:
     """``csrc/<name>.cu`` with each edit (old, new) made, every old text
     found once, or the whole source at path ``edits``, built with the
-    port's flags (and ``csrc/`` for its headers) as copy ``tag``: (its
-    library, the compiler's report)."""
+    port's flags (``csrc/`` and ``tools/designs/`` on the include path)
+    as copy ``tag``: (its library, the compiler's report)."""
     from llcomp_tpu_torch.kernels import build
 
     if isinstance(edits, pathlib.Path):
@@ -613,7 +664,8 @@ def build_copy(name: str, tag: str, edits) -> tuple[pathlib.Path, str]:
     cu.write_text(src)
     so = cu.with_suffix(".so")
     r = subprocess.run([build.nvcc(), *build.NVCC_FLAGS, "-I",
-                        str(build.CSRC), "-o", str(so), str(cu)],
+                        str(build.CSRC), "-I", str(DESIGNS), "-o", str(so),
+                        str(cu)],
                        capture_output=True, text=True)
     check(r.returncode == 0, f"{name}.cu copy {tag!r} did not build:\n"
           + r.stderr[-3000:])
@@ -2063,9 +2115,10 @@ def ph_copies(torch, variants: dict) -> dict:
     return out
 
 
-def p7_hazard_cases() -> list:
+def p7_hazard_cases(depths=ROW_DEPTHS) -> list:
     """p7's inputs where its row ring meets its hazards, at every ring depth
-    of ``ROW_DEPTHS``: [(name, idx [1, lanes] int32, rows, T)].  On the
+    of ``depths`` (p8, on p7's rows, takes them at ``STAGE_DEPTHS``):
+    [(name, idx [1, lanes] int32, rows, T)].  On the
     15,872-row plane the lanes at x = 7110 and 7110 + 15,871 (every third
     and the ones after) land on row 7110 at every step (x + 40503 is a
     multiple of 15,871); planes of 2, 3 and 17 rows repeat rows within any
@@ -2080,7 +2133,30 @@ def p7_hazard_cases() -> list:
     cases = [("7110 lanes", same, 15872, 64)]
     cases += [(f"{rows} rows", idx(128), rows, 64) for rows in (2, 3, 17)]
     cases += [(f"T {T}", idx(33), 17, T) for T in sorted(
-        {0, 1} | {d + e for d in ROW_DEPTHS for e in (-1, 0, 1)})]
+        {0, 1} | {d + e for d in depths for e in (-1, 0, 1)})]
+    return cases
+
+
+def pF_hazard_cases() -> list:
+    """pF's inputs where its pair ring meets its hazards, at every ring
+    depth of ``PAIR_DEPTHS``: [(name, idx [1, lanes] int32, rows, T)].  On
+    the 15,872-row plane (pairs taken mod m = rows/2 - 1 = 7,935) the
+    lanes at x = 7107 and 7107 + 7,935 (every third and the ones after)
+    land on pair 14,214 at every step (x + 40503 = 6 x 7,935); planes of
+    4, 6 and 36 rows (m = 1, 2 and 17) repeat pairs within any ring; T
+    around each depth leaves the ring part full.  idx is drawn over the
+    whole non-negative int32 range, so that x*(s+1) wraps."""
+    rng = np.random.default_rng(7107)
+
+    def idx(lanes):
+        return rng.integers(0, 2**31, (1, lanes), dtype=np.int32)
+
+    same = idx(128)
+    same[0, ::3], same[0, 1::3] = 7107, 7107 + 7935
+    cases = [("7107 lanes", same, 15872, 64)]
+    cases += [(f"{rows} rows", idx(128), rows, 64) for rows in (4, 6, 36)]
+    cases += [(f"T {T}", idx(33), 36, T) for T in sorted(
+        {0, 1} | {d + e for d in PAIR_DEPTHS for e in (-1, 0, 1)})]
     return cases
 
 
@@ -2130,38 +2206,42 @@ def p9_hazard_idx(lanes: int = 128) -> np.ndarray:
 
 
 def step_copies(torch, variants: dict) -> dict:
-    """Probes p7, p9 and p10 beside their copies ``PROBE_TAGS`` (the
-    serial step they replaced, p7 at the other ring depths, p9 unrolled,
-    p10 on the steps not taken).  Each copy is held exactly (output and
-    planes)
-    against one plain output a case: p7 on ``p7_hazard_cases``, p9 and p10
-    on ``p9_hazard_idx`` at T 0, 1, 2 and 64, all at ``PROBE_LANES`` x T
-    512 on planes of random words; the plain version runs once a case,
-    each copy on a copy of its inputs.  Then ns a step at ``PROBE_LANES``
-    x T 512 in turns, ``PROBE_ROUNDS`` rounds, the order reversed in
-    every other round (``probes.run_probe``:
-    median of 3 fresh inputs, zeroed planes), the SM clock read after
-    them.  -> {"cases": n, "ns": {(key, lanes): {tag: [ns]}},
-    "clock_mhz": (SM clock, its maximum)}"""
+    """The stepped probes p7-p10 and pF beside their copies
+    ``PROBE_TAGS`` (the serial step they replaced, p7, p8 and pF at other
+    ring depths, p9 unrolled, p10 and pF on the steps not taken, p8 with
+    its rows stepped by additions).  Each copy is held exactly (output and
+    planes) against one plain output a case: p7 on ``p7_hazard_cases``, p8
+    on the same at its depths, pF on ``pF_hazard_cases``, p9 and p10 on
+    ``p9_hazard_idx`` at T 0, 1, 2 and 64, all at ``PROBE_LANES`` x the
+    probe's T on planes of random words; the plain version runs once a
+    case, each copy on a copy of its inputs.  Then ns a step at
+    ``PROBE_LANES`` x the probe's T in turns, ``PROBE_ROUNDS`` rounds, the
+    order reversed in every other round (``probes.run_probe``: median of 3
+    fresh inputs, zeroed planes), the SM clock read after them.  ->
+    {"cases": n, "ns": {(key, lanes): {tag: [ns]}}, "clock_mhz": (SM
+    clock, its maximum)}"""
     from llcomp_tpu_torch import probes
-    from llcomp_tpu_torch.probes import mosaic
+    from llcomp_tpu_torch.probes import mosaic, mosaic2
 
     dev = torch.device("cuda")
+    module = {key: m for m in (mosaic, mosaic2) for key in m.PROBES
+              if key in PROBE_TAGS}
 
-    def under(tag):
+    def under(key, tag):
+        src = module[key].SRC
         return (contextlib.nullcontext() if tag == "shipped" else
-                running("probe_mosaic", variants["probe_mosaic", tag]))
+                running(src, variants[src, tag]))
 
     def copied(kw):
         return {k: v.clone() if isinstance(v, torch.Tensor) else v
                 for k, v in kw.items()}
 
     def held(key, kw, what):
-        p, ref = mosaic.PROBES[key], copied(kw)
+        p, ref = module[key].PROBES[key], copied(kw)
         want = p.plain(**ref)
         for tag in ("shipped", *PROBE_TAGS[key]):
             a = copied(kw)
-            with under(tag):
+            with under(key, tag):
                 out = p.fn(**a)
             check(torch.equal(out, want) and all(
                 torch.equal(v, ref[k]) for k, v in a.items()
@@ -2169,18 +2249,21 @@ def step_copies(torch, variants: dict) -> dict:
                 f"{key} {tag}, {what}: kernel != plain")
 
     cases = 0
-    for name, idx, rows, T in p7_hazard_cases():
-        held("p7", {"idx": torch.from_numpy(idx).to(dev), "T": T,
-                    "model": probes.words(rows, (2, rows, idx.shape[1]),
-                                          dev)}, name)
-        cases += 1
+    for key, hazards in (("p7", p7_hazard_cases()),
+                         ("p8", p7_hazard_cases(STAGE_DEPTHS)),
+                         ("pF", pF_hazard_cases())):
+        for name, idx, rows, T in hazards:
+            shape = ((2,) if key == "p7" else ()) + (rows, idx.shape[1])
+            held(key, {"idx": torch.from_numpy(idx).to(dev), "T": T,
+                       "model": probes.words(rows, shape, dev)}, name)
+            cases += 1
     for key in ("p9", "p10"):
         for T in (0, 1, 2, 64):
             held(key, {"idx": torch.from_numpy(p9_hazard_idx()).to(dev),
                        "T": T}, f"byte edges, T {T}")
             cases += 1
     for key in PROBE_TAGS:
-        p = mosaic.PROBES[key]
+        p = module[key].PROBES[key]
         for lanes in PROBE_LANES:
             kw = {**p.make(0, lanes, probes.ROWS, dev), "T": p.T}
             if "model" in kw:
@@ -2189,13 +2272,13 @@ def step_copies(torch, variants: dict) -> dict:
             cases += 1
     ns = {}
     for key, tags in PROBE_TAGS.items():
-        p = mosaic.PROBES[key]
+        p = module[key].PROBES[key]
         for lanes in PROBE_LANES:
             row = ns[key, lanes] = {tag: [] for tag in ("shipped", *tags)}
             for r in range(PROBE_ROUNDS):
                 turn = list(row.items())    # reversed every other round
                 for tag, v in turn if r % 2 == 0 else turn[::-1]:
-                    with under(tag):
+                    with under(key, tag):
                         v.append(probes.run_probe(p, dev, lanes=lanes,
                                                   check=False)["ns_step"])
     clock = subprocess.run(
@@ -2266,6 +2349,37 @@ def decision_sass(variants: dict) -> dict:
     return out
 
 
+# p8's and pF's step loops: the source, the kernel and the words a step
+# stores (p8 one, pF two).  A loop pass takes as many steps as it has
+# stores over that: the ring's kStageDepth or kPairDepth, a serial loop
+# one or as many as the compiler unrolled.
+STEP_LOOPS = {"p8": ("probe_mosaic", "stage_only", 1),
+              "pF": ("probe_mosaic2", "pair_steps", 2)}
+
+
+def step_sass(variants: dict) -> dict:
+    """p8's and pF's step loops in the shipped build and each copy of
+    ``PROBE_TAGS``, from the SASS (``sass_functions``, as
+    ``decision_sass`` reads them): {(probe, tag): (instructions a step,
+    dependent instructions a step on the loop's carried chain
+    (``sass_chain``), steps a loop pass)}."""
+    from llcomp_tpu_torch.kernels import build
+
+    out = {}
+    for key, (src, name, stores) in STEP_LOOPS.items():
+        for tag in ("shipped", *PROBE_TAGS[key]):
+            so = (build.build(src) if tag == "shipped"
+                  else variants[src, tag])
+            ins, labels = sass_functions(sass(so))[name]
+            a, b = max(inner_loops(ins, labels), key=lambda ab: ab[1] - ab[0])
+            body = [t for x, t in ins if a <= x <= b]
+            steps = sum(sass_opcode(t) == "STG" for t in body) / stores
+            check(steps > 0, f"{key} {tag}: no store in {name}'s loop")
+            chain, _ = sass_chain(body)
+            out[key, tag] = (len(body) / steps, chain / steps, steps)
+    return out
+
+
 def phase_probes(torch, log, card: str, turns: dict,
                  variants: dict) -> dict:
     """Phase 8: the 21 probes of ``llcomp_tpu_torch.probes`` (the TPU
@@ -2276,9 +2390,9 @@ def phase_probes(torch, log, card: str, turns: dict,
     Then each probe's kernel against its plain version, exactly (outputs
     and planes of random words; at 1,024 lanes too for the stepped ones),
     on inputs where the plain output differs across lanes or a plane
-    changes; pH beside its copies ``variants`` (``ph_copies``); p7, p9 and
-    p10 beside theirs (``step_copies``), the decision loops' SASS
-    (``decision_sass``) and chain floors; the reduce probe and its copies
+    changes; pH beside its copies ``variants`` (``ph_copies``); p7-p10 and
+    pF beside theirs (``step_copies``), the decision loops' and the step
+    loops' SASS (``decision_sass``, ``step_sass``) and chain floors; the reduce probe and its copies
     exact on ``reduce_cases`` (``reduce_copies``); the one-shot probes'
     device time, each beside the launch floor and its library call in
     turns in a profiler session of its own (``turns``:
@@ -2287,6 +2401,7 @@ def phase_probes(torch, log, card: str, turns: dict,
     call that computes the same function where there is one; and
     bounds."""
     from llcomp_tpu_torch import probes
+    from llcomp_tpu_torch.kernels import build
     from llcomp_tpu_torch.probes import mosaic, mosaic2, mosaic3, reduce
 
     dev = torch.device("cuda")
@@ -2351,11 +2466,14 @@ def phase_probes(torch, log, card: str, turns: dict,
 
     pp = step_copies(torch, variants)
     clock, clock_max = pp["clock_mhz"]
-    log(f"phase 8 p7, p9 and p10 beside their copies ({PROBE_TAGS}), every "
+    log(f"phase 8 p7-p10 and pF beside their copies ({PROBE_TAGS}), every "
         f"copy exact against one plain output a case, outputs and planes, on "
-        f"{pp['cases']} cases (p7: the 7110 lanes, planes of 2, 3 and 17 "
-        f"rows, T around each ring depth {ROW_DEPTHS}; p9 and p10: idx bytes "
-        f"0xFF, 0x00 and past 255; all at {PROBE_LANES} lanes, T 512, planes "
+        f"{pp['cases']} cases (p7 and p8: the 7110 lanes, planes of 2, 3 and "
+        f"17 rows, T around each ring depth, p7's {ROW_DEPTHS} and p8's "
+        f"{STAGE_DEPTHS}; pF: the 7107 lanes, planes of 4, 6 and 36 rows, T "
+        f"around each ring depth {PAIR_DEPTHS}; p9 and p10: idx bytes "
+        f"0xFF, 0x00 and past 255; all at {PROBE_LANES} lanes and the "
+        f"probe's T, planes "
         f"of random words); ns a step in turns, {PROBE_ROUNDS} rounds, the "
         f"order reversed every other round, median (quartiles; least-most) "
         f"and the rounds in which a copy ran under the shipped kernel, on "
@@ -2376,18 +2494,38 @@ def phase_probes(torch, log, card: str, turns: dict,
                     f"chain ({' '.join(ops)})"
                     for (key, tag), (name, n, c, ops, alu, fma)
                     in dsass.items()))
-    # chain floors at T 512: p9's and p10's, their carried chain's
-    # dependent instructions at ALU_LATENCY_CLOCKS each; p7's, p9's
-    # measured step
+    ssass = step_sass(variants)
+    log("phase 8 SASS of p8's and pF's step loops (cuobjdump -sass), a "
+        "step (steps a loop pass: the loop's stores over a step's): "
+        + "; ".join(f"{key} {tag}: {n:.2f} instructions, {c:.2f} dependent "
+                    f"on the carried chain ({steps:g} steps a pass)"
+                    for (key, tag), (n, c, steps) in ssass.items()))
+    # chain floors at each probe's T: p9's and p10's, their carried
+    # chain's dependent instructions at ALU_LATENCY_CLOCKS each; p7's,
+    # p9's measured step, and pF's, p10's (the least of the rounds at 128
+    # lanes); p8's, the larger of its carried chain and one load latency
+    # (p11's step at 128 lanes) over its ring depth
     T = mosaic.PROBES["p9"].T
     chain_ms = {key: 24 * T * dsass[key, "shipped"][2] * ALU_LATENCY_CLOCKS
                 / (clock * 1e3) for key in ("p9", "p10")}
     chain_ms["p7"] = min(pp["ns"]["p9", 128]["shipped"]) * T / 1e6
-    log(f"phase 8 chain floors, T {T}: " + "; ".join(
-        f"{key} 24 x T x {dsass[key, 'shipped'][2]:.2f} dependent "
+    T_pF = mosaic2.PROBES["pF"].T
+    chain_ms["pF"] = min(pp["ns"]["p10", 128]["shipped"]) * T_pF / 1e6
+    depth = build.constant("probe_mosaic", "kStageDepth")
+    p8_chain_ns = ssass["p8", "shipped"][1] * ALU_LATENCY_CLOCKS / clock * 1e3
+    p8_load_ns = runs["p11", 128, allp["p11"].T]["ns_step"] / depth
+    chain_ms["p8"] = T * max(p8_chain_ns, p8_load_ns) / 1e6
+    log(f"phase 8 chain floors: " + "; ".join(
+        f"{key} 24 x T {T} x {dsass[key, 'shipped'][2]:.2f} dependent "
         f"instructions x {ALU_LATENCY_CLOCKS} clocks at {clock:g} MHz = "
         f"{chain_ms[key]:.5f} ms" for key in ("p9", "p10"))
-        + f"; p7 p9's step at 128 lanes x T = {chain_ms['p7']:.5f} ms")
+        + f"; p7 p9's step at 128 lanes x T {T} = {chain_ms['p7']:.5f} ms"
+        + f"; pF p10's step at 128 lanes x T {T_pF} = "
+        f"{chain_ms['pF']:.5f} ms; p8 T {T} x the larger of its chain "
+        f"({ssass['p8', 'shipped'][1]:.2f} dependent instructions x "
+        f"{ALU_LATENCY_CLOCKS} clocks = {p8_chain_ns:.1f} ns) and p11's "
+        f"step at 128 lanes over its ring depth {depth} "
+        f"({p8_load_ns:.1f} ns) = {chain_ms['p8']:.5f} ms")
     n_reduce = reduce_copies(torch, variants)
     log(f"phase 8 reduce and its copies ({REDUCE_TAGS}) exact against "
         f"run_plain on {n_reduce} cases (reduce_cases: rows and lanes "
@@ -2490,6 +2628,10 @@ def phase_probes(torch, log, card: str, turns: dict,
                 tag: {"instructions": n, "chain": c, "alu": alu, "fma": fma}
                 for (key, tag), (_, n, c, _, alu, fma) in dsass.items()
                 if key == row}} if row in ("p9", "p10") else {}),
+            **({"sass_a_step": {
+                tag: {"instructions": n, "chain": c}
+                for (key, tag), (n, c, _) in ssass.items() if key == row}}
+               if row in STEP_LOOPS else {}),
             **({"copies_ms": {tag: turns[k].get(tag) for tag in REDUCE_TAGS}}
                if row == "reduce" else {})})
     return {"rows": rows, "runs": runs}
@@ -2528,7 +2670,7 @@ def main() -> int:
             list(pool.map(build.build, KERNEL_SOURCES))
         log(f"phase 2 build: {len(KERNEL_SOURCES)} kernel sources from "
             f"llcomp_tpu_torch/csrc and {len(VARIANTS)} copies of kernels "
-            f"1-8 and probes p7, p9, p10, pH and reduce, one nvcc each in "
+            f"1-8 and probes p7-p10, pF, pH and reduce, one nvcc each in "
             f"parallel, in "
             f"{time.perf_counter() - t0:.2f} s")
         regs = {name: registers(build.compiler_log(name))
@@ -2550,13 +2692,23 @@ def main() -> int:
                                        for k, v in copied.items()))
         variants = {k: so for k, (so, _) in variants.items()}
 
-        turns = one_shot_turns(torch, variants)   # phase 8's, made first
-        errs = phase_kernels_vs_plain(torch, log)
-        counts = phase_main_path(torch, log)
-        bench = phase_bench(torch, log, card, variants)
-        sort = phase_sort(torch, log, card, variants)
-        decision = phase_decision(torch, log, card, variants)
-        probe = phase_probes(torch, log, card, turns, variants)
+        took = {}
+
+        def timed(phase, fn, *args):
+            t0 = time.perf_counter()
+            r = fn(*args)
+            took[phase] = round(time.perf_counter() - t0, 1)
+            return r
+
+        turns = timed("8, one-shot turns", one_shot_turns, torch, variants)
+        errs = timed(3, phase_kernels_vs_plain, torch, log)
+        counts = timed(4, phase_main_path, torch, log)
+        bench = timed(5, phase_bench, torch, log, card, variants)
+        sort = timed(6, phase_sort, torch, log, card, variants)
+        decision = timed(7, phase_decision, torch, log, card, variants)
+        probe = timed(8, phase_probes, torch, log, card, turns, variants)
+        log("phase seconds: " + ", ".join(f"{k} {v}" for k, v in
+                                           took.items()))
         if "jax" in sys.modules or "llcomp_tpu" in sys.modules:
             raise Failed("the port imported JAX or llcomp_tpu")
     except Failed as e:

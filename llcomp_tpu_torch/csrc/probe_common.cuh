@@ -42,41 +42,32 @@ __device__ __forceinline__ int32_t step_row(int32_t x, int s, int32_t m) {
   return fmod_floor(wadd(wmul(x, s + 1), wmul(s, 40503)), m);
 }
 
-// One stand-in decision (probe_mosaic.py:258-266): ctx = (acc + d) & 7
-// picks byte ctx of the lane's 8-byte model row, acc = (acc*5 + byte + 1)
-// & 0x7FFF, and the byte steps to (byte + 1) & 0xFF.  The row stays in two
-// 32-bit registers (bytes 0-3 in lo, 4-7 in hi), read and written with
-// shifts: an int[8] indexed by ctx would live in local memory.  pF takes
-// this step (p10 took it before decide24_perm); p7, p9 and p10 take
-// decide_perm below.
-__device__ __forceinline__ void decide(uint32_t& lo, uint32_t& hi,
-                                       int32_t& acc, int d) {
-  const int ctx = (acc + d) & 7;
-  const int sh = (ctx & 3) * 8;
-  const bool up = ctx >= 4;
-  uint32_t w = up ? hi : lo;
-  const uint32_t b = (w >> sh) & 0xFFu;
-  acc = (acc * 5 + static_cast<int32_t>(b) + 1) & 0x7FFF;
-  w = (w & ~(0xFFu << sh)) | (((b + 1) & 0xFFu) << sh);
-  if (up) {
-    hi = w;
-  } else {
-    lo = w;
-  }
+// The word at row r (r >= 0) of a lane's column of a plane: `col` points at
+// the column's word in row 0, and rows lie `pitch` bytes apart (4 x lanes).
+// One 32 x 32 -> 64-bit multiply-add (IMAD.WIDE.U32) a word.
+__device__ __forceinline__ int32_t* word_at(int32_t* col, int32_t r,
+                                            uint32_t pitch) {
+  return reinterpret_cast<int32_t*>(
+      reinterpret_cast<char*>(col) +
+      static_cast<uint64_t>(static_cast<uint32_t>(r)) * pitch);
 }
 
-// 24 decisions, the loop kept (Unroll false) or unrolled (true).
-template <bool Unroll>
-__device__ __forceinline__ void decide24(uint32_t& lo, uint32_t& hi,
-                                         int32_t& acc) {
-  if constexpr (Unroll) {
-#pragma unroll
-    for (int d = 0; d < 24; ++d) decide(lo, hi, acc, d);
-  } else {
-#pragma unroll 1
-    for (int d = 0; d < 24; ++d) decide(lo, hi, acc, d);
+// A lane's step_row(x, s, m) for s = 0, 1, 2, ... in turn (p7, p8, pF):
+// the wrapped 32-bit step value x*(s+1) + s*40503 grows by x + 40503 a
+// step, and each row is its floor modulo.  A row depends on x and s alone,
+// so the rows of later steps are known before the earlier steps run.
+struct StepRows {
+  uint32_t v, dv;
+  int32_t m;
+  __device__ StepRows(int32_t x, int32_t m_)
+      : v(static_cast<uint32_t>(x)), dv(static_cast<uint32_t>(x) + 40503u),
+        m(m_) {}
+  __device__ __forceinline__ int32_t next() {
+    const int32_t r = fmod_floor(static_cast<int32_t>(v), m);
+    v += dv;
+    return r;
   }
-}
+};
 
 // PTX prmt: the bytes of {b:a} that the four low nibbles of s select
 // (values 0-7 here).  __byte_perm masks s with 0x7777 first, one more
@@ -98,18 +89,25 @@ __device__ __forceinline__ uint32_t put_byte_sel(uint32_t m) {
   return d;
 }
 
-// The same decision as decide, its chain cut to what the next ctx needs
-// (p7, p9, p10; pF keeps decide).  acc is carried as t = acc + d in 32
-// bits, wrapping and unmasked: acc's & 0x7FFF commutes with wrapping
-// arithmetic (2^15 divides 2^32), so the caller masks once, where acc
-// leaves.  Then ctx = t & 7, and t' = 5t + byte + k with k = 2 - 4d (d's
-// and the +1's constants folded).  ctx is a chain of its own, three
-// dependent instructions: one prmt reads byte ctx of {hi:lo} into byte 0
-// (bytes 1-3 are lo's byte 0, which no bit of ctx' sees), then ctx' = (raw
-// + 5ctx + k) & 7, 5ctx + k formed beside the read.  The row and t hang
-// off that chain: one prmt a word writes byte 0 of raw + 1, (byte + 1) &
-// 0xFF, over byte ctx & 3 of the word ctx is in, its selector from a
-// rotate of a nibble mask by 4ctx (put_byte_sel).
+// One stand-in decision (probe_mosaic.py:258-266), the step of p7, p9,
+// p10 and pF: ctx = (acc + d) & 7 picks byte ctx of the lane's 8-byte
+// model row, acc = (acc*5 + byte + 1) & 0x7FFF, and the byte steps to
+// (byte + 1) & 0xFF.  The row stays in two 32-bit registers (bytes 0-3 in
+// lo, 4-7 in hi): an int[8] indexed by ctx would live in local memory.
+// The chain is cut to what the next ctx needs (the shift-and-select step
+// it replaced, decide, 10 dependent instructions a decision, stays in
+// tools/designs/probe_serial_decide.cuh for the copies of the designs
+// replaced).  acc is carried as t = acc + d in 32 bits, wrapping and
+// unmasked: acc's & 0x7FFF commutes with wrapping arithmetic (2^15
+// divides 2^32), so the caller masks once, where acc leaves.  Then ctx =
+// t & 7, and t' = 5t + byte + k with k = 2 - 4d (d's and the +1's
+// constants folded).  ctx is a chain of its own, three dependent
+// instructions: one prmt reads byte ctx of {hi:lo} into byte 0 (bytes 1-3
+// are lo's byte 0, which no bit of ctx' sees), then ctx' = (raw + 5ctx +
+// k) & 7, 5ctx + k formed beside the read.  The row and t hang off that
+// chain: one prmt a word writes byte 0 of raw + 1, (byte + 1) & 0xFF, over
+// byte ctx & 3 of the word ctx is in, its selector from a rotate of a
+// nibble mask by 4ctx (put_byte_sel).
 __device__ __forceinline__ void decide_perm(uint32_t& lo, uint32_t& hi,
                                             uint32_t& ctx, uint32_t& t,
                                             uint32_t k) {

@@ -33,47 +33,59 @@
 // (inside the 50 MB L2) and 65 MB at 1,024 (outside it), and a warp's 32
 // lanes read 32 different rows, so each load is 32 sectors.
 //
-// What the designs of p7, p9 and p10 do about it.  A decision is decide_perm
-// (probe_common.cuh): three dependent instructions carry ctx from one decision
-// to the next (a byte permute reads the byte, an add and a mask make the next
-// ctx), and the row's byte permutes and acc hang off that chain; acc is masked
-// once, where it leaves.  p7's row at a step depends on idx and the step alone,
-// so the rows of the next kRowDepth steps are known ahead (the wrapped 32-bit
-// step value grows by idx + 40503 a step; step_row's floor modulo is taken of
-// each): the row of step s + kRowDepth is loaded while step s decides, into a
-// register ring indexed statically (the loop unrolled by kRowDepth), so a step
-// no longer waits for a load issued after the previous step's store.  A load
-// issued before a store of the same row would read the row as it was: after
-// each step's store, every pending slot of that row takes the stored words from
-// registers (into a forward slot of its own, so that no instruction waits on a
-// load in flight before the step that consumes it).  p10, 24 decisions unrolled
+// What the designs of p7-p10 do about it.  A decision is decide_perm
+// (probe_common.cuh): three dependent instructions carry ctx from one
+// decision to the next (a byte permute reads the byte, an add and a mask
+// make the next ctx), and the row's byte permutes and acc hang off that
+// chain; acc is masked once, where it leaves.  p7's and p8's row at a step
+// depends on idx and the step alone, so the rows of the next kRowDepth
+// (p7) or kStageDepth (p8) steps are known ahead (StepRows): the row of
+// step s + D is loaded while step s runs, into a register ring indexed
+// statically (the loop unrolled by D), so a step no longer waits for a load
+// issued after the previous step's store.  A load issued before a store of
+// the same row would read the row as it was: after each step's store,
+// every pending slot of that row takes the stored words from registers
+// (into a forward slot of its own, so that no instruction waits on a load
+// in flight before the step that consumes it; p8's stored word is 16 bits,
+// so an all-ones forward marks a slot no store reached).  p8, with no
+// decisions, is left with its carry (an add and a mask a step) and the
+// instructions around its load and store: the row's floor modulo, the
+// forwarding, the addresses; its depth is its own, past p7's, since one
+// load latency over D must fall under that.  p10, 24 decisions unrolled
 // with no row to load, is held by instruction issue alone: its step is
-// decide_perm unrolled, 16.3 SASS instructions a decision and 3.5 on its chain.
+// decide_perm unrolled, 16.3 SASS instructions a decision and 3.5 on its
+// chain.
 //
 // The H100's answer (one H100 80GB HBM3 at 700 W, chip_smoke.py phase 8):
 // p0-p6 each run 0.8-1.8 us on the device a launch, over an empty launch's
 // 0.85-0.88 us; p3's row store, its loads issued before its stores
 // (probe_common.cuh), 1.15 us against scatter_'s 1.55 us in turns in one
-// profiler session (1.8 us when it loaded after its store).  A symbol step
-// costs 393-461 ns of staging one word in and out (p8) at 128 lanes and
-// 658-726 ns at 1,024 (the plane past L2); p11, reading 8 lanes with no
-// store, one load latency a step (171-287 ns).  The parent design of p7
-// and p9 (tools/designs/probe_mosaic_serial_step.cu: each row loaded after
-// the previous step's store, decide's shift-and-select step) paid the sum
-// of its row's load and its decisions: p7 1,137-1,172 ns a step at 128
-// lanes and 1,461-1,569 at 1,024, p9 765-851.  This design, in turns with
-// it: p7 673-695 and 729-791 (its loads hidden: ring depths 2, 4 and 8
-// alike), p9 570-674, and 351-437 unrolled.  What holds the step now is
-// issue, not its chain: one warp a block, alone on its SM, issues about one
-// instruction every two clocks (16-lane integer pipes), and p9's rolled
-// loop compiles to 23 instructions a decision with 3.5 on its carried
-// chain (the parent's 23 and 10), 16.3 unrolled.  That holds whichever
-// integer pipe an instruction goes to: p10 on a step split about evenly
-// between the ALU and FMA pipes (tools/designs/probe_p10_pipes_step.cuh,
-// 16.5 a decision) ran slower than on decide_perm, and on one of 14.4
-// with a 3.0 chain (tools/designs/probe_p10_split_step.cuh) faster, at
-// 128 lanes by less than the spread of its turns.  chip_smoke.py phase 8
-// times p10 in turns with both and the parent (decide unrolled); PERF.md
+// profiler session (1.8 us when it loaded after its store).  p11, reading
+// 8 lanes with no store, pays one load latency a step (171-287 ns).  The
+// parent design of p7, p8, p9 and p10 (tools/designs/
+// probe_mosaic_serial_step.cu: each row loaded after the previous step's
+// store, decide's shift-and-select step) paid the sum of its row's load
+// and its decisions: p7 1,137-1,172 ns a step at 128 lanes and 1,461-1,569
+// at 1,024, p8 393-461 and 658-726 (the plane past L2), p9 765-851.  This
+// design, in turns with it: p7 673-695 and 729-791 (its loads hidden: ring
+// depths 2, 4 and 8 alike), p9 570-674, and 351-437 unrolled; p8 at depth
+// 16, medians of 10 rounds, 230.7 and 271.2 against the parent's 448.0 and
+// 726.6 (depth 8 alike at 128 lanes and 11% slower at 1,024, depth 32
+// slower at both), 74 SASS instructions a step, 32 of them the
+// forwarding, at five to six clocks each (its rows stepped by additions,
+// 70 a step, ran 6-12% faster, inside the rounds' spread at 1,024
+// lanes).  What holds
+// the step now is issue, not its chain: one warp a block, alone on its SM,
+// issues about one instruction every two clocks (16-lane integer pipes),
+// and p9's rolled loop compiles to 23 instructions a decision with 3.5 on
+// its carried chain (the parent's 23 and 10), 16.3 unrolled.  That holds
+// whichever integer pipe an instruction goes to: p10 on a step split about
+// evenly between the ALU and FMA pipes (tools/designs/
+// probe_p10_pipes_step.cuh, 16.5 a decision) ran slower than on
+// decide_perm, and on one of 14.4 with a 3.0 chain (tools/designs/
+// probe_p10_split_step.cuh) faster, at 128 lanes by less than the spread
+// of its turns.  chip_smoke.py phase 8 times p7-p10 in turns with the
+// parent and with copies at other ring depths and on other steps; PERF.md
 // keeps the numbers.
 #include "probe_common.cuh"
 
@@ -106,17 +118,13 @@ symbol_steps(const int32_t* __restrict__ idx, int32_t* __restrict__ A,
   const int l = blockIdx.x * blockDim.x + threadIdx.x;
   if (l >= lanes) return;
   const size_t n = static_cast<size_t>(lanes);
-  const int32_t m = rows - 1;
-  // step s's x*(s+1) + s*40503, wrapped: step 0's is x
-  uint32_t v = static_cast<uint32_t>(idx[l]);
-  const uint32_t dv = v + 40503u;
+  StepRows rows_of(idx[l], rows - 1);
   int32_t row[kRowDepth];
   uint32_t lo[kRowDepth], hi[kRowDepth], flo[kRowDepth], fhi[kRowDepth];
   bool fw[kRowDepth];
 #pragma unroll
   for (int k = 0; k < kRowDepth; ++k) {
-    row[k] = fmod_floor(static_cast<int32_t>(v), m);
-    v += dv;
+    row[k] = rows_of.next();
     lo[k] = hi[k] = flo[k] = fhi[k] = 0u;
     fw[k] = false;
     if (k < T) {
@@ -132,8 +140,7 @@ symbol_steps(const int32_t* __restrict__ idx, int32_t* __restrict__ A,
       const int32_t r = row[k];
       uint32_t wlo = fw[k] ? flo[k] : lo[k];
       uint32_t whi = fw[k] ? fhi[k] : hi[k];
-      row[k] = fmod_floor(static_cast<int32_t>(v), m);   // step s + D
-      v += dv;
+      row[k] = rows_of.next();   // step s + D
       fw[k] = false;
       if (s0 + k + kRowDepth < T) {
         lo[k] = static_cast<uint32_t>(A[row[k] * n + l]);
@@ -154,21 +161,50 @@ symbol_steps(const int32_t* __restrict__ idx, int32_t* __restrict__ A,
   out[l] = static_cast<int32_t>(t & 0x7FFFu);
 }
 
+// Steps of p8's rows in flight ahead of the step that stages (D).
+constexpr int kStageDepth = 16;
+// A slot's forward where no later store reached it: a stored word is 16
+// bits, so no store gives this word.
+constexpr int32_t kNoForward = -1;
+
 // p8: T steps of staging alone: read the row, write (word + carry + 1) &
-// 0xFFFF back, carry = (carry + word) & 0x7FFF.
+// 0xFFFF back, carry = (carry + word) & 0x7FFF; the rows from Rows
+// (StepRows).  Slot k of the ring holds step s0 + k: its row, the word
+// loaded for it (w) and the word forwarded to it by a later store (fwd,
+// taken where not kNoForward).
+template <class Rows>
 __global__ void __launch_bounds__(kLaneBlock)
 stage_only(const int32_t* __restrict__ idx, int32_t* __restrict__ A,
            int32_t* __restrict__ out, int lanes, int rows, int T) {
   const int l = blockIdx.x * blockDim.x + threadIdx.x;
   if (l >= lanes) return;
-  const int32_t x = idx[l];
-  const size_t n = static_cast<size_t>(lanes);
+  int32_t* const col = A + l;
+  const uint32_t pitch = 4u * static_cast<uint32_t>(lanes);
+  Rows rows_of(idx[l], rows - 1);
+  int32_t row[kStageDepth], w[kStageDepth], fwd[kStageDepth];
+#pragma unroll
+  for (int k = 0; k < kStageDepth; ++k) {
+    row[k] = rows_of.next();
+    w[k] = k < T ? *word_at(col, row[k], pitch) : 0;
+    fwd[k] = kNoForward;
+  }
   int32_t carry = 0;
-  for (int s = 0; s < T; ++s) {
-    const size_t at = step_row(x, s, rows - 1) * n + l;
-    const int32_t w = A[at];
-    A[at] = wadd(wadd(w, carry), 1) & 0xFFFF;
-    carry = wadd(carry, w) & 0x7FFF;
+  for (int s0 = 0; s0 < T; s0 += kStageDepth) {
+#pragma unroll
+    for (int k = 0; k < kStageDepth; ++k) {
+      if (s0 + k >= T) break;
+      const int32_t r = row[k];
+      const int32_t word = fwd[k] != kNoForward ? fwd[k] : w[k];
+      row[k] = rows_of.next();   // step s + D
+      fwd[k] = kNoForward;
+      if (s0 + k + kStageDepth < T) w[k] = *word_at(col, row[k], pitch);
+      const int32_t stored = wadd(wadd(word, carry), 1) & 0xFFFF;
+      *word_at(col, r, pitch) = stored;
+      carry = wadd(carry, word) & 0x7FFF;
+#pragma unroll
+      for (int j = 0; j < kStageDepth; ++j)
+        fwd[j] = row[j] == r ? stored : fwd[j];
+    }
   }
   out[l] = carry;
 }
@@ -277,8 +313,9 @@ extern "C" int llct_probe_p7(const void* idx, void* A, void* B, void* out,
 
 extern "C" int llct_probe_p8(const void* idx, void* A, void* out, int lanes,
                              int rows, int T, void* stream) {
-  stage_only<<<lane_blocks(lanes), kLaneBlock, 0, as_stream(stream)>>>(
-      in(idx), io(A), io(out), lanes, rows, T);
+  stage_only<StepRows>
+      <<<lane_blocks(lanes), kLaneBlock, 0, as_stream(stream)>>>(
+          in(idx), io(A), io(out), lanes, rows, T);
   return done();
 }
 

@@ -15,9 +15,10 @@ import pytest
 import torch
 
 from chip_smoke import (CODERS, EDGE_RESIDUALS, PH_CLUSTERS, PROBE_TAGS,
-                        REDUCE_TAGS, WALK_LANES, build_variant, coder_cases,
-                        coder_depth, off_record_cases, p9_hazard_idx,
-                        pack_quads, reduce_cases, repeat_lanes, running,
+                        REDUCE_TAGS, STAGE_DEPTHS, WALK_LANES, build_variant,
+                        coder_cases, coder_depth, off_record_cases,
+                        p7_hazard_cases, p9_hazard_idx, pack_quads,
+                        pF_hazard_cases, reduce_cases, repeat_lanes, running,
                         skewed_recs, walk_case_errs, walk_steps)
 from llcomp_tpu_torch import api, coder, decode, encode, probes, seed
 from llcomp_tpu_torch.core.config import REV2
@@ -464,20 +465,31 @@ def test_staging_probes_equal_plain_on_random_planes(dev, key):
     assert torch.equal(a["model"], ref["model"])
 
 
-def _p7_equals_plain(dev, idx: np.ndarray, rows: int, T: int) -> None:
-    """p7 on ``idx`` [1, lanes] and two planes of ``rows`` rows of random
-    words against ``p7_symbol_step_cost_plain``: output and planes exact,
-    one launch counted."""
+# the source of each stepped probe's kernel, and the ring depth constant
+# of p7, p8 and pF
+STEPPED = {"p7": ("probe_mosaic", "kRowDepth"),
+           "p8": ("probe_mosaic", "kStageDepth"),
+           "pF": ("probe_mosaic2", "kPairDepth")}
+
+
+def _stepped_equals_plain(dev, key: str, idx: np.ndarray, rows: int, T: int,
+                          copy: str = "shipped") -> None:
+    """Stepped probe ``key`` (p7, p8 or pF; shipped, or its copy ``copy``)
+    on ``idx`` [1, lanes] and its planes of ``rows`` rows of random words
+    against its plain version: output and planes exact, one launch
+    counted."""
+    p = PROBES[key]
     rng = np.random.default_rng(rows + T + idx.shape[1])
-    model = torch.from_numpy(rng.integers(-2**31, 2**31, (2, rows,
-                                                          idx.shape[1]),
+    shape = ((2,) if key == "p7" else ()) + (rows, idx.shape[1])
+    model = torch.from_numpy(rng.integers(-2**31, 2**31, shape,
                                           dtype=np.int32))
     ref = model.clone()
     model = model.to(dev)
-    before = mosaic.p7_symbol_step_cost.launches
-    out = mosaic.p7_symbol_step_cost(torch.from_numpy(idx).to(dev), T, model)
-    assert mosaic.p7_symbol_step_cost.launches == before + 1
-    want = mosaic.p7_symbol_step_cost_plain(torch.from_numpy(idx), T, ref)
+    before = p.fn.launches
+    with _under(STEPPED[key][0], copy):
+        out = p.fn(idx=torch.from_numpy(idx).to(dev), T=T, model=model)
+    assert p.fn.launches == before + 1
+    want = p.plain(idx=torch.from_numpy(idx), T=T, model=ref)
     assert torch.equal(out.cpu(), want)
     assert torch.equal(model.cpu(), ref)
 
@@ -492,7 +504,7 @@ def test_p7_equals_plain_where_rows_repeat(dev, rows):
                                                 dtype=np.int32)
     if rows == 15872:
         idx[0, ::3], idx[0, 1::3] = 7110, 7110 + 15871
-    _p7_equals_plain(dev, idx, rows, 64)
+    _stepped_equals_plain(dev, "p7", idx, rows, 64)
 
 
 @pytest.mark.parametrize("lanes", [1, 31, 33, 128, 1024])
@@ -506,7 +518,45 @@ def test_p7_equals_plain_around_the_ring_depth(dev, steps, lanes):
          else int(steps))
     idx = np.random.default_rng(lanes).integers(0, 2**31, (1, lanes),
                                                 dtype=np.int32)
-    _p7_equals_plain(dev, idx, 17, T)
+    _stepped_equals_plain(dev, "p7", idx, 17, T)
+
+
+HAZARDS = {"p8": {name: case for name, *case
+                  in p7_hazard_cases(STAGE_DEPTHS)},
+           "pF": {name: case for name, *case in pF_hazard_cases()}}
+
+
+@pytest.mark.parametrize("copy, key, case", [
+    (copy, key, case) for key, cases in HAZARDS.items()
+    for copy in ("shipped", *PROBE_TAGS[key]) for case in cases])
+def test_staging_rings_equal_plain_where_rows_repeat(dev, key, case, copy):
+    """p8 and pF, shipped and each copy (the serial step they replaced,
+    other ring depths, p8's rows stepped by additions, pF on the split
+    step), on their hazard cases: p8 on p7's (the 7110 lanes, planes of 2,
+    3 and 17 rows, T around each of its ring depths), pF on
+    ``chip_smoke.pF_hazard_cases`` (the 7107 lanes on pair 14,214 at
+    every step, planes of 4, 6 and 36 rows, T around each depth), planes
+    of random words: output and planes exact, one launch counted."""
+    idx, rows, T = HAZARDS[key][case]
+    _stepped_equals_plain(dev, key, idx, rows, T, copy)
+
+
+@pytest.mark.parametrize("lanes", [33, 128])
+@pytest.mark.parametrize("steps", ["0", "1", "D-1", "D", "D+1", "T"])
+@pytest.mark.parametrize("key", ["p8", "pF"])
+def test_staging_rings_equal_plain_around_the_ring_depth(dev, key, steps,
+                                                         lanes):
+    """p8 and pF at T around their ring's depth D (``kStageDepth``,
+    ``kPairDepth``: the ring part full, full, and one past it) and at the
+    probe's own T, on a plane where rows repeat (17 rows for p8, 36 for
+    pF), at 33 and 128 lanes."""
+    src, const = STEPPED[key]
+    D = build.constant(src, const)
+    T = (D + {"D-1": -1, "D": 0, "D+1": 1}[steps] if steps[0] == "D"
+         else PROBES[key].T if steps == "T" else int(steps))
+    idx = np.random.default_rng(lanes + T).integers(0, 2**31, (1, lanes),
+                                                    dtype=np.int32)
+    _stepped_equals_plain(dev, key, idx, 17 if key == "p8" else 36, T)
 
 
 @pytest.mark.parametrize("lanes", [1, 33, 1024])

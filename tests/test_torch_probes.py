@@ -24,9 +24,12 @@ import torch
 from jax.experimental import pallas as pl
 from jax.experimental.pallas import tpu as pltpu
 
-from chip_smoke import (p7_hazard_cases, p9_hazard_idx, reduce_cases,
-                        sass_chain)
+from chip_smoke import (PAIR_DEPTHS, PAIR_SHIPPED, PROBE_TAGS, ROW_SHIPPED,
+                        STAGE_DEPTHS, STAGE_SHIPPED, VARIANTS,
+                        p7_hazard_cases, p9_hazard_idx, pF_hazard_cases,
+                        reduce_cases, sass_chain)
 from llcomp_tpu_torch import probes
+from llcomp_tpu_torch.kernels import build
 from llcomp_tpu_torch.probes import mosaic, mosaic2, mosaic3, reduce
 
 TOOLS = pathlib.Path(__file__).resolve().parents[1] / "tools"
@@ -232,6 +235,70 @@ def test_p7_plain_equals_tpu_probe_where_rows_repeat(case, rows,
     assert (want != want[:, :1]).any(), "the same output in every lane"
 
 
+def _rows_clipped(rows: int):
+    """``jnp`` for a TPU probe on a plane of ``rows`` rows: the probes zero
+    the plane's rows 0:8 with ``jnp.zeros((8, lanes))``, which on a plane
+    of fewer rows becomes a zeroing of the whole plane (interpret mode's
+    memory starts at zero either way)."""
+    def zeros(shape, *a, **kw):
+        if shape[0] == 8:
+            shape = (min(8, rows), *shape[1:])
+        return jnp.zeros(shape, *a, **kw)
+    return types.SimpleNamespace(**{**vars(jnp), "zeros": zeros})
+
+
+PF_CASES = {name: (idx, rows) for name, idx, rows, _ in pF_hazard_cases()
+            if not name.startswith("T ")}
+
+
+@pytest.mark.parametrize("case", list(PF_CASES))
+def test_pF_plain_equals_tpu_probe_where_rows_repeat(case, monkeypatch):
+    """pF where the CUDA kernel's pair ring meets a pair it holds pending
+    (``chip_smoke.pF_hazard_cases``, their idx over the whole non-negative
+    int32 range): the full 15,872-row plane with the lanes whose every
+    step lands on pair 14,214, and planes of 4, 6 and 36 rows, where pairs
+    repeat within any ring depth; 10 steps.  On 4 rows (m = 1) every lane
+    steps pair 0 from the zeroed plane, so every lane gives the same
+    output, and it is not the start's."""
+    idx, rows = PF_CASES[case]
+    mod = _tpu_probes("probe_mosaic2", "zero")
+    monkeypatch.setattr(mod, "ROWS", rows)
+    monkeypatch.setattr(mod, "jnp", _rows_clipped(rows))
+    want = np.asarray(jax.jit(mod.pF_symbol_step(T=10)[0])(jnp.asarray(idx)))
+    got = mosaic2.pF_symbol_step(
+        torch.from_numpy(idx), 10,
+        torch.zeros((rows, LANES), dtype=torch.int32))
+    np.testing.assert_array_equal(got.numpy(), want)
+    if rows == 4:
+        assert (want == want[0, 0]).all() and want[0, 0] != 0
+    else:
+        assert (want != want[:, :1]).any(), "the same output in every lane"
+
+
+@pytest.mark.parametrize("case, rows", [("7110 lanes", 15872),
+                                        ("8 rows", 8), ("13 rows", 13),
+                                        ("17 rows", 17)])
+def test_p8_plain_equals_tpu_probe_where_rows_repeat(case, rows,
+                                                     monkeypatch):
+    """p8 where the CUDA kernel's row ring meets a row it holds pending:
+    the full 15,872-row plane with the lanes whose every step lands on row
+    7110, and planes of 8-17 rows, where rows repeat within any ring
+    depth; 10 steps, idx over the whole non-negative int32 range."""
+    mod = _tpu_probes("probe_mosaic", "zero")
+    monkeypatch.setattr(mod, "ROWS", rows)
+    idx = np.random.default_rng(rows).integers(0, 2**31, (8, LANES),
+                                               dtype=np.int32)
+    if rows == 15872:
+        idx[0, ::3], idx[0, 1::3] = 7110, 7110 + 15871
+    want = np.asarray(jax.jit(mod.p8_stage_only_cost(T=10)[0])(
+        jnp.asarray(idx)))
+    got = mosaic.p8_stage_only_cost(
+        torch.from_numpy(idx), 10,
+        torch.zeros((rows, LANES), dtype=torch.int32))
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert (want != want[:, :1]).any(), "the same output in every lane"
+
+
 def test_p7_hazard_cases_hold_every_hazard():
     """``chip_smoke.p7_hazard_cases``, which the card's checks run: on the
     full plane the 7110 lanes stay on row 7110 for all their steps, the
@@ -248,6 +315,111 @@ def test_p7_hazard_cases_hold_every_hazard():
         assert got_rows == rows and T > 8
     assert {name for name in cases if name.startswith("T ")} >= {
         f"T {d + e}" for d in (2, 4, 8) for e in (-1, 0, 1)} | {"T 0"}
+
+
+def test_p8_hazard_cases_reach_every_stage_depth():
+    """p8 takes p7's cases at its own ring depths: T around each of
+    ``STAGE_DEPTHS`` (16 and 32 past p7's), the row cases p7's own."""
+    cases = {name: (idx, rows, T)
+             for name, idx, rows, T in p7_hazard_cases(STAGE_DEPTHS)}
+    assert {name for name in cases if name.startswith("T ")} >= {
+        f"T {d + e}" for d in STAGE_DEPTHS for e in (-1, 0, 1)} | {"T 0"}
+    for name, idx, rows, T in p7_hazard_cases():
+        got = cases[name]
+        assert got[1:] == (rows, T) and np.array_equal(got[0], idx)
+
+
+def test_pF_hazard_cases_hold_every_hazard():
+    """``chip_smoke.pF_hazard_cases``, which the card's checks run: on the
+    full plane the 7107 lanes stay on pair 14,214 for all their steps, the
+    planes of 4 and 6 rows repeat a pair within 2 steps in every lane (36
+    rows, m = 17, now and then), T runs around every ring depth, and idx
+    reaches past 2^30, so that x*(s+1) wraps."""
+    cases = {name: (idx, rows, T) for name, idx, rows, T in pF_hazard_cases()}
+    idx, rows, T = cases["7107 lanes"]
+    x = torch.from_numpy(idx[0, :2]).long()
+    assert rows == probes.ROWS and T > 8
+    for s in range(T):
+        assert (2 * probes.step_row(x, s, rows // 2 - 1)).tolist() == [
+            14214, 14214]
+    for rows in (4, 6, 36):
+        idx, got_rows, T = cases[f"{rows} rows"]
+        assert got_rows == rows and T > 8
+        x = torch.from_numpy(idx[0]).long()
+        h = torch.stack([probes.step_row(x, s, rows // 2 - 1)
+                         for s in range(T)])
+        again = torch.stack([(h[s:s + 2] == h[s + 2]).any(0)
+                             for s in range(T - 2)])
+        assert again.all() if rows < 36 else again.any()
+    assert {name for name in cases if name.startswith("T ")} >= {
+        f"T {d + e}" for d in PAIR_DEPTHS for e in (-1, 0, 1)} | {"T 0"}
+    assert max(int(idx.max()) for idx, _, _ in cases.values()) > 2**30
+
+
+@pytest.mark.parametrize("key", [k for k in VARIANTS
+                                 if k[0] in ("probe_mosaic", "probe_mosaic2")])
+def test_probe_copies_apply_to_the_shipped_sources(key):
+    """Every copy of the probe sources that the card builds
+    (``chip_smoke.VARIANTS``): each edit's text found exactly once in the
+    shipped source, or a whole source in ``tools/designs/`` that includes
+    the serial decision; the shipped ring depths are ``chip_smoke``'s."""
+    edits = VARIANTS[key]
+    if isinstance(edits, pathlib.Path):
+        assert "#include \"probe_serial_decide.cuh\"" in edits.read_text()
+        return
+    src = (build.CSRC / f"{key[0]}.cu").read_text()
+    for old, new in edits if isinstance(edits, list) else [edits]:
+        assert src.count(old) == 1 and old != new
+    assert (build.constant("probe_mosaic", "kRowDepth"),
+            build.constant("probe_mosaic", "kStageDepth"),
+            build.constant("probe_mosaic2", "kPairDepth")) == (
+        ROW_SHIPPED, STAGE_SHIPPED, PAIR_SHIPPED)
+    assert {tag for src, tag in VARIANTS if src == key[0]} >= {
+        tag for k, tags in PROBE_TAGS.items() for tag in tags
+        if k in (mosaic.PROBES if key[0] == "probe_mosaic"
+                 else mosaic2.PROBES)}
+
+
+def _rows_added(x: np.ndarray, m: int, T: int) -> np.ndarray:
+    """p8's rows as ``tools/designs/probe_p8_row_step.cuh`` steps them
+    (``StepRowsAdd``), in 32-bit arithmetic: [T, lanes]."""
+    u, m32 = np.uint64, np.uint64(M32)
+    s32 = x.astype(np.int64)
+    v = s32.astype(np.uint64) & m32
+    dv = (v + u(40503)) & m32
+    dv_s = np.where(dv >= 2**31, dv.astype(np.int64) - 2**32, dv)
+    r = (s32 % m).astype(np.uint64)
+    dm = (dv_s % m).astype(np.uint64)
+    c = u((2**32 - m) % m)
+    neg = dv_s < 0
+    fix = np.where(neg, c, (u(m) - c) % u(m))
+    out = []
+    for _ in range(T):
+        out.append(r.copy())
+        t = r + dm
+        t = np.minimum(t, (t - u(m)) & m32)
+        v2 = (v + dv) & m32
+        wrapped = (v2.astype(np.int64) - (v2 >= 2**31) * 2**32
+                   < v.astype(np.int64) - (v >= 2**31) * 2**32) != neg
+        v = v2
+        t = (t + np.where(wrapped, fix, u(0))) & m32
+        r = np.minimum(t, (t - u(m)) & m32)
+    return np.stack(out).astype(np.int64)
+
+
+@pytest.mark.parametrize("m", [1, 2, 16, 7935, 15871, 2**31 - 1])
+def test_p8_row_step_equals_step_row(m):
+    """The rows of p8's copy "p8 row step" (stepped by additions, the
+    32-bit wraps of the step value handled) equal ``step_row``'s floor
+    modulo at every step, for idx over the whole int32 range (negative,
+    near both ends, where x + 40503 wraps) and divisors up to 2^31 - 1."""
+    rng = np.random.default_rng(m)
+    x = rng.integers(-2**31, 2**31, 4096, dtype=np.int64)
+    x[:6] = [-2**31, 2**31 - 1, -40503, 2**31 - 40503, 0, -1]
+    got = _rows_added(x, m, 40)
+    want = torch.stack([probes.step_row(torch.from_numpy(x), s, m)
+                        for s in range(40)]).numpy()
+    np.testing.assert_array_equal(got, want)
 
 
 @pytest.mark.parametrize("body, chain, ops", [

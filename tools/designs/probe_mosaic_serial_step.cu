@@ -1,9 +1,10 @@
-// The design that probes p7 and p9 (llcomp_tpu_torch/csrc/probe_mosaic.cu)
-// replaced, kept whole as a copy that chip_smoke.py (VARIANTS) builds and
-// times beside the shipped kernels on the same inputs: p7 loads its row
-// after the previous step's store, and p9's decision is the shift-and-
-// select step `decide` of probe_common.cuh (which p10 and pF still use).
-// Its note follows as it stood.
+// The design that probes p7, p8, p9 and p10 (llcomp_tpu_torch/csrc/
+// probe_mosaic.cu) replaced, kept whole as a copy that chip_smoke.py
+// (VARIANTS, copy "serial step") builds and times beside the shipped
+// kernels on the same inputs: p7 and p8 load their row after the previous
+// step's store, and p9's and p10's decision is the shift-and-select step
+// `decide` (probe_serial_decide.cuh in this directory; probe_common.cuh
+// held it then).  Its note follows as it stood.
 //
 // Probes p0-p11 of llcomp_tpu_torch.probes.mosaic: per-lane access to a
 // model plane, and the cost split of one symbol step, on the H100.
@@ -52,6 +53,7 @@
 // load latency is not hidden behind the decisions.  Reading 8 lanes (p11),
 // with no store, still costs one load latency a step (171-287 ns).
 #include "probe_common.cuh"
+#include "probe_serial_decide.cuh"
 
 namespace {
 
