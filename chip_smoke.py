@@ -12,12 +12,13 @@ Phases (each prints one line; any failure exits non-zero without the final
 1. device: CUDA must be available; prints the card's name and power limit;
 2. build: compiles the ten kernel sources of ``llcomp_tpu_torch/csrc`` (the
    eight library kernels and the 21 probes), one nvcc each, in parallel,
-   beside the copies of kernels 1-8 and probes p7-p10, pF, pH and reduce
-   that phases 5-8 time (``VARIANTS``); prints the registers a thread of
+   beside the copies of kernels 1-8 and probes p7-p11, pF, pG, pH and
+   reduce that phases 5-8 time (``VARIANTS``); prints the registers a
+   thread of
    kernels 1-8, the probes of ``probe_mosaic.cu`` and
    ``probe_mosaic2.cu``, pH and reduce and of the copies (every coder
    kernel of a copy of ``coder_scan.cu``, every instantiation of kernel 5
-   and pH, p7-p10, pF and reduce) from the
+   and pH, p7-p11, pF, pG and reduce) from the
    compiler's ``-Xptxas -v`` report (a spill fails);
 3. kernel vs plain: each CUDA kernel against its plain PyTorch version on
    small lane batches (photo, flat, noise, grayscale, RGBA, C = 2 and 5,
@@ -89,7 +90,11 @@ Phases (each prints one line; any failure exits non-zero without the final
    each in turns with an empty kernel (the launch floor under their
    bounds, its share of the probe's time) and the library call in one
    profiler session, the reduce probe also with copies of it (a maximum
-   on every slice, the design it replaced; one warp for the tile);
+   on every slice, the design it replaced; one warp for the tile), pG
+   with its (one block of a word a thread, the design it replaced; 8
+   warps of an int4 a thread) and p11, at T 512 and 128 and 1,024 lanes,
+   with its (the serial design it replaced; a register ring a lane; 8
+   warps a block);
    each kernel held exactly against its plain version (outputs and model
    planes of random words, on inputs where the plain output differs across
    lanes or a plane changes); pH beside copies of it (one block, the
@@ -105,9 +110,16 @@ Phases (each prints one line; any failure exits non-zero without the final
    1,024 lanes, timed in turns, with the SASS instructions of one
    decision, those to the ALU and the FMA pipe and its carried chain
    (``cuobjdump -sass``), those of one step of p8 and pF and their
-   carried chain, the SM clock and the chain floors; the reduce probe and its copies exact on
+   carried chain, those of a step of p11's loops and each copy's (its
+   loads counted), the SM clock and the chain floors (p8's from the step
+   of p11's serial copy); the reduce probe and its copies exact on
    ``reduce_cases`` (flushes at gaps of 4, of 5 and more, none; rows past
-   a multiple of 32; 1, 33 and 128 lanes); the one PyTorch call that
+   a multiple of 32; 1, 33 and 128 lanes), p11 and its copies on
+   ``p11_cases`` (nstage at and below 0 and past the lanes, T around a
+   warp's 32 steps, planes of 2, 3 and 300 rows; 100, 128 and 1,024
+   lanes) and pG and its copies on ``pG_cases`` (maxima of 100 and 101,
+   in the head, int4 and tail words, wrapping at both ends of int32; 1 to
+   8,192 words, x off a 16-byte boundary); the one PyTorch call that
    computes the same function, where there is one, timed and equal.
 
 Phases 5-8 compute each kernel's bound (``bound``): the least time the
@@ -132,6 +144,7 @@ import statistics
 import subprocess
 import sys
 import time
+import zlib
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
@@ -145,25 +158,27 @@ KERNEL_SOURCES = ("encode_fused", "decode_kernel", "walk_symbols",
 PTXAS_SOURCES = ("encode_fused", "decode_kernel", "walk_symbols",
                  "walk_probs", "coder_scan", "build_stream", "probe_mosaic",
                  "probe_mosaic2", "probe_mosaic3", "probe_reduce")
-# Copies of kernels 1-8 and probes p7-p10, pF, pH and reduce that phases
-# 5-8 time beside the shipped ones, each built from the shipped source with one
-# edit (old, new): other lanes a block (kernels 1 and 7's constants,
+# Copies of kernels 1-8 and probes p7-p11, pF, pG, pH and reduce that
+# phases 5-8 time beside the shipped ones, each built from the shipped source
+# with one edit (old, new): other lanes a block (kernels 1 and 7's constants,
 # kernel 2's rule), other look-ahead depths of kernels 1, 3, 6 and 7,
 # other chunk counts of the walks (kernels 3 and 6), other hand-over
 # batches and stages of kernels 4 and 8, other tiles of kernel 5 and its
 # scalar stores, other cluster sizes of pH, other row ring depths of p7,
-# p8 and pF, p8 and pF with a warp's lanes spread over more blocks, p9
-# unrolled, p10 and pF on a step of fewer instructions, p10 on one split
+# p8 and pF, p8 and pF with a warp's lanes spread over more blocks, p11
+# and pG at 8 warps a block, p9 unrolled, p10 and pF on a step of fewer instructions, p10 on one split
 # between the ALU and the FMA pipes, p8 with its rows stepped by
-# additions (the measurements behind those choices; each includes its
-# step from ``tools/designs/``), and kernel 1
+# additions, p11 as a serial loop a lane (the design it replaced) and as a
+# register ring a lane (the measurements behind those choices; each
+# includes its step or kernel from ``tools/designs/``), and kernel 1
 # with each symbol's decisions replaced by one byte out (the split of a
 # symbol's time); or a whole source of
 # ``tools/designs/`` (a path): kernel 5 as one thread a slot, pH as one
 # block, p7-p10 and pF as a serial step (the row loaded after the
-# previous step's store, the shift-and-select decision) and the reduce
-# probe with a maximum on every slice, the designs they replaced, and the
-# reduce probe as one warp, the design not taken.
+# previous step's store, the shift-and-select decision), pG as one block
+# of a word a thread and the reduce probe with a maximum on every slice,
+# the designs they replaced, and the reduce probe as one warp, the design
+# not taken.
 _BLOCK, _DEPTH = "constexpr int kBlock = 1;", "constexpr int kDepth = 2;"
 _RULE = "  return e;\n"       # the end of kernel 2's lanes_a_block
 _CODER_BLOCK = "constexpr int kBlock = 32;"
@@ -203,6 +218,11 @@ STEP_BLOCK = 8
 _P9_LAUNCH = "  decisions_perm<false>\n      <<<"
 _P10_LAUNCH = "  decisions_perm<true>\n      <<<"
 _P8_LAUNCH = "  stage_only<StepRows>\n      <<<"
+# p11's launch in the shipped entry point, which its copies replace by
+# their own over every lane
+_P11_LAUNCH = ("  if (blocks > 0)\n    stage_few<kFewWarps><<<blocks, block, 0, "
+               "as_stream(stream)>>>(\n        in(idx), in(A), io(out), "
+               "lanes, staged, T, warp_blocks, row);\n")
 _WARP_GRID = "lane_blocks(lanes), kLaneBlock,"
 # the walks' shipped chunk counts and ring depths, and those of their
 # copies (kernel 3 spills at depth 32)
@@ -218,9 +238,10 @@ COPIED_KERNEL = {"encode_fused": ("encode_fused_kernel",),
                  "walk_symbols": ("walk_symbols_kernel",),
                  "walk_probs": ("walk_probs_kernel",),
                  "build_stream": ("build_stream_kernel",),
-                 "probe_mosaic": ("symbol_steps", "stage_only", "decisions"),
+                 "probe_mosaic": ("symbol_steps", "stage_only", "decisions",
+                                  "stage_few"),
                  "probe_mosaic2": ("pair_steps",),
-                 "probe_mosaic3": ("stage_steps",),
+                 "probe_mosaic3": ("stage_steps", "scalar_gate"),
                  "probe_reduce": ("fill_flush",)}
 
 
@@ -239,6 +260,16 @@ def _p10_step(design: str, kernel: str, args: str = "") -> list:
            "extern \"C\" int llct_probe_p11")
     return [_include(design), (_P10_LAUNCH, f"  {kernel}\n      <<<"),
             *([(end, end.replace("T)", f"T{args})"))] if args else [])]
+
+
+def _p11_copy(design: str, kernel: str) -> list:
+    """p11's copy on the kernel ``kernel`` of ``tools/designs/<design>``:
+    that file included into probe_mosaic.cu's namespace, its kernel
+    launched for p11 over every lane, one thread a lane."""
+    return [_include(design), (_P11_LAUNCH, (
+        f"  {kernel}<<<lane_blocks(lanes), kLaneBlock, 0, "
+        "as_stream(stream)>>>(\n      in(idx), in(A), io(out), lanes, rows, "
+        "T, nstage);\n"))]
 
 
 def _walk_variants() -> dict:
@@ -326,6 +357,15 @@ VARIANTS = {
         _include("probe_p10_split_step.cuh"),
         ("decide24_perm<true>(wlo, whi, ctx, t);",
          "decide24_split(wlo, whi, ctx, t);")],
+    ("probe_mosaic", "p11 serial"): _p11_copy("probe_p11_serial.cuh",
+                                              "stage_few_serial"),
+    ("probe_mosaic", "p11 ring"): _p11_copy("probe_p11_ring.cuh",
+                                            "stage_few_ring"),
+    ("probe_mosaic", "p11 8 warps"): ("constexpr int kFewWarps = 1;",
+                                      "constexpr int kFewWarps = 8;"),
+    ("probe_mosaic3", "pG block"): DESIGNS / "probe_pG_block.cu",
+    ("probe_mosaic3", "pG 8 warps"): ("constexpr int kGateWarps = 1;",
+                                      "constexpr int kGateWarps = 8;"),
     ("probe_reduce", "every slice"): DESIGNS / "probe_reduce_every_slice.cu",
     ("probe_reduce", "one warp"): DESIGNS / "probe_reduce_one_warp.cu",
 }
@@ -343,6 +383,15 @@ PROBE_TAGS = {"p7": ("serial step", *(f"depth {d}" for d in ROW_DEPTHS
                                       if d != PAIR_SHIPPED), "pF split",
                      f"pF {STEP_BLOCK} lanes")}
 REDUCE_TAGS = ("every slice", "one warp")
+# p11's copies (the serial design it replaced; a register ring a lane, and
+# a block of 8 warps, 8 staged lanes on one SM, the designs not taken) and
+# pG's (one block of one word a thread, the design it replaced; 8 warps of
+# one int4 a thread, the design not taken), each timed in turns with the
+# shipped kernel and the empty launch in one profiler session; and pH's
+# (one block, each cluster size)
+P11_TAGS = ("p11 serial", "p11 ring", "p11 8 warps")
+PG_TAGS = ("pG block", "pG 8 warps")
+PH_TAGS = ("one block", *(f"cluster {c}" for c in PH_CLUSTERS))
 # the copies of coder_scan.cu that each coder is timed beside
 CODER_TAGS = {
     "coder_scan_off": ("1 lanes", "4 lanes",
@@ -397,6 +446,11 @@ PROBE_ROWS = {
     "pH": (("pHw", "pHn"), "tools/probe_mosaic3.py:127"),
     "reduce": (("reduce",), "tools/probe_reduce.py:55"),
 }
+# The designs that p11's and pG's kernels replaced, kept as copies that
+# phase 8 times in the same profiler session: their rows of the kernels
+# line carry each one's source and device ms (replaced)
+REPLACED = {"p11": ("p11 serial", "tools/designs/probe_p11_serial.cuh"),
+            "pG": ("pG block", "tools/designs/probe_pG_block.cu")}
 PROBE_LANES = (128, 1024)   # the TPU probes' lanes and the bench batch's
 PH_STEPS = (32, 256, 512)
 PROBE_ROUNDS = 10           # rounds of the stepped probes' copies in turns
@@ -1984,13 +2038,14 @@ def _probe_bound(key: str, a: dict, floor_ms: float | None) -> dict:
     """bound() of probe ``key`` on its arguments ``a``, from their shapes:
     the words each argument gives the probe read once, its output written
     once, and a stepped probe's T x lanes x the model words a step stages
-    (a lane rarely meets a row again in 15,872).  A one-shot probe's bound
-    is at least ``floor_ms``, the device time of an empty launch (bound_by
-    "launch" where that wins); work_ms and work_by keep the bound of its
-    bytes and operations alone."""
+    (a lane rarely meets a row again in 15,872).  A one-shot probe's bound,
+    and p11's (timed as they are), is at least ``floor_ms``, the device
+    time of an empty launch (bound_by "launch" where that wins); work_ms
+    and work_by keep the bound of its bytes and operations alone."""
     b = _probe_work_bound(key, a)
     b.update(work_ms=b["bound_ms"], work_by=b["bound_by"])
-    if not a.get("T") and floor_ms is not None and floor_ms > b["bound_ms"]:
+    alone = not a.get("T") or key == "p11"   # timed beside the empty launch
+    if alone and floor_ms is not None and floor_ms > b["bound_ms"]:
         b.update(bound_ms=floor_ms, bound_by="launch")
     return b
 
@@ -2046,29 +2101,36 @@ def one_shot_turns(torch, variants: dict) -> dict:
     a probe, so that a probe's share of the launch floor and its library
     call's time come from the clocks its own time met (from one session to
     the next a one-shot kernel's time moves by a third): {key: {"empty",
-    key, "library": device ms}}; the reduce probe also beside its copies
-    ``REDUCE_TAGS`` of ``variants`` in the same session ({tag: device
-    ms}).  Made before any other profiler session of the process: after
-    the profiled encodes of phases 6 and 7, short sessions lost the empty
-    launch's and ``scatter_``'s kernels in every attempt."""
+    key, "library": device ms}}; the reduce probe and pG also beside their
+    copies ``REDUCE_TAGS`` and ``PG_TAGS`` of ``variants`` in the same
+    session ({tag: device ms}).  p11, at its T, is timed so too, beside
+    its copies ``P11_TAGS``, in a session for each of ``PROBE_LANES``
+    ({"p11 <lanes>": {"empty", "p11", tag: device ms}}).  Made before any
+    other profiler session of the process: after the profiled encodes of
+    phases 6 and 7, short sessions lost the empty launch's and
+    ``scatter_``'s kernels in every attempt."""
     from llcomp_tpu_torch import probes
     from llcomp_tpu_torch.probes import mosaic, mosaic2, mosaic3, reduce
 
     dev = torch.device("cuda")
     empty, out = _empty_launch(torch), {}
+    copies = {"reduce": REDUCE_TAGS, "pG": PG_TAGS, "p11": P11_TAGS}
     for m in (mosaic, mosaic2, mosaic3, reduce):
         for key, p in m.PROBES.items():
-            if p.T:
+            if p.T and key != "p11":
                 continue
-            a = p.make(0, 128, probes.ROWS, dev)
-            calls = {"empty": empty, key: functools.partial(p.fn, **a)}
-            if (call := _library_call(torch, key, a)) is not None:
-                calls["library"] = call
-            if key == "reduce":
+            for lanes in PROBE_LANES if p.T else (128,):
+                a = p.make(0, lanes, probes.ROWS, dev)
+                if p.T:
+                    a["T"] = p.T
+                calls = {"empty": empty, key: functools.partial(p.fn, **a)}
+                if (call := _library_call(torch, key, a)) is not None:
+                    calls["library"] = call
                 calls.update({tag: _call_under(
                     m.SRC, variants[m.SRC, tag], calls[key])
-                    for tag in REDUCE_TAGS})
-            out[key] = _in_turns(torch, calls, probes.LAUNCHES)
+                    for tag in copies.get(key, ())})
+                out[f"{key} {lanes}" if p.T else key] = _in_turns(
+                    torch, calls, probes.LAUNCHES)
     return out
 
 
@@ -2085,8 +2147,7 @@ def ph_copies(torch, variants: dict) -> dict:
     from llcomp_tpu_torch.probes import mosaic3
 
     dev = torch.device("cuda")
-    tags = {tag: so for (src, tag), so in variants.items()
-            if src == "probe_mosaic3"}
+    tags = {tag: variants["probe_mosaic3", tag] for tag in PH_TAGS}
     out = {}
     for key in ("pHw", "pHn"):
         p = mosaic3.PROBES[key]
@@ -2203,6 +2264,146 @@ def p9_hazard_idx(lanes: int = 128) -> np.ndarray:
     edges = [0xFF, 0, 0x1FF, 0x100, 0xFFFF, 2**31 - 1, 0x80, 0xFE]
     out[0, :len(edges)] = edges[:lanes]
     return out
+
+
+P11_LANES = (100, 128, 1024)   # a ragged warp, the probe's and the bench's
+
+
+def p11_cases() -> list:
+    """p11's edges: [(name, lanes, rows, T, nstage)], each at every lane
+    count of ``P11_LANES``: nstage -1 and 0 (no lane staged), 1, 8, 9
+    and 33 (ragged blocks of a warp a lane) and past the lanes, at T 33;
+    T 0, 1, 31, 32 and 33 (threads of a warp with no step, one, and a
+    second pass) and 512, at nstage 33; planes of 2 and 3 rows (m = 1, 2)
+    at T 512.  The plane has 300 rows where not said (``p11_inputs``
+    makes idx and the plane)."""
+    cases = []
+    for lanes in P11_LANES:
+        cases += [(f"nstage {n}, {lanes} lanes", lanes, 300, 33, n)
+                  for n in (-1, 0, 1, 8, 9, 33, lanes + 1)]
+        cases += [(f"T {T}, {lanes} lanes", lanes, 300, T, 33)
+                  for T in (0, 1, 31, 32, 33, 512)]
+        cases += [(f"{rows} rows, {lanes} lanes", lanes, rows, 512, 33)
+                  for rows in (2, 3)]
+    return cases
+
+
+def p11_inputs(name: str, lanes: int, rows: int) -> tuple:
+    """The inputs of p11 case ``name``: idx [1, lanes] and a plane [rows,
+    lanes] of random words over the whole int32 range (idx negative too,
+    the sums wrapping), from a seed of the name."""
+    rng = np.random.default_rng(zlib.crc32(name.encode()))
+    return (rng.integers(-2**31, 2**31, (1, lanes), dtype=np.int32),
+            rng.integers(-2**31, 2**31, (rows, lanes), dtype=np.int32))
+
+
+# pG's sizes: words and the shape of x
+PG_WORDS = {1: (1, 1), 3: (1, 3), 1024: (8, 128), 1027: (1, 1027),
+            8192: (64, 128)}
+
+
+def pG_cases() -> list:
+    """pG's edges: [(name, x int32 of a ``PG_WORDS`` shape, offset)], x
+    to start ``offset`` words past a 16-byte boundary on the card (0: the
+    int4 path from word 0; 1 and 3: a head of 3 and 1 words).  At every
+    size and offset, words below 100 but for: one word of exactly 100 (x
+    - 1) or 101 (x + 1); the maximum only in the last word (in the tail
+    where n mod 4 != 0 and the head leaves one) or only in the first (in
+    the head where the offset leaves one); INT32_MAX first and last (+1
+    wraps to INT32_MIN); INT32_MIN first and last with the maximum below
+    100 (-1 wraps to INT32_MAX)."""
+    rng = np.random.default_rng(101)
+    lo, hi = -2**31, 2**31 - 1
+    cases = []
+    for n, shape in PG_WORDS.items():
+        for off in (0, 1, 3):
+            for pattern in ("max 100", "max 101", "max last", "max first",
+                            "INT32_MAX + 1", "INT32_MIN - 1"):
+                x = rng.integers(-1000, 100, n, dtype=np.int64)
+                at = int(rng.integers(0, n))
+                if pattern in ("max 100", "max 101"):
+                    x[at] = int(pattern[4:])
+                elif pattern == "max last":
+                    x[-1] = 5000
+                elif pattern == "max first":
+                    x[0] = 5000
+                else:
+                    x[0] = x[-1] = hi if pattern[6:9] == "MAX" else lo
+                cases.append((f"{pattern}, n {n}, offset {off}",
+                              x.astype(np.int32).reshape(shape), off))
+    return cases
+
+
+def at_offset(torch, x: np.ndarray, offset: int):
+    """``x`` on the card as a contiguous view that starts ``offset`` words
+    past a 16-byte boundary."""
+    buf = torch.empty(x.size + offset, dtype=torch.int32, device="cuda")
+    check(buf.data_ptr() % 16 == 0, "a fresh allocation off 16 bytes")
+    view = buf[offset:].view(x.shape)
+    view.copy_(torch.from_numpy(x))
+    return view
+
+
+def few_copies(torch, variants: dict) -> int:
+    """p11 and its copies ``P11_TAGS`` against ``p11_stage_few_plain``,
+    exactly (output and plane), on every ``p11_cases`` input and at the
+    probe's shape (15,872 rows of random words, T 512, nstage 8) at
+    ``PROBE_LANES``: the number of cases."""
+    from llcomp_tpu_torch import probes
+    from llcomp_tpu_torch.probes import mosaic
+
+    dev = torch.device("cuda")
+    cases = []
+    for name, lanes, rows, T, nstage in p11_cases():
+        idx, plane = p11_inputs(name, lanes, rows)
+        cases.append((name, torch.from_numpy(idx).to(dev),
+                      torch.from_numpy(plane).to(dev), T, nstage))
+    p = mosaic.PROBES["p11"]
+    for lanes in PROBE_LANES:
+        a = p.make(0, lanes, probes.ROWS, dev)
+        cases.append((f"the probe's shape, {lanes} lanes", a["idx"],
+                      probes.words(lanes, a["model"].shape, dev), p.T, 8))
+    for name, idx, plane, T, nstage in cases:
+        want = mosaic.p11_stage_few_plain(idx, T, nstage, plane.clone())
+        for tag in ("shipped", *P11_TAGS):
+            model = plane.clone()
+            with (contextlib.nullcontext() if tag == "shipped" else
+                  running(mosaic.SRC, variants[mosaic.SRC, tag])):
+                out = mosaic.p11_stage_few(idx, T, nstage, model)
+            check(torch.equal(out, want) and torch.equal(model, plane),
+                  f"p11 {tag}, {name}: kernel != plain")
+    return len(cases)
+
+
+def gate_copies(torch, variants: dict) -> int:
+    """pG and its copies ``PG_TAGS`` against ``pG_scalar_gate_plain``,
+    exactly, on every ``pG_cases`` input, x at its offset (the wrapper
+    gives out the same one: the int4 path after the head); the shipped
+    entry point refuses an out at a 16-byte boundary where x is not: the
+    number of cases."""
+    from llcomp_tpu_torch import probes
+    from llcomp_tpu_torch.probes import mosaic3
+
+    cases = pG_cases()
+    for name, x, off in cases:
+        xd = at_offset(torch, x, off)
+        want = mosaic3.pG_scalar_gate_plain(xd)
+        for tag in ("shipped", *PG_TAGS):
+            with (contextlib.nullcontext() if tag == "shipped" else
+                  running(mosaic3.SRC, variants[mosaic3.SRC, tag])):
+                out = mosaic3.pG_scalar_gate(xd)
+            check(torch.equal(out, want), f"pG {tag}, {name}: kernel != "
+                  "plain")
+        if off:     # out on a 16-byte boundary where x is not
+            try:
+                probes.launch(mosaic3.SRC, "llct_probe_pG", xd,
+                              torch.empty_like(xd), x.size)
+                refused = False
+            except RuntimeError:
+                refused = True
+            check(refused, f"pG, {name}: launched with x and out apart "
+                  "mod 16")
+    return len(cases)
 
 
 def step_copies(torch, variants: dict) -> dict:
@@ -2349,32 +2550,40 @@ def decision_sass(variants: dict) -> dict:
     return out
 
 
-# p8's and pF's step loops: the source, the kernel and the words a step
-# stores (p8 one, pF two).  A loop pass takes as many steps as it has
-# stores over that: the ring's kStageDepth or kPairDepth, a serial loop
-# one or as many as the compiler unrolled.
-STEP_LOOPS = {"p8": ("probe_mosaic", "stage_only", 1),
-              "pF": ("probe_mosaic2", "pair_steps", 2)}
+# p8's, pF's and p11's step loops: the source, the copies, the kernel of
+# each (by tag; "shipped" the shipped build's), and the opcode that a step
+# issues a fixed number of times with that number: p8 one store, pF two,
+# p11 one load (it stores nothing).  A loop pass takes as many steps as it
+# has of those over that: the ring's depth, a serial loop one or as many
+# as the compiler unrolled, p11's warp design a thread's batch.
+STEP_LOOPS = {
+    "p8": ("probe_mosaic", PROBE_TAGS["p8"], "stage_only", "STG", 1),
+    "pF": ("probe_mosaic2", PROBE_TAGS["pF"], "pair_steps", "STG", 2),
+    "p11": ("probe_mosaic", P11_TAGS, {
+        "shipped": "stage_few<1>", "p11 serial": "stage_few_serial",
+        "p11 ring": "stage_few_ring", "p11 8 warps": "stage_few<8>"},
+        "LDG", 1)}
 
 
 def step_sass(variants: dict) -> dict:
-    """p8's and pF's step loops in the shipped build and each copy of
-    ``PROBE_TAGS``, from the SASS (``sass_functions``, as
-    ``decision_sass`` reads them): {(probe, tag): (instructions a step,
-    dependent instructions a step on the loop's carried chain
-    (``sass_chain``), steps a loop pass)}."""
+    """The step loops of ``STEP_LOOPS`` in the shipped build and each
+    copy, from the SASS (``sass_functions``, as ``decision_sass`` reads
+    them): {(probe, tag): (instructions a step, dependent instructions a
+    step on the loop's carried chain (``sass_chain``), steps a loop
+    pass)}."""
     from llcomp_tpu_torch.kernels import build
 
     out = {}
-    for key, (src, name, stores) in STEP_LOOPS.items():
-        for tag in ("shipped", *PROBE_TAGS[key]):
+    for key, (src, tags, names, opcode, per) in STEP_LOOPS.items():
+        for tag in ("shipped", *tags):
             so = (build.build(src) if tag == "shipped"
                   else variants[src, tag])
+            name = names if isinstance(names, str) else names[tag]
             ins, labels = sass_functions(sass(so))[name]
             a, b = max(inner_loops(ins, labels), key=lambda ab: ab[1] - ab[0])
             body = [t for x, t in ins if a <= x <= b]
-            steps = sum(sass_opcode(t) == "STG" for t in body) / stores
-            check(steps > 0, f"{key} {tag}: no store in {name}'s loop")
+            steps = sum(sass_opcode(t) == opcode for t in body) / per
+            check(steps > 0, f"{key} {tag}: no {opcode} in {name}'s loop")
             chain, _ = sass_chain(body)
             out[key, tag] = (len(body) / steps, chain / steps, steps)
     return out
@@ -2392,11 +2601,14 @@ def phase_probes(torch, log, card: str, turns: dict,
     on inputs where the plain output differs across lanes or a plane
     changes; pH beside its copies ``variants`` (``ph_copies``); p7-p10 and
     pF beside theirs (``step_copies``), the decision loops' and the step
-    loops' SASS (``decision_sass``, ``step_sass``) and chain floors; the reduce probe and its copies
+    loops' SASS (``decision_sass``, ``step_sass``; p11's too) and chain
+    floors; p11 and pG and their copies exact on ``p11_cases`` and
+    ``pG_cases`` (``few_copies``, ``gate_copies``); the reduce probe and its copies
     exact on ``reduce_cases`` (``reduce_copies``); the one-shot probes'
     device time, each beside the launch floor and its library call in
     turns in a profiler session of its own (``turns``:
-    ``one_shot_turns``; the reduce probe's copies in its session), and
+    ``one_shot_turns``; the reduce probe's and pG's copies in their
+    sessions, p11 with its copies at each of ``PROBE_LANES``), and
     the floor's share of it; the one PyTorch
     call that computes the same function where there is one; and
     bounds."""
@@ -2495,8 +2707,9 @@ def phase_probes(torch, log, card: str, turns: dict,
                     for (key, tag), (name, n, c, ops, alu, fma)
                     in dsass.items()))
     ssass = step_sass(variants)
-    log("phase 8 SASS of p8's and pF's step loops (cuobjdump -sass), a "
-        "step (steps a loop pass: the loop's stores over a step's): "
+    log("phase 8 SASS of p8's, pF's and p11's step loops (cuobjdump -sass "
+        f"of the sm_90a builds run on {card}), a step (steps a loop pass: the "
+        "loop's stores over a step's, p11's loads over a step's): "
         + "; ".join(f"{key} {tag}: {n:.2f} instructions, {c:.2f} dependent "
                     f"on the carried chain ({steps:g} steps a pass)"
                     for (key, tag), (n, c, steps) in ssass.items()))
@@ -2504,7 +2717,8 @@ def phase_probes(torch, log, card: str, turns: dict,
     # chain's dependent instructions at ALU_LATENCY_CLOCKS each; p7's,
     # p9's measured step, and pF's, p10's (the least of the rounds at 128
     # lanes); p8's, the larger of its carried chain and one load latency
-    # (p11's step at 128 lanes) over its ring depth
+    # (the step of p11's serial copy at 128 lanes: a load a step, each
+    # waiting for the one before) over its ring depth
     T = mosaic.PROBES["p9"].T
     chain_ms = {key: 24 * T * dsass[key, "shipped"][2] * ALU_LATENCY_CLOCKS
                 / (clock * 1e3) for key in ("p9", "p10")}
@@ -2513,7 +2727,10 @@ def phase_probes(torch, log, card: str, turns: dict,
     chain_ms["pF"] = min(pp["ns"]["p10", 128]["shipped"]) * T_pF / 1e6
     depth = build.constant("probe_mosaic", "kStageDepth")
     p8_chain_ns = ssass["p8", "shipped"][1] * ALU_LATENCY_CLOCKS / clock * 1e3
-    p8_load_ns = runs["p11", 128, allp["p11"].T]["ns_step"] / depth
+    with running(mosaic.SRC, variants[mosaic.SRC, "p11 serial"]):
+        serial_ns = probes.run_probe(allp["p11"], dev, check=False)["ns_step"]
+    p8_load_ns = serial_ns / depth
+    serial_dev = (turns["p11 128"]["p11 serial"] or float("nan")) * 1e6 / T
     chain_ms["p8"] = T * max(p8_chain_ns, p8_load_ns) / 1e6
     log(f"phase 8 chain floors: " + "; ".join(
         f"{key} 24 x T {T} x {dsass[key, 'shipped'][2]:.2f} dependent "
@@ -2523,9 +2740,23 @@ def phase_probes(torch, log, card: str, turns: dict,
         + f"; pF p10's step at 128 lanes x T {T_pF} = "
         f"{chain_ms['pF']:.5f} ms; p8 T {T} x the larger of its chain "
         f"({ssass['p8', 'shipped'][1]:.2f} dependent instructions x "
-        f"{ALU_LATENCY_CLOCKS} clocks = {p8_chain_ns:.1f} ns) and p11's "
-        f"step at 128 lanes over its ring depth {depth} "
-        f"({p8_load_ns:.1f} ns) = {chain_ms['p8']:.5f} ms")
+        f"{ALU_LATENCY_CLOCKS} clocks = {p8_chain_ns:.1f} ns) and the step "
+        f"of p11's serial copy at 128 lanes ({serial_ns:.1f} ns, CUDA "
+        f"events, median of 3; in its turns {serial_dev:.1f} ns of device "
+        f"time) over its ring depth {depth} ({p8_load_ns:.1f} ns) = "
+        f"{chain_ms['p8']:.5f} ms, on {card}")
+    n_few, n_gate = few_copies(torch, variants), gate_copies(torch, variants)
+    log(f"phase 8 p11 and its copies ({P11_TAGS}) exact against "
+        f"p11_stage_few_plain, output and plane, on {n_few} cases "
+        f"(p11_cases: nstage -1, 0, 1, 8, 9, 33 and past the lanes; T 0, "
+        f"1, 31, 32, 33 and 512; planes of 2, 3 and 300 rows of random "
+        f"words, idx over int32; at {P11_LANES} lanes; and the probe's "
+        f"shape at {PROBE_LANES} lanes); pG and its copies ({PG_TAGS}) "
+        f"exact against pG_scalar_gate_plain on {n_gate} cases (pG_cases: "
+        f"n {tuple(PG_WORDS)}, x 0, 1 and 3 words past a 16-byte boundary; "
+        f"maximum 100 and 101, in the last word, in the first, INT32_MAX "
+        f"+ 1 and INT32_MIN - 1); the entry point refuses out on a 16-byte "
+        f"boundary where x is not")
     n_reduce = reduce_copies(torch, variants)
     log(f"phase 8 reduce and its copies ({REDUCE_TAGS}) exact against "
         f"run_plain on {n_reduce} cases (reduce_cases: rows and lanes "
@@ -2533,6 +2764,7 @@ def phase_probes(torch, log, card: str, turns: dict,
         f"sparse, over int32, 0-3)")
 
     floors = {k: t["empty"] for k, t in turns.items()}
+    floors["p11"] = floors["p11 128"]
     # the bounds' floor is the least empty launch
     floor_ms = min((f for f in floors.values() if f is not None),
                    default=None)
@@ -2542,8 +2774,8 @@ def phase_probes(torch, log, card: str, turns: dict,
         if p.T:
             a["T"] = p.T
         call = _library_call(torch, key, a)
-        if not p.T:      # the kernels' own time, without the host's
-            device[key] = turns[key][key]
+        if not p.T or key == "p11":  # the kernel's own time, not the host's
+            device[key] = turns[f"{key} 128" if p.T else key][key]
         if call is not None:
             check(torch.equal(call(), p.fn(**p.make(0, 128, probes.ROWS,
                                                       dev))),
@@ -2572,6 +2804,22 @@ def phase_probes(torch, log, card: str, turns: dict,
         f"(torch.profiler, {probes.LAUNCHES} turns, one session), device us "
         f"a call: " + ", ".join(f"{tag} {us(turns['reduce'].get(tag))}"
                                 for tag in ("empty", "reduce", *REDUCE_TAGS)))
+    log(f"phase 8 pG in turns with its copies and the empty launch "
+        f"(torch.profiler, {probes.LAUNCHES} turns, one session), device us "
+        f"a call, at (8, 128) on {card}: " + ", ".join(
+            f"{tag} {us(turns['pG'].get(tag))}"
+            for tag in ("empty", "pG", *PG_TAGS)))
+    def floor_share(t: dict, key: str) -> str:
+        return (f"{t['empty'] / t[key]:.1%}" if t["empty"] and t.get(key)
+                else "not measured")
+
+    log(f"phase 8 p11 in turns with its copies and the empty launch "
+        f"(torch.profiler, {probes.LAUNCHES} turns, one session a lane "
+        f"count), device us a call, T {allp['p11'].T}, nstage 8, on {card}: "
+        + "; ".join(f"{lanes} lanes: " + ", ".join(
+            f"{tag} {us(t.get(tag))}" for tag in ("empty", "p11", *P11_TAGS))
+            + f", the floor's share of p11 {floor_share(t, 'p11')}"
+            for lanes, t in ((n, turns[f"p11 {n}"]) for n in PROBE_LANES)))
     log(f"phase 8 device us a call (torch.profiler, {probes.LAUNCHES} turns "
         f"in one session a probe): the launch floor (an empty kernel, one "
         f"warp) in each session and its share of the probe's time: "
@@ -2595,7 +2843,7 @@ def phase_probes(torch, log, card: str, turns: dict,
     for row, (keys, replaces) in PROBE_ROWS.items():
         k = keys[0]
         ev_ms = runs[k, 128, allp[k].T]["ms"]
-        on_device = not allp[k].T and device[k] is not None and (
+        on_device = device.get(k) is not None and (
             k not in library_ev or library[k] is not None)
         b = bounds[k]
         rows.append({
@@ -2609,7 +2857,7 @@ def phase_probes(torch, log, card: str, turns: dict,
             "ms_from": ("torch.profiler, device" if on_device else
                         "CUDA events" + ("" if allp[k].T else
                                          ", through the wrapper")),
-            **({} if allp[k].T else {
+            **({} if k not in device else {
                 "wrapper_ms": ev_ms, "launch_floor_ms": floor_ms,
                 "launch_bound_ms": b["bound_ms"],
                 "launch_bound_by": b["bound_by"],
@@ -2633,7 +2881,18 @@ def phase_probes(torch, log, card: str, turns: dict,
                 for (key, tag), (n, c, _) in ssass.items() if key == row}}
                if row in STEP_LOOPS else {}),
             **({"copies_ms": {tag: turns[k].get(tag) for tag in REDUCE_TAGS}}
-               if row == "reduce" else {})})
+               if row == "reduce" else {}),
+            **({"copies_ms": {tag: turns[k].get(tag) for tag in PG_TAGS}}
+               if row == "pG" else {}),
+            **({"replaced": {"design": REPLACED[row][1],
+                             "ms": turns[f"{k} 128" if allp[k].T else k].get(
+                                 REPLACED[row][0])}}
+               if row in REPLACED else {}),
+            **({"ns_step": {lanes: runs[k, lanes, allp[k].T]["ns_step"]
+                            for lanes in PROBE_LANES},
+                "turns_ms": {f"{lanes} lanes": turns[f"p11 {lanes}"]
+                             for lanes in PROBE_LANES}}
+               if row == "p11" else {})})
     return {"rows": rows, "runs": runs}
 
 
@@ -2670,7 +2929,7 @@ def main() -> int:
             list(pool.map(build.build, KERNEL_SOURCES))
         log(f"phase 2 build: {len(KERNEL_SOURCES)} kernel sources from "
             f"llcomp_tpu_torch/csrc and {len(VARIANTS)} copies of kernels "
-            f"1-8 and probes p7-p10, pF, pH and reduce, one nvcc each in "
+            f"1-8 and probes p7-p11, pF, pG, pH and reduce, one nvcc each in "
             f"parallel, in "
             f"{time.perf_counter() - t0:.2f} s")
         regs = {name: registers(build.compiler_log(name))

@@ -52,6 +52,11 @@ __device__ __forceinline__ int32_t* word_at(int32_t* col, int32_t r,
       static_cast<uint64_t>(static_cast<uint32_t>(r)) * pitch);
 }
 
+__device__ __forceinline__ const int32_t* word_at(const int32_t* col,
+                                                  int32_t r, uint32_t pitch) {
+  return word_at(const_cast<int32_t*>(col), r, pitch);
+}
+
 // A lane's step_row(x, s, m) for s = 0, 1, 2, ... in turn (p7, p8, pF):
 // the wrapped 32-bit step value x*(s+1) + s*40503 grows by x + 40503 a
 // step, and each row is its floor modulo.  A row depends on x and s alone,

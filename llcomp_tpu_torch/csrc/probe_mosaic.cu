@@ -26,10 +26,12 @@
 // staging loop over lanes, no SMEM bridge and no lane blends.
 //
 // What bounds them on the H100: latency, not bytes or operations.  p0-p6
-// move a few KB; one launch costs what a launch costs.  p7, p8, p11 and
-// the decision probes are serial chains a lane: one load of the lane's
-// model row a step (the row depends on the step), then p7's 24 dependent
-// decisions.  The plane is [rows, lanes] int32, 8.1 MB at 128 lanes
+// move a few KB; one launch costs what a launch costs.  p7, p8 and the
+// decision probes are serial chains a lane: one load of the lane's model
+// row a step (the row depends on the step), then p7's 24 dependent
+// decisions.  p11 only looks like one: it stores nothing and its rows
+// depend on idx and the step alone, so its carry is the wrapped sum of its
+// T words, masked once.  The plane is [rows, lanes] int32, 8.1 MB at 128 lanes
 // (inside the 50 MB L2) and 65 MB at 1,024 (outside it), and a warp's 32
 // lanes read 32 different rows, so each load is 32 sectors.
 //
@@ -60,8 +62,16 @@
 // p0-p6 each run 0.8-1.8 us on the device a launch, over an empty launch's
 // 0.85-0.88 us; p3's row store, its loads issued before its stores
 // (probe_common.cuh), 1.15 us against scatter_'s 1.55 us in turns in one
-// profiler session (1.8 us when it loaded after its store).  p11, reading
-// 8 lanes with no store, pays one load latency a step (171-287 ns).  The
+// profiler session (1.8 us when it loaded after its store).  p11 sums each
+// staged lane's words over a warp (one warp a block, so that each lane's
+// scattered loads go through an SM of its own), each thread 16 loads
+// issued before its adds, the rows' floor modulo a multiply-high and
+// shifts (FloorMod), one warp redux: at T 512, 2.03 us of device time at
+// 128 and 1,024 lanes in turns with an empty launch of 0.89 us, against
+// the serial loop a lane it replaced (tools/designs/probe_p11_serial.cuh;
+// 171-287 ns a step through one launch's CUDA events) 36.4 us, a register ring
+// a lane (tools/designs/probe_p11_ring.cuh, 40.6 SASS instructions a step)
+// 64.4 us, and 8 warps a block, 8 lanes on one SM, 3.53-3.57 us.  The
 // parent design of p7, p8, p9 and p10 (tools/designs/
 // probe_mosaic_serial_step.cu: each row loaded after the previous step's
 // store, decide's shift-and-select step) paid the sum of its row's load
@@ -226,21 +236,72 @@ decisions_perm(const int32_t* __restrict__ idx, int32_t* __restrict__ out,
   out[l] = static_cast<int32_t>(t & 0x7FFFu);
 }
 
-// p11: T steps in which only lanes below nstage read their row:
-// carry = (carry + word) & 0x7FFF, the plane left as it is.
-__global__ void __launch_bounds__(kLaneBlock)
-stage_few(const int32_t* __restrict__ idx, const int32_t* __restrict__ A,
-          int32_t* __restrict__ out, int lanes, int rows, int T, int nstage) {
-  const int l = blockIdx.x * blockDim.x + threadIdx.x;
-  if (l >= lanes) return;
-  const int32_t x = idx[l];
-  const size_t n = static_cast<size_t>(lanes);
-  int32_t carry = 0;
-  if (l < nstage) {
-    for (int s = 0; s < T; ++s)
-      carry = wadd(carry, A[step_row(x, s, rows - 1) * n + l]) & 0x7FFF;
+// p11's staged lanes a block (a warp each: one, so that each staged lane's
+// scattered loads go through an SM of its own; chip_smoke.py times a copy
+// at 8), and the loads a thread issues before it adds them (a thread's
+// steps at T 512).
+constexpr int kFewWarps = 1;
+constexpr int kFewBatch = 16;
+
+// The floor modulo v mod m of every int32 v, 1 <= m < 2^31, with no
+// division: u = v + 2^31 (mod 2^32) is divided by m with Granlund and
+// Montgomery's round-up multiply (exact for every 32-bit u; mul, sh1 and
+// sh2 from probes.floor_mod_magic on the host), and u mod m, less 2^31
+// mod m, is brought into [0, m): mc = m - (2^31 mod m), so u mod m + mc
+// lies in [1, 2m) and one unsigned minimum finishes it.
+struct FloorMod {
+  uint32_t mul, m, mc;
+  int sh1, sh2;
+  __device__ __forceinline__ int32_t of(uint32_t u) const {
+    const uint32_t hi = __umulhi(u, mul);
+    const uint32_t q = (hi + ((u - hi) >> sh1)) >> sh2;
+    const uint32_t r = u - q * m + mc;
+    return static_cast<int32_t>(min(r, r - m));
   }
-  out[l] = carry;
+};
+
+// p11: T steps in which only the first `staged` lanes read their row:
+// carry = (carry + word) & 0x7FFF, the plane left as it is.  No step stores
+// and a row depends on x and s alone, so the carry is (the wrapped sum of
+// the T words) & 0x7FFF (2^15 divides 2^32) and the steps need no order.
+// Staged lane l takes warp l of the first warp_blocks blocks of Warps
+// warps; its thread t takes steps t, t + 32, ..., kFewBatch loads issued
+// before their adds, and one warp redux sums them.  The blocks past those
+// write 0 into the other lanes, one word a thread.
+template <int Warps>
+__global__ void __launch_bounds__(Warps * kWarp)
+stage_few(const int32_t* __restrict__ idx, const int32_t* __restrict__ A,
+          int32_t* __restrict__ out, int lanes, int staged, int T,
+          int warp_blocks, FloorMod row) {
+  if (blockIdx.x >= warp_blocks) {
+    const int l = staged + (blockIdx.x - warp_blocks) * Warps * kWarp +
+                  threadIdx.x;
+    if (l < lanes) out[l] = 0;
+    return;
+  }
+  const int l = blockIdx.x * Warps + threadIdx.x / kWarp;
+  if (l >= staged) return;             // the whole warp
+  const int t = threadIdx.x % kWarp;
+  const int32_t* const col = A + l;
+  const uint32_t pitch = 4u * static_cast<uint32_t>(lanes);
+  // x*(s+1) + s*40503 = x + s*(x + 40503), offset by 2^31 (FloorMod's u)
+  const uint32_t x = static_cast<uint32_t>(idx[l]);
+  const uint32_t dv = x + 40503u;
+  const uint32_t du = kWarp * dv;
+  uint32_t u = x + static_cast<uint32_t>(t) * dv + 0x80000000u;
+  uint32_t sum = 0;
+  for (int s0 = t; s0 < T; s0 += kWarp * kFewBatch) {
+    int32_t w[kFewBatch];
+#pragma unroll
+    for (int j = 0; j < kFewBatch; ++j) {
+      w[j] = s0 + j * kWarp < T ? *word_at(col, row.of(u), pitch) : 0;
+      u += du;
+    }
+#pragma unroll
+    for (int j = 0; j < kFewBatch; ++j) sum += static_cast<uint32_t>(w[j]);
+  }
+  sum = __reduce_add_sync(0xFFFFFFFFu, sum);
+  if (t == 0) out[l] = static_cast<int32_t>(sum & 0x7FFFu);
 }
 
 cudaStream_t as_stream(void* stream) {
@@ -336,9 +397,19 @@ extern "C" int llct_probe_p10(const void* idx, void* out, int lanes, int T,
 }
 
 extern "C" int llct_probe_p11(const void* idx, const void* A, void* out,
-                              int lanes, int rows, int T, int nstage,
-                              void* stream) {
-  stage_few<<<lane_blocks(lanes), kLaneBlock, 0, as_stream(stream)>>>(
-      in(idx), in(A), io(out), lanes, rows, T, nstage);
+                              int lanes, int rows, int T, int nstage, int mul,
+                              int sh1, int sh2, int mc, void* stream) {
+  // lanes 0 .. nstage - 1 staged (none where nstage <= 0); mul, sh1, sh2
+  // and mc are probes.floor_mod_magic(rows - 1)
+  const int staged = nstage > 0 ? min(nstage, lanes) : 0;
+  constexpr int block = kFewWarps * kWarp;
+  const int warp_blocks = (staged + kFewWarps - 1) / kFewWarps;
+  const int blocks = warp_blocks + (lanes - staged + block - 1) / block;
+  const FloorMod row{static_cast<uint32_t>(mul),
+                     static_cast<uint32_t>(rows - 1),
+                     static_cast<uint32_t>(mc), sh1, sh2};
+  if (blocks > 0)
+    stage_few<kFewWarps><<<blocks, block, 0, as_stream(stream)>>>(
+        in(idx), in(A), io(out), lanes, staged, T, warp_blocks, row);
   return done();
 }

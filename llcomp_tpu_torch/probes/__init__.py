@@ -138,6 +138,21 @@ def step_row(x: torch.Tensor, s: int, m: int) -> torch.Tensor:
     return i32(x * (s + 1) + s * 40503).long() % m
 
 
+def floor_mod_magic(m: int) -> tuple[int, int, int, int]:
+    """The constants with which a kernel takes v mod m (floor) of every
+    int32 v with no division, 1 <= m < 2^31 (``FloorMod``,
+    ``csrc/probe_mosaic.cu``): for u = v + 2^31 (mod 2^32), Granlund and
+    Montgomery's round-up quotient of u by m, exact for every 32-bit u, is
+    q = (hi + ((u - hi) >> sh1)) >> sh2 with hi the high word of u * mul;
+    then (u - q*m + mc), mc = m - (2^31 mod m), lies in [1, 2m) and is
+    v mod m or that plus m.  -> (mul, sh1, sh2, mc), each below 2^32."""
+    if not 1 <= m < 2**31:
+        raise ValueError(f"floor_mod_magic takes 1 <= m < 2^31, got {m}")
+    l = (m - 1).bit_length()                  # ceil(log2 m)
+    mul = (2**32 * (2**l - m)) // m + 1
+    return mul, min(l, 1), max(l - 1, 0), m - 2**31 % m
+
+
 def window_plain(idx: torch.Tensor, src: torch.Tensor, win: int, m: int
                  ) -> torch.Tensor:
     """out[i, l] = src[r + i, l] for i < win, r = idx[0, l] mod m (m > 0)

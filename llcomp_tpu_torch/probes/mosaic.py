@@ -15,9 +15,10 @@ import sys
 
 import torch
 
-from . import (Probe, check_i32, check_steps, decide24_plain, i32, ints,
-               is_cuda, launch, plane, row_bytes, row_store, row_store_plain,
-               row_words, step_row, window, window_plain, zeros)
+from . import (Probe, check_i32, check_steps, decide24_plain,
+               floor_mod_magic, i32, ints, is_cuda, launch, plane, row_bytes,
+               row_store, row_store_plain, row_words, step_row, window,
+               window_plain, zeros)
 from . import main as _main
 
 SRC = "probe_mosaic"
@@ -220,7 +221,7 @@ def p10_decision_unrolled(idx, T=512):
 def p11_stage_few_plain(idx, T=512, nstage=8, model=None):
     model = plane(model, idx.shape[1], idx.device)
     x = idx[0].long()
-    k = min(nstage, idx.shape[1])
+    k = max(0, min(nstage, idx.shape[1]))
     carry = torch.zeros_like(x)
     for s in range(T):
         r = step_row(x[:k], s, model.shape[0] - 1)
@@ -231,15 +232,18 @@ def p11_stage_few_plain(idx, T=512, nstage=8, model=None):
 def p11_stage_few(idx, T=512, nstage=8, model=None):
     """T steps in which only lanes below ``nstage`` read their word at p7's
     row: carry = (carry + word) & 0x7FFF; the plane is only read.  out [1,
-    lanes] = carry (0 in the other lanes)."""
+    lanes] = carry (0 in the other lanes; in every lane where ``nstage`` <=
+    0).  On CUDA a warp a staged lane sums its T words, the row's floor
+    modulo by ``floor_mod_magic``'s constants."""
     idx = check_i32("idx", idx)
     model = plane(model, idx.shape[1], idx.device)
     check_steps("p11", T, model.shape[0], 2)
     if not is_cuda(idx, model):
         return p11_stage_few_plain(idx, T, nstage, model)
     out = _out(idx)
+    mul, sh1, sh2, mc = floor_mod_magic(model.shape[0] - 1)
     launch(SRC, "llct_probe_p11", idx, model, out, idx.shape[1],
-           model.shape[0], T, nstage)
+           model.shape[0], T, nstage, mul - (mul >> 31 << 32), sh1, sh2, mc)
     p11_stage_few.launches += 1
     return out
 

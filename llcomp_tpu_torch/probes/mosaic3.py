@@ -21,6 +21,7 @@ from . import main as _main
 
 SRC = "probe_mosaic3"
 MAX_LANES = 1024        # pH: the TPU probe's bound on lanes, one thread each
+GATE_WORDS = 32768      # pG: the words one block holds in registers
 DATA_ROWS = 1000        # pH's windows b..b+7, b = r mod 992, lie below this
 
 
@@ -28,15 +29,28 @@ def pG_scalar_gate_plain(x):
     return i32(x.long() + torch.where(x.max() > 100, 1, -1))
 
 
+def _aligned_like(x):
+    """An empty contiguous tensor of ``x``'s shape that starts at ``x``'s
+    address mod 16, so that the kernel's 16-byte loads of x and stores to
+    it line up (a contiguous view of x may start off a 16-byte
+    boundary)."""
+    buf = torch.empty(x.numel() + 3, dtype=x.dtype, device=x.device)
+    off = (x.data_ptr() - buf.data_ptr()) // 4 % 4
+    return buf[off:off + x.numel()].view(x.shape)
+
+
 def pG_scalar_gate(x):
     """out = x + 1 if max(x) > 100 else x - 1, the max over all of ``x``
-    (a block-wide reduction driving a branch)."""
+    (a block-wide reduction driving a branch), sums wrapping in 32 bits.
+    On CUDA one block holds x in registers (one warp up to 1,024 words),
+    so x holds at most ``GATE_WORDS`` words."""
     x = check_i32("x", x)
-    if not x.numel():
-        raise ValueError("pG: x is empty")
+    if not 0 < x.numel() <= GATE_WORDS:
+        raise ValueError(f"pG takes 1 to {GATE_WORDS} words, got "
+                         f"{x.numel()}")
     if not is_cuda(x):
         return pG_scalar_gate_plain(x)
-    out = torch.empty_like(x)
+    out = _aligned_like(x)
     launch(SRC, "llct_probe_pG", x, out, x.numel())
     pG_scalar_gate.launches += 1
     return out

@@ -14,12 +14,13 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import (CODERS, EDGE_RESIDUALS, PH_CLUSTERS, PROBE_TAGS,
-                        REDUCE_TAGS, STAGE_DEPTHS, WALK_LANES, build_variant,
-                        coder_cases, coder_depth, off_record_cases,
-                        p7_hazard_cases, p9_hazard_idx, pack_quads,
-                        pF_hazard_cases, reduce_cases, repeat_lanes, running,
-                        skewed_recs, walk_case_errs, walk_steps)
+from chip_smoke import (CODERS, EDGE_RESIDUALS, P11_TAGS, PG_TAGS, PG_WORDS,
+                        PH_CLUSTERS, PROBE_TAGS, REDUCE_TAGS, STAGE_DEPTHS,
+                        WALK_LANES, at_offset, build_variant, coder_cases,
+                        coder_depth, off_record_cases, p7_hazard_cases,
+                        p9_hazard_idx, p11_cases, p11_inputs, pack_quads,
+                        pF_hazard_cases, pG_cases, reduce_cases, repeat_lanes,
+                        running, skewed_recs, walk_case_errs, walk_steps)
 from llcomp_tpu_torch import api, coder, decode, encode, probes, seed
 from llcomp_tpu_torch.core.config import REV2
 from llcomp_tpu_torch.kernels import build
@@ -602,6 +603,72 @@ def test_reduce_equals_plain_on_every_case(dev, copy):
             out = reduce.run(x.to(dev))
         assert reduce.run.launches == before + 1, name
         assert torch.equal(out.cpu(), reduce.run_plain(x)), name
+
+
+P11_CASES = {name: case for name, *case in p11_cases()}
+
+
+@pytest.mark.parametrize("copy", ["shipped", *P11_TAGS])
+@pytest.mark.parametrize("case", list(P11_CASES))
+def test_p11_equals_plain_on_every_case(dev, case, copy):
+    """p11, shipped (a warp a staged lane) and each copy (the serial
+    design it replaced, the register ring a lane), on
+    ``chip_smoke.p11_cases`` (nstage -1, 0, 1, 8, 9, 33 and past the
+    lanes; T 0, 1, 31, 32, 33 and 512; planes of 2, 3 and 300 rows of
+    random words, idx over int32; 100, 128 and 1,024 lanes): output and
+    plane exact, one launch counted."""
+    lanes, rows, T, nstage = P11_CASES[case]
+    idx, plane = p11_inputs(case, lanes, rows)
+    model = torch.from_numpy(plane).to(dev)
+    before = mosaic.p11_stage_few.launches
+    with _under("probe_mosaic", copy):
+        out = mosaic.p11_stage_few(torch.from_numpy(idx).to(dev), T, nstage,
+                                   model)
+    assert mosaic.p11_stage_few.launches == before + 1
+    want = mosaic.p11_stage_few_plain(torch.from_numpy(idx), T, nstage,
+                                      torch.from_numpy(plane.copy()))
+    assert torch.equal(out.cpu(), want)
+    assert torch.equal(model.cpu(), torch.from_numpy(plane))
+
+
+PG_CASES = {name: (x, off) for name, x, off in pG_cases()}
+
+
+@pytest.mark.parametrize("copy", ["shipped", *PG_TAGS])
+@pytest.mark.parametrize("case", list(PG_CASES))
+def test_pG_equals_plain_on_every_case(dev, case, copy):
+    """pG, shipped (one warp of 16-byte loads up to 1,024 words) and each
+    copy (one block of one word a thread, the design it replaced; 8 warps
+    of one int4 a thread), on ``chip_smoke.pG_cases`` (maxima of exactly
+    100 and 101, in the last word, in the first, INT32_MAX + 1 and
+    INT32_MIN - 1; n of 1, 3, 1,024, 1,027 and 8,192 words; x 0, 1 and 3
+    words past a 16-byte boundary, out at the same offset): output exact,
+    one launch counted."""
+    x, off = PG_CASES[case]
+    xd = at_offset(torch, x, off)
+    assert xd.data_ptr() % 16 == 4 * off
+    before = mosaic3.pG_scalar_gate.launches
+    with _under("probe_mosaic3", copy):
+        out = mosaic3.pG_scalar_gate(xd)
+    assert mosaic3.pG_scalar_gate.launches == before + 1
+    assert out.data_ptr() % 16 == xd.data_ptr() % 16
+    assert torch.equal(out.cpu(),
+                       mosaic3.pG_scalar_gate_plain(torch.from_numpy(x)))
+
+
+@pytest.mark.parametrize("n", list(PG_WORDS))
+def test_pG_refuses_x_and_out_apart_mod_16(dev, n):
+    """pG's entry point with x one word past a 16-byte boundary and out on
+    one (no head brings both to a boundary) launches nothing and returns
+    an error, which ``launch`` raises; out is left as it was."""
+    x = np.random.default_rng(n).integers(-2**31, 2**31, PG_WORDS[n],
+                                          dtype=np.int32)
+    xd = at_offset(torch, x, 1)
+    out = torch.zeros(x.shape, dtype=torch.int32, device=dev)
+    assert out.data_ptr() % 16 == 0
+    with pytest.raises(RuntimeError, match="llct_probe_pG"):
+        probes.launch(mosaic3.SRC, "llct_probe_pG", xd, out, n)
+    assert not out.any()
 
 
 @pytest.mark.parametrize("lanes", [1, 33, 130])

@@ -24,10 +24,12 @@ import torch
 from jax.experimental import pallas as pl
 from jax.experimental.pallas import tpu as pltpu
 
-from chip_smoke import (PAIR_DEPTHS, PAIR_SHIPPED, PROBE_TAGS, ROW_SHIPPED,
-                        STAGE_DEPTHS, STAGE_SHIPPED, VARIANTS,
-                        p7_hazard_cases, p9_hazard_idx, pF_hazard_cases,
-                        reduce_cases, sass_chain)
+from chip_smoke import (P11_LANES, P11_TAGS, PAIR_DEPTHS, PAIR_SHIPPED,
+                        PG_TAGS, PG_WORDS, PROBE_ROWS, PROBE_TAGS, REPLACED,
+                        ROW_SHIPPED,
+                        STAGE_DEPTHS, STAGE_SHIPPED, VARIANTS, p7_hazard_cases,
+                        p9_hazard_idx, p11_cases, p11_inputs, pF_hazard_cases,
+                        pG_cases, reduce_cases, sass_chain)
 from llcomp_tpu_torch import probes
 from llcomp_tpu_torch.kernels import build
 from llcomp_tpu_torch.probes import mosaic, mosaic2, mosaic3, reduce
@@ -536,6 +538,8 @@ def test_bad_arguments_raise():
                          torch.zeros((1024, LANES), dtype=torch.int32), 1)
     with pytest.raises(ValueError, match="at least 32 rows"):
         reduce.run(torch.zeros((16, LANES), dtype=torch.int32))
+    with pytest.raises(ValueError, match="pG takes 1 to 32768 words"):
+        mosaic3.pG_scalar_gate(torch.zeros((257, LANES), dtype=torch.int32))
 
 
 def test_run_probe_on_the_cpu_times_nothing():
@@ -734,3 +738,239 @@ def test_reduce_cases_flush_at_every_gap():
     x = reduce.PROBES["reduce"].make(0, LANES, probes.ROWS, "cpu")["x"]
     _, flushes, maxima = _reduce_skip(x.numpy())
     assert (x.shape, flushes, maxima) == ((64, LANES), [3, 7], 2)
+
+
+@pytest.mark.parametrize("nstage", [-1, 0, 1, 9])
+def test_p11_stages_no_lane_at_or_below_zero(nstage, monkeypatch):
+    """p11 at nstage -1, 0, 1 and 9 against the JAX ``p11_stage_few`` in
+    interpret mode (its ``fori_loop(0, NSTAGE)`` stages no lane where
+    NSTAGE <= 0): exactly equal, zeros in every lane where nstage <= 0."""
+    mod = _tpu_probes("probe_mosaic", "nan")
+    monkeypatch.setattr(mod, "ROWS", ROWS)
+    idx = _ints(np.random.default_rng(11 + nstage), ROWS - 2, (8, LANES))
+    want = np.asarray(jax.jit(mod.p11_stage_few(T=T, NSTAGE=nstage)[0])(
+        jnp.asarray(idx)))
+    got = mosaic.p11_stage_few(torch.from_numpy(idx), T, nstage,
+                               **_planes("nan"))
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert not want[0, max(nstage, 0):].any()
+    assert (want != 0).any() == (nstage > 0)
+
+
+@pytest.mark.parametrize("steps", [0, 1, 33])
+def test_p11_plain_equals_tpu_probe_at_few_steps(steps, monkeypatch):
+    """p11 at T 0, 1 and 33 (a warp's threads with no step, one, and a
+    second pass in the CUDA kernel) against the JAX probe in interpret
+    mode, exactly."""
+    mod = _tpu_probes("probe_mosaic", "nan")
+    monkeypatch.setattr(mod, "ROWS", ROWS)
+    idx = _ints(np.random.default_rng(steps), ROWS - 2, (8, LANES))
+    want = np.asarray(jax.jit(mod.p11_stage_few(T=steps)[0])(
+        jnp.asarray(idx)))
+    got = mosaic.p11_stage_few(torch.from_numpy(idx), steps,
+                               **_planes("nan"))
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert (want[0, :8] != 0).any() == (steps > 0)
+
+
+def _gate_input(case: str) -> np.ndarray:
+    """pG's (8, 128) input at an edge: words below 100 and one of exactly
+    100 or 101, or INT32_MAX (+1 wraps) or INT32_MIN with the maximum
+    below 100 (-1 wraps)."""
+    rng = np.random.default_rng(zlib.crc32(case.encode()))
+    x = rng.integers(-1000, 100, (8, LANES), dtype=np.int64)
+    x[rng.integers(0, 8), rng.integers(0, LANES)] = {
+        "max 100": 100, "max 101": 101, "INT32_MAX + 1": INT32_MAX,
+        "INT32_MIN - 1": -2**31}[case]
+    return x.astype(np.int32)
+
+
+@pytest.mark.parametrize("case", ["max 100", "max 101", "INT32_MAX + 1",
+                                  "INT32_MIN - 1"])
+def test_pG_plain_equals_tpu_probe_at_the_edges(case):
+    """pG where its branch turns (a maximum of exactly 100 and 101) and
+    where x +- 1 wraps, against the JAX probe in interpret mode."""
+    mod = _tpu_probes("probe_mosaic3", "zero")
+    x = _gate_input(case)
+    want = np.asarray(jax.jit(mod.pG_scalar_gate()()[0])(jnp.asarray(x)))
+    got = mosaic3.pG_scalar_gate(torch.from_numpy(x))
+    np.testing.assert_array_equal(got.numpy(), want)
+    d = 1 if case in ("max 101", "INT32_MAX + 1") else -1
+    np.testing.assert_array_equal(
+        want, ((x.astype(np.int64) + d + 2**31) % 2**32 - 2**31))
+
+
+def _floor_mod(u: np.ndarray, m: int, magic: tuple) -> np.ndarray:
+    """``FloorMod::of`` of ``csrc/probe_mosaic.cu`` on uint64 arrays of
+    32-bit words u = v + 2^31, instruction for instruction, every sum
+    and product wrapping in 32 bits."""
+    mul, sh1, sh2, mc = (np.uint64(c) for c in magic)
+    m32, m = np.uint64(M32), np.uint64(m)
+    hi = (u * mul) >> np.uint64(32)
+    q = ((hi + (((u - hi) & m32) >> sh1)) & m32) >> sh2
+    r = (u - q * m + mc) & m32
+    return np.minimum(r, (r - m) & m32).astype(np.int64)
+
+
+@pytest.mark.parametrize("m", [1, 2, 3, 4, 5, 7, 8, 9, 299, 2**15 - 1,
+                               2**15 + 1, 2**16, probes.ROWS - 1, 2**30 - 1,
+                               2**30 + 1, 2**31 - 1])
+def test_floor_mod_magic_is_exact(m):
+    """p11's row without a division (``floor_mod_magic`` and the kernel's
+    ``FloorMod``) equals the floor modulo for v at both ends of int32,
+    around 0 and around every multiple of m near them, and on random
+    words: m of 1, 2, 3, powers of 2 and their neighbours, the probe's
+    rows - 1 and 2^31 - 1."""
+    ks = np.arange(-3, 4, dtype=np.int64)
+    near = np.concatenate([k * m + ks for k in (
+        0, 1, -1, (2**31 - 1) // m, -(2**31 // m), (2**31 - 1) // m - 1)])
+    v = np.concatenate([
+        near, [-2**31, -2**31 + 1, 2**31 - 2, 2**31 - 1, 0, -1, 1],
+        np.random.default_rng(m).integers(-2**31, 2**31, 200_000)])
+    v = v[(v >= -2**31) & (v < 2**31)]
+    u = ((v + 2**31) % 2**32).astype(np.uint64)
+    got = _floor_mod(u, m, probes.floor_mod_magic(m))
+    np.testing.assert_array_equal(got, v % m)
+    assert all(0 <= c < 2**32 for c in probes.floor_mod_magic(m))
+
+
+def _p11_warps(idx: np.ndarray, plane: np.ndarray, T: int,
+               nstage: int) -> np.ndarray:
+    """p11's kernel (``stage_few``) in 32-bit arithmetic: staged lane l's
+    warp, thread t stepping u = x + t*(x + 40503) + 2^31 by 32*(x +
+    40503) through batches of ``kFewBatch`` predicated loads, the warp's
+    wrapped sum masked; 0 in the other lanes.  -> out [1, lanes]."""
+    lanes, (batch, warp) = idx.shape[1], (16, 32)
+    magic = probes.floor_mod_magic(plane.shape[0] - 1)
+    staged = max(0, min(nstage, lanes))
+    x = idx[0, :staged].astype(np.int64) % 2**32
+    dv = (x + 40503) % 2**32
+    words = plane[:, :staged].astype(np.int64) % 2**32
+    total = np.zeros(staged, np.int64)
+    for t in range(warp):
+        u = ((x + t * dv + 2**31) % 2**32).astype(np.uint64)
+        for s0 in range(t, T, warp * batch):
+            for j in range(batch):
+                r = _floor_mod(u, plane.shape[0] - 1, magic)
+                if s0 + j * warp < T:
+                    total += words[r, np.arange(staged)]
+                u = (u + np.uint64(warp) * dv.astype(np.uint64)) \
+                    & np.uint64(M32)
+    out = np.zeros(lanes, np.int32)
+    out[:staged] = total % 2**32 & 0x7FFF
+    return out[None]
+
+
+P11_CASES = {name: case for name, *case in p11_cases()}
+
+
+@pytest.mark.parametrize("case", [name for name, lanes, *_ in p11_cases()
+                                  if lanes < 1024])
+def test_p11_warp_sum_equals_plain(case):
+    """p11's warp design modelled in 32-bit arithmetic (``_p11_warps``)
+    against ``p11_stage_few_plain`` on ``chip_smoke.p11_cases`` (the card's
+    checks; 1,024 lanes left to the card): the carry's sum split over a
+    warp's threads equals the serial carry, every row of the division-free
+    floor modulo equal to ``step_row``'s."""
+    lanes, rows, steps, nstage = P11_CASES[case]
+    idx, plane = p11_inputs(case, lanes, rows)
+    want = mosaic.p11_stage_few_plain(torch.from_numpy(idx), steps, nstage,
+                                      torch.from_numpy(plane.copy()))
+    np.testing.assert_array_equal(_p11_warps(idx, plane, steps, nstage),
+                                  want.numpy())
+    assert want.any() == (nstage > 0 and steps > 0)
+
+
+def test_p11_cases_reach_every_edge():
+    """``chip_smoke.p11_cases`` stage no lane (nstage -1 and 0), a ragged
+    block of warps (9, 33) and past the lanes; T 0, 1 and around a warp's
+    32 steps and 512; planes of 2, 3 and 300 rows; at 100, 128 and 1,024
+    lanes."""
+    cases = p11_cases()
+    got = {key: {c[i] for c in cases} for key, i in
+           (("lanes", 1), ("rows", 2), ("T", 3), ("nstage", 4))}
+    assert got["lanes"] == set(P11_LANES) == {100, 128, 1024}
+    assert got["rows"] == {2, 3, 300}
+    assert got["T"] >= {0, 1, 31, 32, 33, 512}
+    assert got["nstage"] >= {-1, 0, 1, 8, 9, 33}
+    assert all(any(n > lanes for _, lanes, _, _, n in cases
+                   if lanes == want) for want in P11_LANES)
+
+
+def _gate_parts(n: int, offset: int) -> tuple:
+    """pG's entry point where x and out both start ``offset`` words past a
+    16-byte boundary (the wrapper allocates out so): (head words, int4
+    words, tail words)."""
+    head = min((4 - offset) % 4, n)
+    nv = (n - head) // 4
+    return head, nv, n - head - 4 * nv
+
+
+def test_pG_cases_reach_every_edge():
+    """``chip_smoke.pG_cases``, which the card's checks run, put the
+    maximum in the head words, in the int4 words and in the tail words of
+    the kernel's split, at every size; their maxima are exactly 100 and
+    101, and INT32_MAX and INT32_MIN wrap."""
+    where, sizes = set(), set()
+    for name, x, off in pG_cases():
+        n = x.size
+        sizes.add(n)
+        flat = x.ravel().astype(np.int64)
+        head, nv, tail = _gate_parts(n, off)
+        if name.startswith("max last") or name.startswith("max first"):
+            at = int(flat.argmax())
+            where.add("head" if at < head else "tail" if at >= head + 4 * nv
+                      else "int4")
+        if name.startswith("max 10"):
+            assert flat.max() == int(name[4:7])
+        if name.startswith("INT32"):
+            assert flat[0] == flat[-1] == (
+                INT32_MAX if "MAX" in name else -2**31)
+            assert (flat.max() > 100) == ("MAX" in name)
+    assert where == {"head", "int4", "tail"}
+    assert sizes == set(PG_WORDS) == {1, 3, 1024, 1027, 8192}
+
+
+@pytest.mark.parametrize("tag", PG_TAGS)
+def test_pG_copies_apply_to_the_shipped_source(tag):
+    """pG's copies (``chip_smoke.VARIANTS``): the design it replaced whole
+    in ``tools/designs/`` (one word a thread, ``block_max``), and the copy
+    at 8 warps an edit found once in the shipped source."""
+    edits = VARIANTS["probe_mosaic3", tag]
+    if isinstance(edits, pathlib.Path):
+        text = edits.read_text()
+        assert "block_max(m, red)" in text and "llct_probe_pG" in text
+        return
+    old, new = edits
+    assert (build.CSRC / "probe_mosaic3.cu").read_text().count(old) == 1
+    assert old != new
+
+
+def test_p11_copies_launch_their_designs():
+    """p11's copies launch the kernels their ``tools/designs/`` headers
+    define, in place of the shipped launch, or the shipped kernel at 8
+    warps a block."""
+    for tag, kernel in (("p11 serial", "stage_few_serial"),
+                        ("p11 ring", "stage_few_ring")):
+        (_, include), (_, launch) = VARIANTS["probe_mosaic", tag]
+        design = include.split('"')[1]
+        assert f"\n{kernel}(" in (TOOLS / "designs" / design).read_text()
+        assert launch.startswith(f"  {kernel}<<<")
+    old, new = VARIANTS["probe_mosaic", "p11 8 warps"]
+    assert build.constant("probe_mosaic", "kFewWarps") == 1
+    assert new == old.replace("= 1;", "= 8;")
+    assert set(P11_TAGS) == {"p11 serial", "p11 ring", "p11 8 warps"}
+
+
+def test_replaced_designs_are_kept_as_copies():
+    """``chip_smoke.REPLACED``: the designs that p11 and pG replaced are
+    rows of the kernels line, copies that phase 8 times beside them, and
+    sources kept in ``tools/designs/``."""
+    assert set(REPLACED) == {"p11", "pG"} <= set(PROBE_ROWS)
+    for row, (tag, path) in REPLACED.items():
+        assert tag in (P11_TAGS if row == "p11" else PG_TAGS)
+        assert (TOOLS.parent / path).is_file()
+        edits = VARIANTS[("probe_mosaic" if row == "p11" else "probe_mosaic3"),
+                         tag]
+        assert path.endswith(edits.name if isinstance(edits, pathlib.Path)
+                             else edits[0][1].split('"')[1])
