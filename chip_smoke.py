@@ -20,8 +20,10 @@ Phases (each prints one line; any failure exits non-zero without the final
    kernel of a copy of ``coder_scan.cu``, every instantiation of kernel 5
    and pH, p7-p11, pF, pG and reduce) from the
    compiler's ``-Xptxas -v`` report (a spill fails);
-3. kernel vs plain: each CUDA kernel against its plain PyTorch version on
-   small lane batches (photo, flat, noise, grayscale, RGBA, C = 2 and 5,
+3. kernel vs plain: each CUDA kernel against its plain PyTorch version (run
+   on CPU copies of the kernel's inputs, where its loops of small ops cost
+   no launch; the kernel's outputs brought to the host) on small lane
+   batches (photo, flat, noise, grayscale, RGBA, C = 2 and 5,
    1-row, 1-column, odd stride, context hashes repeating every 1 to 5
    symbols, 1, 33 and 130 lanes; unprimed, primed, seeded; dead symbol
    tails; flipped streams, streams cut inside a 16-byte word, garbage past
@@ -41,6 +43,20 @@ Phases (each prints one line; any failure exits non-zero without the final
    512x512x3 and a 2048x2048x3 image; the ``.llct`` sha256 must equal the
    pinned golden (the bytes of ``llcomp_tpu``'s native backend) and the
    pixels must round-trip; both kernels' launch counters must move;
+9. (run right after phase 4) the single-host surface: ``reencode_slice``
+   heals a corrupted slice of phase 4's 512x512x3 container and of a tiled
+   256x8192x3 one (reported by ``decompress(strict=False)``) on the card
+   back to the pinned golden; the port's native C++ runtime builds, gives
+   phase 4's goldens through ``backend="native"`` and is timed against the
+   device engine at 1-128 stripes of 8x512x3 (the crossover behind
+   ``api.MIN_DEVICE_LANES``); the four revision-0 goldens; a corpus of 24
+   images (512x512x3, 256x256x4, grayscale, the tiled one) in batches of
+   ``CORPUS_BATCH`` lanes through ``encode_lanes_pipelined``, every blob
+   equal to ``backend="native"``'s, exact round trips, MP/s pipelined and
+   in turn and the device idle share; and the CLI as subprocesses
+   (selftest, .ppm and .pgm round trips, info, corpus --verify); kernel 1's
+   and 2's launch counts are set to 0 before each part and read after; the
+   phase fails past ``PHASE9_LIMIT_S`` seconds;
 5. bench-size batch: 16 images of 512x512x3 in 8-row stripes (1,024 lanes x
    12,288 symbols), seeded from the first 8 images; the sha256 of the
    concatenated streams must equal the golden and the round trip be exact;
@@ -463,6 +479,8 @@ IMAGE_SHA = {
         "11d12dd74abeca8656254fffad3362443c77183b6e770dbe1c021a9e91ddeea1",
     "batch":
         "4f66aff073d30148f2dc38a009b61b2064015695b7574fa524a7db90e78f0d3e",
+    "tiled8192":
+        "2ae29720c6604c7768613e917eb7acf1e4d60baca1bb998045d364d38d305d4c",
 }
 GOLDEN_SHA = {
     "photo512":
@@ -471,6 +489,8 @@ GOLDEN_SHA = {
         "db79cca10e503e158f928bc8f27b3a54bf44105551c040b51dc1050a79cf22a1",
     "batch":
         "b745711bf7f11a6c01455c6408cd89fa1abe76de655706fd0f4db8e105561e04",
+    "tiled8192":
+        "cee8f22798245fe970081eb830e54c51ddff98d1f757b7012423fb1ae1d0b099",
 }
 BENCH_IMAGES, BENCH_SIZE, BENCH_SLICE_H = 16, 512, 8
 PLAIN_SUBSET_ROWS = 1   # rows of each bench stripe the plain versions time
@@ -829,17 +849,25 @@ def _stage_run(torch, run, lanes_t, init, keep: bool = False):
     return ms, made, res
 
 
+def _on_host(args) -> tuple:
+    """CPU copies of the tensors in ``args``, the rest as they are: a plain
+    version runs on the host, where its loops of small ops launch nothing."""
+    return tuple(a.cpu() if hasattr(a, "cpu") else a for a in args)
+
+
 def _kernel_err(kernel, plain, *args) -> int:
-    """``kernel`` against its plain version on ``args``: the largest
-    difference over their outputs (kp and fin of a coder)."""
-    return max(_max_err(a, b) for a, b in zip(kernel(*args), plain(*args)))
+    """``kernel`` on ``args`` against its plain version on CPU copies of
+    them: the largest difference over their outputs (kp and fin of a
+    coder), the kernel's brought to the host."""
+    return max(_max_err(a.cpu(), b)
+               for a, b in zip(kernel(*args), plain(*_on_host(args))))
 
 
-def _sort_kernels_vs_plain(torch, made, init) -> dict:
+def _sort_kernels_vs_plain(torch, made, init, host: bool = False) -> dict:
     """Kernels 3 and 4, as the engine ran them (``_stage_run(keep=True)``),
-    against their plain versions on the same inputs: max_abs_err of the
-    walk's records and of the coder's kp and fin, and the plain versions'
-    milliseconds."""
+    against their plain versions on the same inputs (on CPU copies of them
+    if ``host``): max_abs_err of the walk's records and of the coder's kp
+    and fin, and the plain versions' milliseconds."""
     from llcomp_tpu_torch.kernels import encode_kernels as ek
 
     K, _ = made["precompute and counts"]
@@ -847,6 +875,9 @@ def _sort_kernels_vs_plain(torch, made, init) -> dict:
     lo, hi = made["walk"]
     qlo, qhi = made["compact sort"]
     kp, fin = made["coder"]
+    if host:
+        xs, lo, hi, qlo, qhi, kp, fin = _on_host((xs, lo, hi, qlo, qhi, kp,
+                                                   fin))
     walk_ms, (lo_p, hi_p) = _time_plain(
         torch, lambda: ek.walk_symbols_plain(xs, K, init))
     coder_ms, (kp_p, fin_p) = _time_plain(
@@ -1109,12 +1140,12 @@ def phase_kernels_vs_plain(torch, log) -> dict:
         out_k, len_k = ef.encode_fused(xs, init, cap)
         torch.cuda.synchronize()
         t1 = time.perf_counter()
-        out_p, len_p, _ = ef.encode_fused_plain(xs, init, cap)
-        torch.cuda.synchronize()
+        out_p, len_p, _ = ef.encode_fused_plain(xs.cpu(), init, cap)
         t2 = time.perf_counter()
         t_kernel += t1 - t0
         t_plain += t2 - t1
-        err_enc = max(err_enc, _stream_err(out_k, len_k, out_p, len_p))
+        err_enc = max(err_enc, _stream_err(out_k.cpu(), len_k.cpu(), out_p,
+                                           len_p))
         streams = [out_k[s, : int(len_k[s])].cpu().numpy().tobytes()
                    for s in range(S)]
         # corruptions: flipped bytes, a truncation inside a 16-byte word,
@@ -1132,8 +1163,9 @@ def phase_kernels_vs_plain(torch, log) -> dict:
         d = torch.from_numpy(data).to(dev)
         ln = torch.from_numpy(lens).to(dev)
         p_k, e_k = dk.decode(d, ln, H, W, C, init)
-        torch.cuda.synchronize()
-        p_p, e_p = dk.decode_plain(d, ln, H, W, C, init)
+        p_k, e_k = p_k.cpu(), e_k.cpu()
+        p_p, e_p = dk.decode_plain(torch.from_numpy(data),
+                                   torch.from_numpy(lens), H, W, C, init)
         check(torch.equal(e_k, e_p), f"{name} {mode}: decode err flags differ")
         if n_bad and mode == "unprimed":
             check(int(e_k[2]) == 1, f"{name}: corrupt lane not flagged")
@@ -1147,7 +1179,7 @@ def phase_kernels_vs_plain(torch, log) -> dict:
         _, made, _ = _stage_run(torch, encode._encode_sort,
                                 torch.from_numpy(lanes).to(dev), init,
                                 keep=True)
-        e = _sort_kernels_vs_plain(torch, made, init)
+        e = _sort_kernels_vs_plain(torch, made, init, host=True)
         e_walk, e_coder = e["walk"], e["coder"]
         err_walk, err_coder = max(err_walk, e_walk), max(err_coder, e_coder)
         check(e_walk == 0 and e_coder == 0, f"{name} {mode}: sort kernels "
@@ -1249,6 +1281,350 @@ def phase_main_path(torch, log) -> dict:
     check(all(counts.values()), f"main path skipped a kernel: {counts}")
     log(f"phase 4 launches on the main path: {counts}")
     return counts
+
+
+TILED = ("tiled8192", 256, 8192, 9000)   # name, H, W, seed: 4 tiles of 2,048
+REV0_GOLDEN = {   # llcomp.js bitstream, as tests/test_rev0.py pins it
+    (1, 1, 3): "7703010001008266d6e11f3a",
+    (2, 2, 3): "770302000200825ba6a4f74bfbffafc811a6b0307247632a91",
+    (4, 4, 3): "7703040004008261c3981a766b9810e7cdda4d55c2bfbbf453ed46ac50c1720d16",
+    (2, 2, 4): "7704020002008266d6e11f3b221ec719257457c884bd6a7127",
+}
+NATIVE_STRIPES = (1, 2, 4, 8, 16, 32, 64, 128)   # of 8x512x3, native vs device
+CORPUS_BATCH = 256      # max_lanes_per_batch of phase 9's corpus: 8 batches
+PHASE9_LIMIT_S = 120    # phase 9 fails past this many seconds
+
+
+def rev0_image(shape) -> np.ndarray:
+    """The image of a ``REV0_GOLDEN`` entry."""
+    if shape == (1, 1, 3):
+        return np.array([[[10, 20, 30]]], np.uint8)
+    if shape == (2, 2, 3):
+        return np.array([[[0, 0, 0], [255, 255, 255]],
+                         [[128, 64, 32], [1, 2, 3]]], np.uint8)
+    if shape == (4, 4, 3):
+        return (np.arange(48).reshape(4, 4, 3) * 5 % 256).astype(np.uint8)
+    return np.arange(10, 170, 10, dtype=np.uint8).reshape(2, 2, 4)
+
+
+def corpus_images() -> list[np.ndarray]:
+    """Phase 9's corpus: 16 photos of 512x512x3, 4 of 256x256x4, 3 grayscale
+    384x384 and one 256x8192x3 that ``pick_tiling`` tiles."""
+    name, h, w, seed = TILED
+    return ([make_image(512, 512, 3, 2000 + i) for i in range(16)]
+            + [make_image(256, 256, 4, 2100 + i) for i in range(4)]
+            + [make_image(384, 384, 1, 2200 + i) for i in range(3)]
+            + [make_image(h, w, 3, seed)])
+
+
+def host_cpu() -> str:
+    """The host CPU (native's numbers run there): /proc/cpuinfo's vendor,
+    family, model and model name, and the core count."""
+    import os
+
+    info = {}
+    with contextlib.suppress(OSError):
+        for line in pathlib.Path("/proc/cpuinfo").read_text().splitlines():
+            key, _, val = line.partition(":")
+            if not key.strip():
+                break                    # the first processor's block only
+            info.setdefault(key.strip(), val.strip())
+    desc = ", ".join(f"{k} {info[k]}" for k in ("vendor_id", "cpu family",
+                                                "model", "model name")
+                     if k in info)
+    return f"{desc or 'CPU not named'}; {os.cpu_count()} cores"
+
+
+def _median_s(fn, reps: int = 3) -> float:
+    """Median seconds of ``reps`` synchronised calls of ``fn`` (host numpy
+    in, bytes or pixels out)."""
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        times.append(time.perf_counter() - t0)
+    return statistics.median(times)
+
+
+def _flip_slice(blob: bytes, streams, k: int) -> bytes:
+    """``blob`` with slice ``k``'s payload XORed with 0xFF in place (its
+    crc no longer matches)."""
+    off = len(blob) - sum(len(s) for s in streams[k:])
+    bad = np.frombuffer(blob, np.uint8).copy()
+    bad[off : off + len(streams[k])] ^= 0xFF
+    return bad.tobytes()
+
+
+def surface_reencode(torch, log) -> int:
+    """Phase 9, reencode_slice: a slice of phase 4's photo512 container and
+    of a tiled 256x8192x3 container corrupted, reported by
+    ``decompress(strict=False)``, healed on the card back to the golden."""
+    from llcomp_tpu_torch import api, container
+    from llcomp_tpu_torch.kernels import encode_fused as ef
+
+    name, h, w, seed = TILED
+    check(api.pick_tiling(h, w, 3) == (2048, 1)
+          and api.pick_tiling(h, w // 2, 3)[0] == 0,
+          f"pick_tiling({h}, {w}, 3) != (2048, 1)")
+    launches, parts = 0, []
+    for key, img, k in (("photo512", make_image(512, 512, 3, 1512), 5),
+                        (name, make_image(h, w, 3, seed), 256 + 77)):
+        check(sha(img) == IMAGE_SHA[key], f"{key}: image generator drifted")
+        blob = api.compress(img, slices="auto")
+        check(sha(blob) == GOLDEN_SHA[key], f"{key}: .llct bytes != golden")
+        streams, W, H, C, sh, flags, _, tw = container.unpack_sliced(blob)
+        broken = _flip_slice(blob, streams, k)
+        out, bad = api.decompress(broken, strict=False)
+        check(bad == [k], f"{key}: strict=False reported {bad}, not [{k}]")
+        y0, y1, x0, x1 = container.tile_regions(W, H, sh, tw)[k]
+        keep = np.ones((H, W), bool)
+        keep[y0:y1, x0:x1] = False
+        check(np.array_equal(out[keep], img[keep]) and not out[~keep].any(),
+              f"{key}: pixels outside slice {k} not exact")
+        ef.encode_fused.launches = 0
+        t0 = time.perf_counter()
+        healed = api.reencode_slice(broken, k, img[y0:y1, x0:x1])
+        ms = (time.perf_counter() - t0) * 1e3
+        launches += ef.encode_fused.launches
+        check(ef.encode_fused.launches > 0, f"{key}: kernel 1 never launched")
+        check(healed == blob, f"{key}: healed container != golden")
+        parts.append(f"{key} ({len(streams)} slices of {sh} rows"
+                     + (f", tiles {tw} px" if tw else "")
+                     + f") slice {k} [{y0}:{y1}, {x0}:{x1}] reported and "
+                     f"healed to the golden in {ms:.1f} ms")
+    log("phase 9 reencode_slice: " + "; ".join(parts)
+        + f"; kernel 1 launches {launches}")
+    return launches
+
+
+def surface_native(torch, log) -> dict:
+    """Phase 9, native: build the port's C++ runtime, phase 4's goldens
+    through backend='native', and native against the device engine by
+    stripe count (end to end, median of 3): the crossover."""
+    from llcomp_tpu_torch import api, decode, encode, host
+    from llcomp_tpu_torch.native import build as nbuild
+
+    t0 = time.perf_counter()
+    so = nbuild.build()
+    build_s = time.perf_counter() - t0
+    for name, n in (("photo512", 512), ("photo2048", 2048)):
+        img = make_image(n, n, 3, 1000 + n)
+        blob = api.compress(img, slices="auto", backend="native")
+        check(sha(blob) == GOLDEN_SHA[name], f"{name}: native != golden")
+        check(np.array_equal(api.decompress(blob, backend="native"), img),
+              f"{name}: native round trip not exact")
+    dev = torch.device("cuda")
+    src = make_image(8 * NATIVE_STRIPES[-1], 512, 3, 77).reshape(-1, 8, 512, 3)
+    encode.encode_lanes(src[:2], primed=True, device=dev)      # warm-up
+    rows = {}
+    for n in NATIVE_STRIPES:
+        lanes = src[:n]
+        streams = host.encode_images(lanes, primed=True)
+        check(encode.encode_lanes(lanes, primed=True, device=dev) == streams,
+              f"{n} stripes: device streams != native")
+        rows[n] = {
+            "native_enc": _median_s(lambda: host.encode_images(
+                lanes, primed=True)),
+            "device_enc": _median_s(lambda: encode.encode_lanes(
+                lanes, primed=True, device=dev)),
+            "native_dec": _median_s(lambda: host.decode_streams(
+                streams, (8, 512, 3), primed=True)),
+            "device_dec": _median_s(lambda: decode.decode_lanes(
+                streams, (8, 512, 3), primed=True, device=dev))}
+    wins = [rows[n]["device_enc"] + rows[n]["device_dec"]
+            < rows[n]["native_enc"] + rows[n]["native_dec"]
+            for n in NATIVE_STRIPES]
+    cross = next((NATIVE_STRIPES[i] for i in range(len(wins))
+                  if all(wins[i:])), None)
+    log(f"phase 9 native: {so.name} built in {build_s:.2f} s; photo512 and "
+        f"photo2048 through backend='native' golden and exact; "
+        f"host {host_cpu()}")
+    log("phase 9 native vs device, 8x512x3 stripes primed, ms end to end "
+        "(median of 3; encode, decode): " + "; ".join(
+            f"{n}: native {1e3 * r['native_enc']:.2f}, "
+            f"{1e3 * r['native_dec']:.2f}, device {1e3 * r['device_enc']:.2f}, "
+            f"{1e3 * r['device_dec']:.2f}" for n, r in rows.items())
+        + f"; the device wins from {cross} stripes on"
+        + f" (MIN_DEVICE_LANES {api.MIN_DEVICE_LANES})")
+    return {"build_s": build_s, "rows": rows, "crossover": cross}
+
+
+def surface_rev0(log) -> None:
+    """Phase 9, revision 0: the four llcomp.js goldens both ways."""
+    from llcomp_tpu_torch import api
+
+    for shape, hexs in REV0_GOLDEN.items():
+        img = rev0_image(shape)
+        check(api.compress(img, revision=0).hex() == hexs,
+              f"rev0 {shape}: bytes != golden")
+        check(np.array_equal(api.decompress(bytes.fromhex(hexs)), img),
+              f"rev0 {shape}: decode not exact")
+    log(f"phase 9 revision 0: {len(REV0_GOLDEN)} goldens "
+        f"({', '.join('x'.join(map(str, s)) for s in REV0_GOLDEN)}) encode "
+        "and decode exactly through compress(revision=0) and decompress")
+
+
+def surface_corpus(torch, log) -> dict:
+    """Phase 9, corpus: 24 images in batches of ``CORPUS_BATCH`` lanes,
+    pipelined; every blob equal to the native runtime's, exact round trips;
+    MP/s pipelined and in turn (``encode_lanes_pipelined`` on the corpus's
+    batches at ``max_inflight`` 2 and 1); the device idle share of one
+    pipelined encode."""
+    from llcomp_tpu_torch import api, corpus, encode
+    from llcomp_tpu_torch.kernels import decode_kernel as dk
+    from llcomp_tpu_torch.kernels import encode_fused as ef
+
+    imgs = corpus_images()
+    mp = sum(im.shape[0] * im.shape[1] for im in imgs) / 1e6
+    kw = {"slice_h": 16, "max_lanes_per_batch": CORPUS_BATCH}
+    piped = []
+    pipelined = encode.encode_lanes_pipelined
+
+    def spy(batches, *a, **k):
+        piped.append((batches, a, k))
+        return pipelined(batches, *a, **k)
+
+    secs = {}
+    t0 = time.perf_counter()
+    encode.encode_lanes_pipelined = spy
+    try:
+        ef.encode_fused.launches = dk.decode.launches = 0
+        blobs, stats = corpus.compress_corpus(imgs, **kw)
+        outs = corpus.decompress_corpus(blobs, max_lanes_per_batch=CORPUS_BATCH)
+        counts = {"encode_fused": ef.encode_fused.launches,
+                  "decode_kernel": dk.decode.launches}
+    finally:
+        encode.encode_lanes_pipelined = pipelined
+    secs["device corpus"] = time.perf_counter() - t0
+    check(all(counts.values()), f"corpus skipped a kernel: {counts}")
+    check(len(piped) == 1 and len(piped[0][0]) >= 4,
+          f"corpus: {[len(b) for b, _, _ in piped]} pipelined batches, "
+          "want one call of >= 4")
+    check(all(np.array_equal(a, b) for a, b in zip(outs, imgs)),
+          "decompress_corpus not exact")
+    t0 = time.perf_counter()
+    native, _ = corpus.compress_corpus(imgs, **kw, backend="native")
+    secs["native corpus"] = time.perf_counter() - t0
+    check(native == blobs, "corpus blobs != the native runtime's")
+    t0 = time.perf_counter()
+    check(all(np.array_equal(api.decompress(b), im)
+              for b, im in zip(blobs, imgs)), "api.decompress of a blob alone "
+          "not exact")
+    secs["each blob"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    batches, a, k = piped[0]
+    enc = {2: [], 1: []}          # the pipeline alone, batches made
+    for _ in range(3):
+        for inflight in enc:
+            enc[inflight].append(_median_s(lambda: pipelined(
+                batches, *a, **{**k, "max_inflight": inflight}), reps=1))
+    enc_s = {m: statistics.median(v) for m, v in enc.items()}
+    dec_s = _median_s(lambda: corpus.decompress_corpus(
+        blobs, max_lanes_per_batch=CORPUS_BATCH))
+    wall, busy, _ = _device_busy(torch, lambda: pipelined(batches, *a, **k))
+    secs["timing"] = time.perf_counter() - t0
+    log(f"phase 9 corpus: {len(imgs)} images ({mp:.3f} MP), "
+        f"{stats.lanes} lanes in {stats.batches} batches of <= "
+        f"{CORPUS_BATCH}, {len(batches)} through encode_lanes_pipelined; "
+        f"ratio {stats.ratio:.3f}; every blob == backend='native', "
+        f"decompress_corpus and each api.decompress exact; launches {counts}")
+    log("phase 9 corpus MP/s: compress_corpus once "
+        f"{mp / stats.encode_s:.2f} ({1e3 * stats.encode_s:.1f} ms, encode_s "
+        f"of CorpusStats); encode_lanes_pipelined on the {len(batches)} "
+        "batches (median of 3, turns alternating): pipelined (max_inflight "
+        f"2) {mp / enc_s[2]:.2f} ({1e3 * enc_s[2]:.1f} ms), in turn "
+        f"(max_inflight 1) {mp / enc_s[1]:.2f} ({1e3 * enc_s[1]:.1f} ms); "
+        f"decode_corpus (batches in turn, median of 3) {mp / dec_s:.2f} "
+        f"({1e3 * dec_s:.1f} ms); one pipelined encode under torch.profiler: "
+        + _idle("encode", wall, busy) + "; seconds: "
+        + ", ".join(f"{n} {v:.1f}" for n, v in secs.items()))
+    return {"counts": counts, "mp": mp, "corpus_encode_s": stats.encode_s,
+            "encode_s": {"pipelined": enc_s[2], "in turn": enc_s[1]},
+            "decode_s": dec_s,
+            "idle": None if busy is None else 1 - busy / wall}
+
+
+def surface_cli(log) -> None:
+    """Phase 9, the CLI as subprocesses in a temporary directory: selftest,
+    .ppm and .pgm round trips, info, corpus --verify; the chains run side
+    by side."""
+    import os
+    import tempfile
+
+    from llcomp_tpu_torch.io import load_image, save_image
+
+    root = pathlib.Path(__file__).resolve().parent
+
+    def cli(*args) -> str:
+        r = subprocess.run([sys.executable, "-m", "llcomp_tpu_torch.cli",
+                            *map(str, args)], cwd=root, capture_output=True,
+                           text=True, timeout=300, env=dict(os.environ))
+        check(r.returncode == 0, f"cli {args[0]} exited {r.returncode}: "
+              f"{r.stderr[-800:]}")
+        return r.stdout
+
+    with tempfile.TemporaryDirectory() as tmp:
+        d = pathlib.Path(tmp)
+        ppm, pgm = d / "photo.ppm", d / "gray.pgm"
+        save_image(ppm, make_image(96, 64, 3, 31))
+        save_image(pgm, make_image(40, 24, 1, 32))
+        (d / "set").mkdir()
+        for i in range(4):
+            save_image(d / "set" / f"im{i}.ppm", make_image(64, 48, 3, 40 + i))
+
+        def ppm_chain():
+            cli("compress", ppm, "--slices", "auto")
+            cli("decompress", f"{ppm}.llct", "-o", d / "back.ppm")
+            return cli("info", f"{ppm}.llct")
+
+        def pgm_chain():
+            cli("compress", pgm)
+            return cli("decompress", f"{pgm}.llcomp", "-o", d / "back.pgm")
+
+        t0 = time.perf_counter()
+        with ThreadPoolExecutor(4) as pool:
+            jobs = [pool.submit(cli, "selftest"), pool.submit(ppm_chain),
+                    pool.submit(pgm_chain),
+                    pool.submit(cli, "corpus", d / "set", "--verify")]
+            selftest, info, _, corp = [j.result() for j in jobs]
+        secs = time.perf_counter() - t0
+        check("selftest: PASS" in selftest, f"cli selftest: {selftest}")
+        check("sliced container" in info, f"cli info: {info}")
+        check("verified 4 images bit-exact" in corp, f"cli corpus: {corp}")
+        for a, b in ((ppm, d / "back.ppm"), (pgm, d / "back.pgm")):
+            check(np.array_equal(load_image(a), load_image(b)),
+                  f"cli round trip of {a.name} not exact")
+    log(f"phase 9 CLI (python -m llcomp_tpu_torch.cli, 9 processes in 4 "
+        f"chains side by side, {secs:.1f} s): selftest PASS ("
+        + ", ".join(line[5:] for line in selftest.splitlines()
+                    if line.startswith("ok  "))
+        + "); .ppm sliced and .pgm single-stream round trips exact; info: "
+        + info.splitlines()[0] + "; corpus --verify on 4 .ppm files exact")
+
+
+def phase_surface(torch, log) -> dict:
+    """Phase 9: the single-host surface on the card (reencode_slice, the
+    native runtime, revision 0, the corpus, the CLI), each part with the
+    launch counts set to 0 just before it and read just after."""
+    t = {}
+
+    def part(name, fn, *args):
+        t0 = time.perf_counter()
+        r = fn(*args)
+        t[name] = round(time.perf_counter() - t0, 1)
+        return r
+
+    res = {"reencode": part("reencode", surface_reencode, torch, log),
+           "native": part("native", surface_native, torch, log)}
+    part("rev0", surface_rev0, log)
+    res["corpus"] = part("corpus", surface_corpus, torch, log)
+    part("cli", surface_cli, log)
+    total = sum(t.values())
+    log("phase 9 seconds: " + ", ".join(f"{k} {v}" for k, v in t.items())
+        + f"; total {total:.1f} of the {PHASE9_LIMIT_S} s limit")
+    check(total < PHASE9_LIMIT_S,
+          f"phase 9 took {total:.1f} s, over its {PHASE9_LIMIT_S} s limit")
+    return res
 
 
 def _time_cuda(torch, fn, reps: int = 3, calls: int = 1) -> float:
@@ -2962,6 +3338,7 @@ def main() -> int:
         turns = timed("8, one-shot turns", one_shot_turns, torch, variants)
         errs = timed(3, phase_kernels_vs_plain, torch, log)
         counts = timed(4, phase_main_path, torch, log)
+        surface = timed(9, phase_surface, torch, log)
         bench = timed(5, phase_bench, torch, log, card, variants)
         sort = timed(6, phase_sort, torch, log, card, variants)
         decision = timed(7, phase_decision, torch, log, card, variants)
@@ -2973,7 +3350,7 @@ def main() -> int:
     except Failed as e:
         print(f"chip_smoke FAILED: {e}", file=sys.stderr)
         return 1
-    log(f"chip_smoke: phases 1-8 passed in "
+    log(f"chip_smoke: phases 1-9 passed in "
         f"{time.perf_counter() - t_start:.1f} s")
 
     def bound_of(b: dict) -> dict:
@@ -2989,7 +3366,10 @@ def main() -> int:
          "ms": bench["encode_ms"], "plain_ms": bench["encode_plain_ms"],
          "us_symbol": bench["encode_ms"] * 1e3 / bench["n_sym"],
          **bound_of(bench["bounds"]["encode_fused"]),
-         "ms_subset": bench["encode_sub_ms"], "note": note},
+         "ms_subset": bench["encode_sub_ms"], "note": note,
+         "launches_phase9": {
+             "reencode_slice": surface["reencode"],
+             "corpus": surface["corpus"]["counts"]["encode_fused"]}},
         {"name": "decode_kernel", "route": "cuda",
          "source": "llcomp_tpu_torch/csrc/decode_kernel.cu",
          "replaces": "llcomp_tpu/pallas/decode_kernel.py:444",
@@ -2997,7 +3377,9 @@ def main() -> int:
          "ms": bench["decode_ms"], "plain_ms": bench["decode_plain_ms"],
          "us_symbol": bench["decode_ms"] * 1e3 / bench["n_sym"],
          **bound_of(bench["bounds"]["decode_kernel"]),
-         "ms_subset": bench["decode_sub_ms"], "note": note},
+         "ms_subset": bench["decode_sub_ms"], "note": note,
+         "launches_phase9": {
+             "corpus": surface["corpus"]["counts"]["decode_kernel"]}},
     ]
     for name, src, line, err in (("walk_symbols", "walk_symbols", 175, "walk"),
                                  ("coder_scan_off_q", "coder_scan", 574,

@@ -2,14 +2,20 @@
 
 A port of ``llcomp_tpu`` that gives the same bytes.  It imports torch and
 numpy, never JAX.  Public API (lazy: importing the package builds nothing):
-    compress(img, slices=..., device="cuda")   -> bytes
-    decompress(data, device="cuda")            -> np.ndarray
+    compress(img, slices=..., device="cuda", backend="torch") -> bytes
+    decompress(data, device="cuda", backend="torch")          -> np.ndarray
+    compress_sliced(img) / decompress_sliced(data)            sliced aliases
+    reencode_slice(data, index, stripe, device="cuda")        -> bytes
+Beside it: ``corpus`` (many images in shared lane batches), ``host`` (the
+native C++ runtime), ``rev0`` (the legacy bitstream) and the CLI,
+``python -m llcomp_tpu_torch.cli``.
 """
 from .core.config import EXT, EXT_SLICED, REV2, CodecConfig  # noqa: F401
 
 __version__ = "0.1.0"
 
-_API = ("compress", "decompress")
+_API = ("compress", "decompress", "compress_sliced", "decompress_sliced",
+        "reencode_slice")
 
 
 def __getattr__(name):

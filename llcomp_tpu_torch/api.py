@@ -1,10 +1,21 @@
-"""Public in-memory API: compress / decompress, on a CUDA device by default.
+"""Public in-memory API: compress / decompress / reencode_slice, on a CUDA
+device by default.
 
-Port of ``llcomp_tpu/api.py`` (`api.py:29-221,273-604`).  Containers are shaped
-exactly as the JAX package shapes them (``pick_tiling`` over the frozen TPU
-geometry in ``core.geometry``), so the bytes are equal.  ``backend=`` becomes
-``device=``: 'cuda' runs the CUDA kernels, 'cpu' their plain PyTorch
-versions; 'cuda' without a GPU raises.
+Port of ``llcomp_tpu/api.py``.  Containers are shaped exactly as the JAX
+package shapes them (``pick_tiling`` over the frozen TPU geometry in
+``core.geometry``), so the bytes are equal.  ``device`` says where the
+port's engines run: 'cuda' the CUDA kernels, 'cpu' their plain PyTorch
+versions; 'cuda' without a GPU raises.  ``backend`` says which engine:
+
+* 'torch' (default): the port's engines on ``device``;
+* 'native': the threaded C++ runtime on the CPU (``host``), no kernel;
+* 'oracle': the plain versions on the CPU (``backend='torch',
+  device='cpu'``);
+* 'auto': 'native' for a single stream or fewer than ``MIN_DEVICE_LANES``
+  stripes, else 'torch' on ``device``, chosen by the shape of the work only.
+
+Every backend gives the same bytes.  A failed build or launch raises; no
+path falls back to another engine.
 """
 from __future__ import annotations
 
@@ -148,28 +159,77 @@ def _pick_primed(img: np.ndarray, dev: torch.device,
     return (zs / max(n, 1)) < PRIMED_ZERO_FRAC_MAX
 
 
+BACKENDS = ("torch", "auto", "native", "oracle")
+
+# Below this many stripes ``backend='auto'`` takes the native runtime: the
+# crossover that chip_smoke.py phase 9 times on 8x512x3 stripes, encode plus
+# decode end to end (an H100 beside 8 host cores: native ahead up to 32
+# stripes, the two level within 4% at 64, the device ahead from 128; the
+# JAX package's TPU value was 32).  Bytes are equal on every engine, so it
+# is dispatch policy only.
+MIN_DEVICE_LANES = 128
+
+
+def _check_backend(backend: str) -> None:
+    if backend not in BACKENDS:
+        raise ValueError(f"backend must be one of {BACKENDS}, got {backend!r}")
+
+
+def _resolve_backend(backend: str, device, single: bool = False,
+                     lanes: int | None = None
+                     ) -> tuple[str, torch.device | None]:
+    """-> ('native', None) or ('torch', the resolved device).
+
+    'auto' looks only at the work's shape, never at whether a GPU is
+    present: a device engine asked for on a host without CUDA raises."""
+    _check_backend(backend)
+    if backend == "auto":
+        few = single or (lanes is not None and lanes < MIN_DEVICE_LANES)
+        backend = "native" if few else "torch"
+    if backend == "native":
+        return "native", None
+    if backend == "oracle":
+        return "torch", torch.device("cpu")
+    return "torch", devmod.resolve(device)
+
+
 def compress(img, slices: int | str | None = None, cfg: CodecConfig = REV2,
              device="cuda", primed: bool | None = None,
-             seeded: bool | None = None, tile_w: int | None = None) -> bytes:
+             seeded: bool | None = None, tile_w: int | None = None,
+             backend: str = "torch", revision: int = 2) -> bytes:
     """Compress a uint8 [H, W, C] image.
 
     slices=None/1 -> reference-compatible single stream.  slices='auto' or
     an int n -> sliced container of independent stripes.  primed, seeded,
     tile_w (sliced mode only): as in the JAX package's ``compress``; None =
-    the same automatic policy.  device: 'cuda' or 'cpu'.
+    the same automatic policy.  device: 'cuda' or 'cpu'.  backend: see the
+    module's docstring.  revision=0 -> the legacy llcomp.js bitstream
+    (magic 0x77, ``rev0``, NumPy on the host).
     """
-    from . import encode
-
-    _check_cfg(cfg)
-    dev = devmod.resolve(device)
     img = _as_image(img)
+    _check_backend(backend)
+    if revision == 0:
+        from . import rev0
+
+        return rev0.encode(img)
+    if revision != 2:
+        raise ValueError(f"unsupported revision {revision}")
+    _check_cfg(cfg)
     H, W, C = img.shape
     if slices in (None, 1):
+        engine, dev = _resolve_backend(backend, device, single=True)
         if primed or seeded or tile_w:
             raise ValueError(
                 "primed/seeded/tile_w apply to sliced mode only; "
                 "pass slices='auto' or an int >= 2")
-        stream = encode.encode_lanes(img[None], cfg, device=dev)[0]
+        if engine == "native":
+            from . import host
+
+            stream = host.encode_stream(img)
+        else:
+            from . import encode
+
+            stream = encode.encode_lanes(img[None], cfg, device=dev)[0]
         return container.pack_single(stream, W, H, C, cfg)
 
     if slices == "auto":
@@ -189,20 +249,23 @@ def compress(img, slices: int | str | None = None, cfg: CodecConfig = REV2,
     if tw and not 0 < tw < W:
         raise ValueError(f"tile_w {tw} outside (0, width={W})")
     regions = container.tile_regions(W, H, slice_h, tw)
+    engine, dev = _resolve_backend(backend, device, lanes=len(regions))
+    policy_dev = dev or torch.device("cpu")   # the native runtime's host
     if primed is None:
-        primed = len(regions) > 1 and _pick_primed(img, dev, cfg)
+        primed = len(regions) > 1 and _pick_primed(img, policy_dev, cfg)
     if seeded is None:
         seeded = primed and H * W * C >= 120_000
     if seeded:
         from . import seed as seedmod
 
-        tab = seedmod.derive(img, cfg, device=dev)
-        streams = _encode_regions(img, regions, cfg, True, dev, seed=tab)
+        tab = seedmod.derive(img, cfg, device=policy_dev)
+        streams = _encode_regions(img, regions, cfg, True, dev, seed=tab,
+                                  backend=engine)
         return container.pack_sliced(
             streams, W, H, C, slice_h, cfg,
             flags=container.FLAG_SEEDED | container.FLAG_CRC,
             seed_blob=seedmod.pack_blob(tab), tile_w=tw)
-    streams = _encode_regions(img, regions, cfg, primed, dev)
+    streams = _encode_regions(img, regions, cfg, primed, dev, backend=engine)
     return container.pack_sliced(
         streams, W, H, C, slice_h, cfg,
         flags=(container.FLAG_PRIMED if primed else 0) | container.FLAG_CRC,
@@ -211,19 +274,20 @@ def compress(img, slices: int | str | None = None, cfg: CodecConfig = REV2,
 
 def encode_stripes(img: np.ndarray, bounds, cfg: CodecConfig = REV2,
                    primed: bool = False, device="cuda",
-                   seed=None) -> list[bytes]:
+                   seed=None, backend: str = "torch") -> list[bytes]:
     """Encode full-width stripes ``(y0, y1)`` as independent streams."""
     W = img.shape[1]
+    engine, dev = _resolve_backend(backend, device, lanes=len(bounds))
     return _encode_regions(img, [(y0, y1, 0, W) for y0, y1 in bounds], cfg,
-                           primed, devmod.resolve(device), seed=seed)
+                           primed, dev, seed=seed, backend=engine)
 
 
 def _encode_regions(img: np.ndarray, regions, cfg: CodecConfig,
-                    primed: bool, dev: torch.device, seed=None) -> list[bytes]:
+                    primed: bool, dev: torch.device | None, seed=None,
+                    backend: str = "torch") -> list[bytes]:
     """Encode ``(y0, y1, x0, x1)`` regions as independent streams, one lane
-    batch per region shape."""
-    from . import encode
-
+    batch per region shape, on ``dev`` or (``backend='native'``, ``dev``
+    None) the native runtime."""
     by_shape: dict[tuple[int, int], list[int]] = {}
     for i, (y0, y1, x0, x1) in enumerate(regions):
         by_shape.setdefault((y1 - y0, x1 - x0), []).append(i)
@@ -231,30 +295,39 @@ def _encode_regions(img: np.ndarray, regions, cfg: CodecConfig,
     for idxs in by_shape.values():
         lanes = np.stack([img[y0:y1, x0:x1]
                           for y0, y1, x0, x1 in (regions[i] for i in idxs)])
-        blobs = encode.encode_lanes(lanes, cfg, primed=primed, seed=seed,
-                                    device=dev)
+        if backend == "native":
+            from . import host
+
+            blobs = host.encode_images(lanes, primed=primed, seed=seed)
+        else:
+            from . import encode
+
+            blobs = encode.encode_lanes(lanes, cfg, primed=primed, seed=seed,
+                                        device=dev)
         for i, blob in zip(idxs, blobs):
             out[i] = blob
     return out  # type: ignore[return-value]
 
 
 def decompress(data: bytes, cfg: CodecConfig = REV2, device="cuda",
-               strict: bool = True):
-    """Decompress either container format back to a uint8 [H, W, C] image.
+               strict: bool = True, backend: str = "torch"):
+    """Decompress any container format back to a uint8 [H, W, C] image.
 
     strict=False: a corrupt slice does not raise away the image; returns
     ``(img, bad_slices)``, every slice not listed holding its exact pixels
-    (single-stream containers report ``[0]``).
+    (single-stream containers, revision 0 included, report ``[0]``).  A
+    header that cannot be read raises ValueError in either mode.  A stream
+    with the 0x77 magic decodes as revision 0 (``rev0``, NumPy on the
+    host).  device, backend: as in ``compress``.
     """
-    from . import decode
-
     _check_cfg(cfg)
-    dev = devmod.resolve(device)
+    _check_backend(backend)
     data = bytes(data)
     if container.is_sliced(data):
         (streams, W, H, C, slice_h, flags, seed_blob,
          tile_w) = container.unpack_sliced(data, cfg)
         regions = container.tile_regions(W, H, slice_h, tile_w)
+        engine, dev = _resolve_backend(backend, device, lanes=len(regions))
         tab = None
         if flags & container.FLAG_SEEDED:
             from . import seed as seedmod
@@ -268,39 +341,79 @@ def decompress(data: bytes, cfg: CodecConfig = REV2, device="cuda",
                              "(crc mismatch)")
         return _decode_regions(streams, regions, (H, W, C), cfg,
                                primed=bool(flags & container.FLAG_PRIMED),
-                               dev=dev, strict=strict, seed=tab, skip=badcrc)
+                               dev=dev, strict=strict, seed=tab, skip=badcrc,
+                               backend=engine)
     if data[:1] == b"\x77":
-        raise ValueError("revision-0 streams are not supported by "
-                         "llcomp_tpu_torch")
-    payload, W, H, C = container.unpack_single(data, cfg)
+        from . import rev0
+
+        def single():
+            return rev0.decode(data)
+
+        C, W, H = rev0.header(data)
+    else:
+        payload, W, H, C = container.unpack_single(data, cfg)
+        engine, dev = _resolve_backend(backend, device, single=True)
+
+        def single():
+            if engine == "native":
+                from . import host
+
+                return host.decode_stream(payload, (H, W, C))
+            from . import decode
+
+            return decode.decode_lanes([payload], (H, W, C), cfg,
+                                       device=dev)[0]
     if strict:
-        return decode.decode_lanes([payload], (H, W, C), cfg, device=dev)[0]
+        return single()
     try:
-        return decode.decode_lanes([payload], (H, W, C), cfg,
-                                   device=dev)[0], []
+        return single(), []
     except ValueError:
         return np.zeros((H, W, C), np.uint8), [0]
 
 
 def decode_stripes(streams, bounds, W: int, C: int, cfg: CodecConfig = REV2,
                    primed: bool = False, device="cuda", strict: bool = True,
-                   seed=None, skip=()):
+                   seed=None, skip=(), backend: str = "torch"):
     """Decode a sliced container's full-width stripes into one image."""
     H = bounds[-1][1]
+    engine, dev = _resolve_backend(backend, device, lanes=len(bounds))
     return _decode_regions(streams, [(y0, y1, 0, W) for y0, y1 in bounds],
-                           (H, W, C), cfg, primed=primed,
-                           dev=devmod.resolve(device), strict=strict,
-                           seed=seed, skip=skip)
+                           (H, W, C), cfg, primed=primed, dev=dev,
+                           strict=strict, seed=seed, skip=skip,
+                           backend=engine)
+
+
+def _decode_native(streams, shape, primed: bool, seed
+                   ) -> tuple[np.ndarray, list[int]]:
+    """Native decode of equal-geometry streams -> (lanes, bad lanes).  The
+    runtime decodes a batch as a whole, so a failing batch is decoded again
+    a stream at a time to name the corrupt ones (`api.py:559-586` of the
+    JAX package)."""
+    from . import host
+
+    try:
+        return host.decode_streams(streams, shape, primed=primed,
+                                   seed=seed), []
+    except ValueError:
+        lanes = np.zeros((len(streams), *shape), np.uint8)
+        bad = []
+        for k, s in enumerate(streams):
+            try:
+                lanes[k] = host.decode_stream(s, shape, primed=primed,
+                                              seed=seed)
+            except ValueError:
+                bad.append(k)
+        return lanes, bad
 
 
 def _decode_regions(streams, regions, shape: tuple[int, int, int],
-                    cfg: CodecConfig, primed: bool, dev: torch.device,
-                    strict: bool = True, seed=None, skip=()):
+                    cfg: CodecConfig, primed: bool, dev: torch.device | None,
+                    strict: bool = True, seed=None, skip=(),
+                    backend: str = "torch"):
     """Decode per-region streams into one ``shape`` image, one lane batch
-    per region shape.  ``skip``: slices already known corrupt, zero-filled
-    and reported without decoding."""
-    from . import decode
-
+    per region shape, on ``dev`` or (``backend='native'``) the native
+    runtime.  ``skip``: slices already known corrupt, zero-filled and
+    reported without decoding."""
     H, W, C = shape
     out = np.empty((H, W, C), dtype=np.uint8)
     bad_slices: list[int] = list(skip)
@@ -312,9 +425,15 @@ def _decode_regions(streams, regions, shape: tuple[int, int, int],
         if i not in bad_slices:
             by_shape.setdefault((y1 - y0, x1 - x0), []).append(i)
     for (rows, cols), idxs in by_shape.items():
-        lanes, bad = decode.decode_lanes(
-            [streams[i] for i in idxs], (rows, cols, C), cfg, primed=primed,
-            errors="report", seed=seed, device=dev)
+        batch = [streams[i] for i in idxs]
+        if backend == "native":
+            lanes, bad = _decode_native(batch, (rows, cols, C), primed, seed)
+        else:
+            from . import decode
+
+            lanes, bad = decode.decode_lanes(
+                batch, (rows, cols, C), cfg, primed=primed, errors="report",
+                seed=seed, device=dev)
         if bad:
             if strict:
                 raise ValueError("corrupt stream in slices "
@@ -326,3 +445,56 @@ def _decode_regions(streams, regions, shape: tuple[int, int, int],
     if strict:
         return out
     return out, sorted(bad_slices)
+
+
+def reencode_slice(data: bytes, index: int, stripe, cfg: CodecConfig = REV2,
+                   device="cuda") -> bytes:
+    """Replace one stripe of a sliced container in place.
+
+    ``stripe`` is the uint8 pixel block of region ``index`` (a stripe, or a
+    stripe of a column tile: ``container.tile_regions``), shape-checked
+    against the container.  Each slice is an independent stream with its
+    own index entry, so healing a corrupt or stale slice re-encodes only
+    its pixels (``encode.encode_lanes`` on ``device``, under the
+    container's flags and seed) and splices the stream in; no other payload
+    byte moves.  Port of ``reencode_slice`` (`api.py:607-643` of the JAX
+    package).
+    """
+    from . import encode
+
+    _check_cfg(cfg)
+    (streams, W, H, C, slice_h, flags, seed_blob,
+     tile_w) = container.unpack_sliced(data, cfg)
+    regions = container.tile_regions(W, H, slice_h, tile_w)
+    if not 0 <= index < len(regions):
+        raise IndexError(
+            f"slice index {index} out of range [0, {len(regions)})")
+    stripe = _as_image(stripe)
+    y0, y1, x0, x1 = regions[index]
+    if stripe.shape != (y1 - y0, x1 - x0, C):
+        raise ValueError(f"stripe shape {stripe.shape} != expected "
+                         f"{(y1 - y0, x1 - x0, C)}")
+    tab = None
+    if flags & container.FLAG_SEEDED:
+        from . import seed as seedmod
+
+        tab = seedmod.unpack_blob(seed_blob)
+    streams = list(streams)
+    streams[index] = encode.encode_lanes(
+        stripe[None], cfg, primed=bool(flags & container.FLAG_PRIMED),
+        seed=tab, device=device)[0]
+    return container.pack_sliced(streams, W, H, C, slice_h, cfg, flags=flags,
+                                 seed_blob=seed_blob, tile_w=tile_w)
+
+
+def compress_sliced(img, slices: int | str = "auto", cfg: CodecConfig = REV2,
+                    device="cuda", backend: str = "torch") -> bytes:
+    """``compress`` into a sliced container (the JAX package's alias)."""
+    return compress(img, slices=slices, cfg=cfg, device=device,
+                    backend=backend)
+
+
+def decompress_sliced(data: bytes, cfg: CodecConfig = REV2, device="cuda",
+                      backend: str = "torch") -> np.ndarray:
+    """``decompress`` (the JAX package's alias for sliced containers)."""
+    return decompress(data, cfg, device=device, backend=backend)

@@ -34,6 +34,8 @@ Two engines give the same bytes:
 """
 from __future__ import annotations
 
+import collections
+
 import numpy as np
 import torch
 
@@ -41,7 +43,7 @@ from . import coder
 from . import device as devmod
 from .core import tables, transform
 from .core.config import REV2, CodecConfig
-from .kernels.encode_fused import encode_fused
+from .kernels.encode_fused import encode_fused_async
 from .kernels.encode_kernels import (build_stream, coder_scan_off,
                                      coder_scan_off_q, walk_probs,
                                      walk_symbols)
@@ -367,8 +369,31 @@ def _encode_decision(lanes: torch.Tensor, cfg: CodecConfig, init, cap: int,
     return _finish_bytes(kp, fin, cap, stage_done)
 
 
-def _encode_fused(lanes: torch.Tensor, cfg: CodecConfig, init, cap: int):
-    return encode_fused(precompute(lanes, cfg).t().contiguous(), init, cap)
+def _streams(out: np.ndarray, lens: np.ndarray) -> list[bytes]:
+    """Rows of ``out`` [S, >= max(lens)] u8 cut at ``lens`` -> bytes."""
+    return [out[s, : lens[s]].tobytes() for s in range(out.shape[0])]
+
+
+def _check_args(cfg: CodecConfig, engine: str, variant: str, primed: bool,
+                seed) -> None:
+    if cfg != REV2:
+        raise ValueError("llcomp_tpu_torch supports the rev-2 cfg only")
+    if engine not in ENGINES:
+        raise ValueError(f"engine must be one of {ENGINES}, got {engine!r}")
+    if variant not in VARIANTS:
+        raise ValueError(f"variant must be one of {VARIANTS}, got {variant!r}")
+    if variant == "decision" and engine != "sort":
+        raise ValueError("variant='decision' is a chain of engine='sort'")
+    if variant == "decision" and (primed or seed is not None):
+        raise ValueError("variant='decision' walks every context from state "
+                         "0: it takes no primed or seeded lanes")
+
+
+def _as_lanes(imgs) -> np.ndarray:
+    imgs = np.ascontiguousarray(imgs, dtype=np.uint8)
+    if imgs.ndim != 4:
+        raise ValueError(f"expected lanes [S, H, W, C], got {imgs.shape}")
+    return imgs
 
 
 def encode_lanes(imgs, cfg: CodecConfig = REV2, primed: bool = False,
@@ -386,33 +411,21 @@ def encode_lanes(imgs, cfg: CodecConfig = REV2, primed: bool = False,
     bytes.  variant: the sort engine's chain, 'symbol' (kernels 3 and 4) or
     'decision' (kernels 5-7), the counterpart of the JAX package's
     LLCT_ENCODE_VARIANT=decision, for unprimed, unseeded lanes only (raises
-    ValueError otherwise); same bytes.
+    ValueError otherwise); same bytes.  The fused engine codes the lanes
+    as one batch of ``encode_lanes_pipelined``, whose chunks overlap their
+    copies with the kernel; the sort engine codes its chunks in turn.
     """
-    if cfg != REV2:
-        raise ValueError("llcomp_tpu_torch supports the rev-2 cfg only")
-    if engine not in ENGINES:
-        raise ValueError(f"engine must be one of {ENGINES}, got {engine!r}")
-    if variant not in VARIANTS:
-        raise ValueError(f"variant must be one of {VARIANTS}, got {variant!r}")
-    if variant == "decision" and engine != "sort":
-        raise ValueError("variant='decision' is a chain of engine='sort'")
-    if variant == "decision" and (primed or seed is not None):
-        raise ValueError("variant='decision' walks every context from state "
-                         "0: it takes no primed or seeded lanes")
+    _check_args(cfg, engine, variant, primed, seed)
     dev = devmod.resolve(device)
-    imgs = np.ascontiguousarray(imgs, dtype=np.uint8)
-    if imgs.ndim != 4:
-        raise ValueError(f"expected lanes [S, H, W, C], got {imgs.shape}")
+    imgs = _as_lanes(imgs)
+    if engine == "fused":
+        return encode_lanes_pipelined([imgs], cfg, primed, seed, dev)[0]
     S = imgs.shape[0]
     n_sym = int(np.prod(imgs.shape[1:]))
     cap = outcap(n_sym)
     init = _start_table(primed, seed)
-    if engine == "sort":
-        check_sort_bounds(n_sym)
-    if engine == "fused":
-        run = _encode_fused
-    else:
-        run = _encode_sort if variant == "symbol" else _encode_decision
+    check_sort_bounds(n_sym)
+    run = _encode_sort if variant == "symbol" else _encode_decision
     chunk = lanes_per_chunk(n_sym, engine, variant)
     streams: list[bytes] = []
     for c0 in range(0, S, chunk):
@@ -420,7 +433,137 @@ def encode_lanes(imgs, cfg: CodecConfig = REV2, primed: bool = False,
         out, lens = run(lanes, cfg, init, cap)
         lens_h = lens.cpu().numpy()
         width = int(lens_h.max(initial=0))
-        out_h = out[:, :width].cpu().numpy()
-        streams.extend(out_h[s, : lens_h[s]].tobytes()
-                       for s in range(out_h.shape[0]))
+        streams.extend(_streams(out[:, :width].cpu().numpy(), lens_h))
+    return streams
+
+
+# --- several batches, overlapped ---------------------------------------------
+
+
+def pipeline_fits(n_sym: int) -> bool:
+    """True iff a lane of ``n_sym`` symbols fits one chunk of the fused
+    engine's budget, so that ``encode_lanes_pipelined`` can hold it in
+    flight beside others (`encode.py:788-798` of the JAX package, whose
+    limits were the TPU's VMEM and slot budgets)."""
+    return lane_bytes(n_sym, "fused") <= LANE_BUDGET_BYTES
+
+
+_SIDE: dict = {}     # device index -> the pipeline's side streams
+
+
+def _side_streams(dev: torch.device, n: int) -> list:
+    """``n`` side streams of ``dev``, the same ones on every call: the
+    caching allocator keeps freed blocks per stream, so fresh streams would
+    allocate the pieces' buffers anew on each call."""
+    index = torch.cuda.current_device() if dev.index is None else dev.index
+    have = _SIDE.setdefault(index, [])
+    while len(have) < n:
+        have.append(torch.cuda.Stream(index))
+    return have[:n]
+
+
+def _launch_piece(host: torch.Tensor, cfg: CodecConfig, init,
+                  dev: torch.device, stream):
+    """Start one piece of lanes ``host`` [S, H, W, C] u8 (pinned when
+    several pieces overlap) through the fused engine on the side stream
+    ``stream``: the H2D copy, the precompute and kernel 1 are queued, then
+    a D2H of the lengths and overflow flags into pinned memory, then an
+    event.  ``stream`` None runs the piece at once on the current stream
+    (the CPU, or a single piece, which has nothing to overlap).  -> what
+    ``_collect_piece`` takes."""
+    cap = outcap(int(np.prod(host.shape[1:])))
+    if stream is None:
+        xs = precompute(host.to(dev), cfg)
+        out, lens, ovf = encode_fused_async(xs.t().contiguous(), init, cap)
+        return out, torch.stack([lens, ovf.to(torch.int32)]), None, None
+    with torch.cuda.stream(stream):
+        xs = precompute(host.to(dev, non_blocking=True), cfg)
+        out, lens, ovf = encode_fused_async(xs.t().contiguous(), init, cap)
+        meta = torch.empty((2, lens.shape[0]), dtype=torch.int32,
+                           pin_memory=True)
+        meta.copy_(torch.stack([lens, ovf.to(torch.int32)]),
+                   non_blocking=True)
+        done = torch.cuda.Event()
+        done.record(stream)
+    return out, meta, done, stream
+
+
+def _collect_piece(out: torch.Tensor, meta: torch.Tensor, done, stream
+                   ) -> list[bytes]:
+    """Wait for a piece's event, then bring back only ``out[:, :max(lens)]``
+    and cut the streams."""
+    if done is not None:
+        done.synchronize()
+    lens, ovf = meta.cpu().numpy()
+    if ovf.any():
+        raise RuntimeError(f"encoded stream overflowed outcap={out.shape[1]}")
+    width = int(lens.max(initial=0))
+    if stream is None:
+        return _streams(out[:, :width].cpu().numpy(), lens)
+    host = torch.empty((out.shape[0], width), dtype=torch.uint8,
+                       pin_memory=True)
+    with torch.cuda.stream(stream):
+        host.copy_(out[:, :width], non_blocking=True)
+    stream.synchronize()
+    return _streams(host.numpy(), lens)
+
+
+def encode_lanes_pipelined(batches, cfg: CodecConfig = REV2,
+                           primed: bool = False, seed=None, device="cuda",
+                           engine: str = "fused",
+                           max_inflight: int = 2) -> list[list[bytes]]:
+    """Encode several lane batches [S_i, H_i, W_i, C_i] u8 -> each batch's
+    streams, equal to ``encode_lanes`` on that batch.
+
+    Port of ``encode_lanes_pipelined`` (`encode.py:815-976` of the JAX
+    package) on CUDA streams.  Fused engine: each batch (cut into pieces
+    of at most ``lanes_per_chunk`` lanes, each holding ``outcap`` bytes a
+    lane on the device) is staged in pinned memory and its H2D copy,
+    precompute and kernel 1 run on a side stream, with its lengths on their
+    way back, while earlier pieces are still on the device; pieces are
+    collected in order, each after its event, bringing back only the bytes
+    up to its longest stream.  At most ``max_inflight`` pieces are on the
+    device at once, or one when a lane alone outgrows a chunk's budget
+    (``pipeline_fits``).  A single piece runs at once on the current
+    stream, through pageable copies.
+    engine='sort' runs the batches one after another through
+    ``encode_lanes``.  On the CPU the pieces run in turn through the plain
+    version.
+    """
+    _check_args(cfg, engine, "symbol", primed, seed)
+    if max_inflight < 1:
+        raise ValueError(f"max_inflight must be >= 1, got {max_inflight}")
+    dev = devmod.resolve(device)
+    batches = [_as_lanes(b) for b in batches]
+    if engine == "sort":
+        return [encode_lanes(b, cfg, primed, seed, dev, engine)
+                for b in batches]
+    init = _start_table(primed, seed)
+    pieces = []
+    for bi, b in enumerate(batches):
+        n_sym = int(np.prod(b.shape[1:]))
+        if not pipeline_fits(n_sym):
+            max_inflight = 1
+        step = lanes_per_chunk(n_sym, "fused")
+        pieces += [(bi, b[c0 : c0 + step]) for c0 in range(0, len(b), step)]
+    streams: list[list[bytes]] = [[] for _ in batches]
+    # side streams and pinned staging let the host go on while a piece's
+    # H2D runs; one piece has nothing to overlap and runs at once on the
+    # current stream through pageable copies (with the pinned ones, every
+    # third call of a fresh process ran slow: tools/torch_phase3_seconds.py
+    # --run encode)
+    overlap = dev.type == "cuda" and len(pieces) > 1
+    side = _side_streams(dev, max_inflight) if overlap else [None]
+    inflight: collections.deque = collections.deque()
+    for k, (bi, lanes) in enumerate(pieces):
+        host = torch.from_numpy(lanes)
+        if overlap:
+            host = host.pin_memory()     # staged before waiting on a piece
+        while len(inflight) >= max_inflight:
+            bj, item = inflight.popleft()
+            streams[bj] += _collect_piece(*item)
+        inflight.append((bi, _launch_piece(host, cfg, init, dev,
+                                           side[k % len(side)])))
+    for bj, item in inflight:
+        streams[bj] += _collect_piece(*item)
     return streams

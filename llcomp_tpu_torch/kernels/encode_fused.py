@@ -85,6 +85,46 @@ def encode_fused_plain(xs: torch.Tensor, init, outcap: int):
     return enc.finish()
 
 
+def _upload(arr: np.ndarray, dev) -> torch.Tensor:
+    """A host table on ``dev`` through pinned memory, ordered on the current
+    stream without a host wait (a pageable copy would sync the stream)."""
+    return torch.from_numpy(arr).pin_memory().to(dev, non_blocking=True)
+
+
+def encode_fused_async(xs: torch.Tensor, init, outcap: int):
+    """``encode_fused`` without its overflow check: -> (bytes [S, outcap]
+    u8, lengths [S] int32, overflow flags [S]).  On CUDA nothing waits for
+    the kernel: it runs on the current stream (``encode_lanes_pipelined``
+    overlaps batches this way) and the caller reads the flags once it has
+    synced.  Counts the launch in ``encode_fused.launches``."""
+    if xs.dim() != 2 or xs.dtype != torch.int32:
+        raise ValueError(f"xs must be [n_sym, S] int32, got {tuple(xs.shape)} "
+                         f"{xs.dtype}")
+    n_sym, S = xs.shape
+    if not xs.is_cuda:
+        return encode_fused_plain(xs, init, outcap)
+    if outcap % 4:
+        raise ValueError(f"outcap must be a multiple of 4, got {outcap}")
+    xs = xs.contiguous()
+    dev = xs.device
+    fused = _upload(tables.FUSED, dev)
+    init_t = None if init is None else _upload(tables.pack_u64(init), dev)
+    model = torch.empty((S, _NS), dtype=torch.uint8, device=dev)
+    out = torch.empty((S, outcap), dtype=torch.uint8, device=dev)
+    lens = torch.empty(S, dtype=torch.int32, device=dev)
+    ovf = torch.empty(S, dtype=torch.int32, device=dev)
+    fn = build.load("encode_fused", "llct_encode_fused",
+                    [_P] * 7 + [_I] * 3 + [_P])
+    rc = fn(xs.data_ptr(), fused.data_ptr(),
+            None if init_t is None else init_t.data_ptr(),
+            model.data_ptr(), out.data_ptr(), lens.data_ptr(),
+            ovf.data_ptr(), n_sym, S, outcap,
+            torch.cuda.current_stream(dev).cuda_stream)
+    build.check(rc, "encode_fused")
+    encode_fused.launches += 1
+    return out, lens, ovf
+
+
 def encode_fused(xs: torch.Tensor, init, outcap: int
                  ) -> tuple[torch.Tensor, torch.Tensor]:
     """Encode ``S`` lanes: ``xs`` [n_sym, S] int32 -> (bytes [S, outcap] u8,
@@ -95,33 +135,7 @@ def encode_fused(xs: torch.Tensor, init, outcap: int
     ``xs`` runs ``encode_fused_plain``.  Raises if a lane's bytes overflow
     ``outcap``.
     """
-    if xs.dim() != 2 or xs.dtype != torch.int32:
-        raise ValueError(f"xs must be [n_sym, S] int32, got {tuple(xs.shape)} "
-                         f"{xs.dtype}")
-    n_sym, S = xs.shape
-    if not xs.is_cuda:
-        out, lens, ovf = encode_fused_plain(xs, init, outcap)
-    else:
-        if outcap % 4:
-            raise ValueError(f"outcap must be a multiple of 4, got {outcap}")
-        xs = xs.contiguous()
-        dev = xs.device
-        fused = torch.from_numpy(tables.FUSED).to(dev)
-        init_t = (None if init is None else
-                  torch.from_numpy(tables.pack_u64(init)).to(dev))
-        model = torch.empty((S, _NS), dtype=torch.uint8, device=dev)
-        out = torch.empty((S, outcap), dtype=torch.uint8, device=dev)
-        lens = torch.empty(S, dtype=torch.int32, device=dev)
-        ovf = torch.empty(S, dtype=torch.int32, device=dev)
-        fn = build.load("encode_fused", "llct_encode_fused",
-                        [_P] * 7 + [_I] * 3 + [_P])
-        rc = fn(xs.data_ptr(), fused.data_ptr(),
-                None if init_t is None else init_t.data_ptr(),
-                model.data_ptr(), out.data_ptr(), lens.data_ptr(),
-                ovf.data_ptr(), n_sym, S, outcap,
-                torch.cuda.current_stream(dev).cuda_stream)
-        build.check(rc, "encode_fused")
-        encode_fused.launches += 1
+    out, lens, ovf = encode_fused_async(xs, init, outcap)
     if bool(ovf.any()):
         raise RuntimeError(f"encoded stream overflowed outcap={outcap}")
     return out, lens

@@ -21,7 +21,9 @@ from chip_smoke import (CODERS, EDGE_RESIDUALS, P11_TAGS, PG_TAGS, PG_WORDS,
                         p9_hazard_idx, p11_cases, p11_inputs, pack_quads,
                         pF_hazard_cases, pG_cases, reduce_cases, repeat_lanes,
                         running, skewed_recs, walk_case_errs, walk_steps)
-from llcomp_tpu_torch import api, coder, decode, encode, probes, seed
+from chip_smoke import _flip_slice, make_image
+from llcomp_tpu_torch import (api, coder, container, corpus, decode, encode,
+                              probes, seed)
 from llcomp_tpu_torch.core.config import REV2
 from llcomp_tpu_torch.kernels import build
 from llcomp_tpu_torch.kernels import decode_kernel as dk
@@ -695,3 +697,62 @@ def test_row_store_equals_plain_on_random_planes(dev, key, lanes):
         assert torch.equal(out.cpu(), want)
         assert torch.equal(model.cpu(), ref)
         assert int((ref != before).sum()) <= lanes
+
+
+PIPE_SHAPES = [(4, 16, 3), (7, 5, 1), (1, 40, 4), (20, 1, 3), (3, 9, 2)]
+
+
+@pytest.mark.parametrize("n_batches", [1, 2, 3, 5])
+@pytest.mark.parametrize("max_inflight", [1, 2, 4])
+def test_pipelined_equals_encode_lanes(dev, monkeypatch, n_batches,
+                                       max_inflight):
+    """Each batch's streams equal encode_lanes on it, with the batches (of
+    other shapes and lane counts) cut into pieces of at most 3 lanes."""
+    batches = [np.concatenate([_lanes(shape), _lanes(shape)[: i + 1]])
+               for i, shape in enumerate(PIPE_SHAPES[:n_batches])]
+    tab = seed.derive(make_image(64, 64, 3, 5), device=dev)
+    for kw in ({"primed": True}, {"seed": tab}, {}):
+        want = [encode.encode_lanes(b, device=dev, **kw) for b in batches]
+        assert want == [encode.encode_lanes(b, device=dev, engine="sort",
+                                            **kw) for b in batches]
+        before = ef.encode_fused.launches
+        got = encode.encode_lanes_pipelined(batches, device=dev,
+                                            max_inflight=max_inflight, **kw)
+        assert got == want
+        assert ef.encode_fused.launches == before + n_batches
+        monkeypatch.setattr(encode, "LANE_BUDGET_BYTES", 3 * encode.lane_bytes(
+            max(int(np.prod(s)) for s in PIPE_SHAPES), "fused"))
+        assert encode.encode_lanes_pipelined(
+            batches, device=dev, max_inflight=max_inflight, **kw) == want
+        monkeypatch.undo()
+
+
+@pytest.mark.parametrize("tile_w", [0, 10])
+def test_reencode_slice_on_the_card_equals_the_cpu(dev, tile_w):
+    img = make_image(16, 24, 3, 8)
+    blob = api.compress(img, slices="auto", tile_w=tile_w, device="cpu")
+    streams, W, H, C, sh, flags, _, tw = container.unpack_sliced(blob)
+    k = len(streams) - 2
+    broken = _flip_slice(blob, streams, k)
+    assert api.decompress(broken, strict=False, device=dev)[1] == [k]
+    y0, y1, x0, x1 = container.tile_regions(W, H, sh, tw)[k]
+    before = ef.encode_fused.launches
+    healed = api.reencode_slice(broken, k, img[y0:y1, x0:x1], device=dev)
+    assert ef.encode_fused.launches == before + 1
+    assert healed == blob == api.reencode_slice(broken, k,
+                                                img[y0:y1, x0:x1],
+                                                device="cpu")
+
+
+def test_corpus_round_trip_on_the_card(dev):
+    imgs = [make_image(16, 16, 3, 1), make_image(24, 16, 3, 2),
+            make_image(13, 16, 3, 3), make_image(8, 8, 4, 4),
+            make_image(8, 8, 1, 5)]
+    blobs, stats = corpus.compress_corpus(imgs, slice_h=8,
+                                          max_lanes_per_batch=3, device=dev)
+    assert stats.batches >= 4
+    native, _ = corpus.compress_corpus(imgs, slice_h=8, max_lanes_per_batch=3,
+                                       backend="native")
+    assert blobs == native
+    for a, b in zip(corpus.decompress_corpus(blobs, device=dev), imgs):
+        np.testing.assert_array_equal(a, b)

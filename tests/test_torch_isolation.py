@@ -30,8 +30,12 @@ def _port_modules() -> list[str]:
 
 
 def test_sources_never_name_jax_or_the_jax_package():
-    files = [p for p in PKG.rglob("*") if p.suffix in (".py", ".cu", ".cuh")]
+    files = [p for p in PKG.rglob("*")
+             if p.suffix in (".py", ".cu", ".cuh", ".cpp")]
     assert len(files) >= 15
+    names = {p.relative_to(PKG).as_posix() for p in files}
+    assert {"cli.py", "corpus.py", "host.py", "rev0.py", "io/images.py",
+            "native/build.py", "native/llcomp_host.cpp"} <= names
     for p in files + [ROOT / "chip_smoke.py"]:
         hits = FORBIDDEN.findall(p.read_text())
         assert not hits, f"{p.relative_to(ROOT)}: {hits}"
@@ -39,7 +43,10 @@ def test_sources_never_name_jax_or_the_jax_package():
 
 def test_importing_every_module_loads_no_jax():
     mods = _port_modules()
-    assert "llcomp_tpu_torch.kernels.decode_kernel" in mods
+    assert {"llcomp_tpu_torch.kernels.decode_kernel", "llcomp_tpu_torch.cli",
+            "llcomp_tpu_torch.corpus", "llcomp_tpu_torch.host",
+            "llcomp_tpu_torch.rev0", "llcomp_tpu_torch.io.images",
+            "llcomp_tpu_torch.native.build"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"
@@ -88,8 +95,11 @@ def test_chip_smoke_goldens_equal_native_backend():
     from llcomp_tpu import seed as jseed
 
     cs = importlib.import_module("chip_smoke")
-    for name, n in (("photo512", 512), ("photo2048", 2048)):
-        img = cs.make_image(n, n, 3, 1000 + n)
+    tiled, h, w, tiled_seed = cs.TILED
+    for name, img in (
+            ("photo512", cs.make_image(512, 512, 3, 1512)),
+            ("photo2048", cs.make_image(2048, 2048, 3, 3048)),
+            (tiled, cs.make_image(h, w, 3, tiled_seed))):
         assert cs.sha(img) == cs.IMAGE_SHA[name]
         blob = japi.compress(img, slices="auto", backend="native")
         assert cs.sha(blob) == cs.GOLDEN_SHA[name], name
