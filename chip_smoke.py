@@ -67,6 +67,27 @@ Phases (each prints one line; any failure exits non-zero without the final
    kernel 1 without its decisions, each copy's output equal to the
    shipped kernel's; kernel 2 at C = 1 on channel 0, and each kernel
    beside its plain version on a stated subset;
+10. (run right after phase 5) the multi-device and multi-process surface,
+   on the device lists ``[cuda:0]``, ``[cuda:0, cuda:0]`` and, with
+   several GPUs, every card: ``parallel.compress_sharded`` and
+   ``decompress_sharded`` of phase 4's two images and the tiled one, with
+   explicit slices equal to ``backend="native"``'s, with 'auto' exact at
+   8 stripes a device (the tiled image its golden), a flipped slice
+   refused by its crc; phase 5's batch through ``encode_lanes_sharded``
+   and ``decode_lanes_sharded``: its golden, exact, one launch of kernels
+   1 and 2 a shard, a corrupt stream named by its global lane, MP/s of
+   ``SHARD_REPS`` fresh batches in turns with one ``encode_lanes`` /
+   ``decode_lanes`` call, and kernel 1 on the whole batch against its
+   halves on two side streams; ``POD_RANKS`` gloo ranks
+   (``tests/test_torch_distributed.py`` as a script, each on cuda:0)
+   packing photo512 with ``compress_image_pod`` (equal on every rank, to
+   the call here and to the native backend) and running
+   ``compress_corpus_distributed``, and one NCCL rank gathering CUDA
+   streams; one profiled photo512 round trip under ``profiling.trace_to``
+   (the stage labels and kernels 1 and 2 in the trace) and under
+   ``LLCT_PROFILE=1`` (the stage report); ``graft_entry.entry`` on the
+   card equal to the CPU's and ``dryrun_multichip(2, [cuda:0, cuda:0])``;
+   the phase fails past ``PHASE10_LIMIT_S`` seconds;
 6. the sort engine (``encode_lanes(engine="sort")``, kernels 3 and 4) on the
    same seeded batch: the same golden, an exact round trip through kernel 2,
    the unprimed batch and a worst-case batch byte-equal to the fused
@@ -153,6 +174,7 @@ import contextlib
 import ctypes
 import functools
 import hashlib
+import importlib.util
 import json
 import pathlib
 import re
@@ -1835,7 +1857,8 @@ def phase_bench(torch, log, card: str, variants: dict) -> dict:
     return {"encode_ms": enc_ms, "decode_ms": dec_ms, "n_sym": n_sym,
             "encode_sub_ms": enc_sub_ms, "decode_sub_ms": dec_sub_ms,
             "encode_plain_ms": enc_plain_ms, "decode_plain_ms": dec_plain_ms,
-            "subset": subset, "bounds": bounds}
+            "subset": subset, "bounds": bounds, "seed": tab,
+            "encode_s": enc_s, "decode_s": dec_s}
 
 
 def _device_busy(torch, fn) -> tuple[float, float | None, str]:
@@ -3272,6 +3295,351 @@ def phase_probes(torch, log, card: str, turns: dict,
     return {"rows": rows, "runs": runs}
 
 
+PHASE10_LIMIT_S = 120   # phase 10 fails past this many seconds
+POD_RANKS = 2           # gloo ranks of phase 10's pod, each on cuda:0
+SHARD_REPS = 5          # fresh bench batches phase 10 times each list on
+# phase 10's explicit slice counts: photo512 and photo2048 in 8-row stripes,
+# the tiled image in 32 full-width stripes
+EXPLICIT_SLICES = {"photo512": 64, "photo2048": 256, "tiled8192": 32}
+STAGE_LABELS = ("encode/upload", "encode/precompute", "encode/fused_kernel",
+                "encode/download", "decode/upload", "decode/kernel",
+                "decode/download")
+KERNEL_NAMES = {"encode_fused": "encode_fused_kernel",
+                "decode_kernel": "decode_kernel"}
+
+
+def _meshes(torch) -> dict:
+    """Phase 10's device lists: one card, the card twice, every card."""
+    meshes = {"[cuda:0]": ["cuda:0"], "[cuda:0, cuda:0]": ["cuda:0"] * 2}
+    if torch.cuda.device_count() > 1:
+        meshes[f"all {torch.cuda.device_count()}"] = [
+            f"cuda:{i}" for i in range(torch.cuda.device_count())]
+    return meshes
+
+
+def multi_containers(torch, log, meshes: dict) -> None:
+    """Phase 10, parallel: photo512, photo2048 and the tiled image through
+    ``compress_sharded``/``decompress_sharded`` on every list, explicit
+    slices equal to the native backend's, 'auto' exact with the mesh's
+    slice height (the tiled one its phase 9 golden); a flipped slice fails
+    its crc, a corrupt stream is named by its global lane."""
+    from llcomp_tpu_torch import api, container, parallel
+
+    tiled, th, tw, tseed = TILED
+    imgs = {"photo512": make_image(512, 512, 3, 1512),
+            "photo2048": make_image(2048, 2048, 3, 3048),
+            tiled: make_image(th, tw, 3, tseed)}
+    native = {name: api.compress(img, slices=EXPLICIT_SLICES[name],
+                                 backend="native")
+              for name, img in imgs.items()}
+    secs = {}
+    for mname, mesh in meshes.items():
+        t0 = time.perf_counter()
+        for name, img in imgs.items():
+            blob = parallel.compress_sharded(img, mesh,
+                                             slices=EXPLICIT_SLICES[name])
+            check(blob == native[name], f"{name} on {mname}: slices="
+                  f"{EXPLICIT_SLICES[name]} != the native backend's")
+            check(np.array_equal(parallel.decompress_sharded(blob, mesh),
+                                 img), f"{name} on {mname}: not exact")
+            blob = parallel.compress_sharded(img, mesh)
+            streams, W, H, C, slice_h = container.unpack_sliced(blob)[:5]
+            if name == tiled:
+                check(sha(blob) == GOLDEN_SHA[tiled],
+                      f"{name} on {mname}: 'auto' != its golden")
+            else:
+                want = api.pick_slice_height(H, W, C,
+                                             target_lanes=8 * len(mesh))
+                check(slice_h == want, f"{name} on {mname}: slice height "
+                      f"{slice_h}, want {want}")
+            check(np.array_equal(parallel.decompress_sharded(blob, mesh),
+                                 img), f"{name} on {mname}: 'auto' not exact")
+        k = len(streams) // 2 + 1
+        try:
+            parallel.decompress_sharded(_flip_slice(blob, streams, k), mesh)
+            check(False, f"{mname}: a flipped slice decoded")
+        except ValueError as e:
+            check(f"slices [{k}]" in str(e), f"{mname}: {e}")
+        secs[mname] = time.perf_counter() - t0
+    log("phase 10 parallel containers: photo512, photo2048 and "
+        f"{tiled} on " + ", ".join(
+            f"{m} in {v:.1f} s" for m, v in secs.items())
+        + f"; slices={EXPLICIT_SLICES} == backend='native', 'auto' exact "
+        "at 8 stripes a device (the tiled image its golden), a flipped "
+        "slice refused by its crc")
+
+
+def multi_bench(torch, log, card: str, meshes: dict, bench: dict) -> dict:
+    """Phase 10, the bench batch over each list: phase 5's golden, exact,
+    one launch of kernels 1 and 2 a CUDA shard; a corrupt stream named by
+    its global lane; end to end on ``SHARD_REPS`` fresh batches, the lists
+    and one ``encode_lanes``/``decode_lanes`` call in turns; and kernel 1
+    on the whole batch against its two halves on two side streams."""
+    from llcomp_tpu_torch import decode, encode, parallel
+    from llcomp_tpu_torch import device as devmod
+    from llcomp_tpu_torch.core.config import REV2
+    from llcomp_tpu_torch.kernels import decode_kernel as dk
+    from llcomp_tpu_torch.kernels import encode_fused as ef
+
+    tab = bench["seed"]
+    lanes = bench_lanes(bench_images(100))
+    S, H, W, C = lanes.shape
+    mp = BENCH_IMAGES * BENCH_SIZE * BENCH_SIZE / 1e6
+    launches = {}
+    for mname, mesh in meshes.items():
+        ef.encode_fused.launches = dk.decode.launches = 0
+        streams = parallel.encode_lanes_sharded(lanes, mesh, seed=tab)
+        out = parallel.decode_lanes_sharded(streams, (H, W, C), mesh,
+                                            seed=tab)
+        launches[mname] = {"encode_fused": ef.encode_fused.launches,
+                           "decode_kernel": dk.decode.launches}
+        check(sha(b"".join(streams)) == GOLDEN_SHA["batch"],
+              f"bench batch on {mname}: streams != golden")
+        check(np.array_equal(out, lanes), f"bench batch on {mname}: "
+              "round trip not exact")
+        check(launches[mname] == dict.fromkeys(launches[mname], len(mesh)),
+              f"bench batch on {mname}: launches {launches[mname]}, want "
+              "one a shard")
+        plain = parallel.encode_lanes_sharded(lanes[:64], mesh)
+        plain[45] = _malicious_stream()
+        try:
+            parallel.decode_lanes_sharded(plain, (H, W, C), mesh)
+            check(False, f"{mname}: a corrupt stream decoded")
+        except ValueError as e:
+            check("lanes [45]" in str(e), f"{mname}: {e}")
+
+    calls = {"one call": (
+        lambda b: encode.encode_lanes(b, seed=tab),
+        lambda st: decode.decode_lanes(st, (H, W, C), seed=tab))}
+    for mname, mesh in meshes.items():
+        calls[mname] = (
+            lambda b, m=mesh: parallel.encode_lanes_sharded(b, m, seed=tab),
+            lambda st, m=mesh: parallel.decode_lanes_sharded(
+                st, (H, W, C), m, seed=tab))
+    enc = {k: [] for k in calls}
+    dec = {k: [] for k in calls}
+    for rep in range(SHARD_REPS):
+        fresh = bench_lanes(bench_images(5000 + 97 * rep))
+        order = list(calls) if rep % 2 == 0 else list(calls)[::-1]
+        for name in order:
+            encode_fn, decode_fn = calls[name]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            st = encode_fn(fresh)
+            t1 = time.perf_counter()
+            back = decode_fn(st)
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            check(np.array_equal(back, fresh),
+                  f"fresh batch {rep} on {name}: not exact")
+            enc[name].append(t1 - t0)
+            dec[name].append(t2 - t1)
+    enc_s = {k: statistics.median(v) for k, v in enc.items()}
+    dec_s = {k: statistics.median(v) for k, v in dec.items()}
+
+    # kernel 1 alone: one launch of the batch against its halves on two
+    # side streams of one card, in turns (host clock around a sync)
+    dev = torch.device("cuda", 0)
+    xs = encode._fused_input(torch.from_numpy(lanes).to(dev), REV2)
+    cap = encode.outcap(xs.shape[0])
+    halves = [xs[:, : S // 2].contiguous(), xs[:, S // 2 :].contiguous()]
+    side = devmod.side_streams(dev, 2)
+
+    def one():
+        ef.encode_fused_async(xs, tab, cap)
+
+    def two():
+        for s, h in zip(side, halves):
+            s.wait_stream(torch.cuda.current_stream(dev))
+            with torch.cuda.stream(s):
+                ef.encode_fused_async(h, tab, cap)
+        for s in side:
+            torch.cuda.current_stream(dev).wait_stream(s)
+
+    k1 = {"one launch": [], "two halves": []}
+    for rep in range(6):
+        for name in (("one launch", "two halves") if rep % 2 == 0
+                     else ("two halves", "one launch")):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            (one if name == "one launch" else two)()
+            torch.cuda.synchronize()
+            k1[name].append((time.perf_counter() - t0) * 1e3)
+    k1_ms = {k: statistics.median(v[1:]) for k, v in k1.items()}  # warm
+    twice = "[cuda:0, cuda:0]"
+    log(f"phase 10 bench batch ({S} lanes x {H * W * C} symbols, seeded) on "
+        + ", ".join(meshes) + ": golden ok, exact, launches "
+        f"{launches}; a corrupt stream named by its global lane (45) on each")
+    log(f"phase 10 end to end on {card}, median of {SHARD_REPS} fresh "
+        "batches in turns (host numpy in, bytes/pixels out; each batch's ms "
+        "in brackets): " + "; ".join(
+            f"{k} encode {enc_s[k] * 1e3:.2f} ms = {mp / enc_s[k]:.2f} MP/s "
+            f"({', '.join(f'{t * 1e3:.1f}' for t in enc[k])}), decode "
+            f"{dec_s[k] * 1e3:.2f} ms = {mp / dec_s[k]:.2f} MP/s "
+            f"({', '.join(f'{t * 1e3:.1f}' for t in dec[k])})"
+            for k in calls)
+        + f"; two shards on one card over one: encode "
+        f"{enc_s[twice] / enc_s['[cuda:0]']:.3f}x, decode "
+        f"{dec_s[twice] / dec_s['[cuda:0]']:.3f}x the time; phase 5's "
+        f"encode_lanes in this run {bench['encode_s'] * 1e3:.2f} ms, "
+        f"decode_lanes {bench['decode_s'] * 1e3:.2f} ms")
+    log(f"phase 10 kernel 1 alone ({S} lanes, host clock around a sync, "
+        f"median of 5 in turns): one launch {k1_ms['one launch']:.3f} ms, "
+        f"two launches of {S // 2} lanes on two side streams "
+        f"{k1_ms['two halves']:.3f} ms, ratio "
+        f"{k1_ms['two halves'] / k1_ms['one launch']:.3f} (1 if they "
+        "overlap, 2 if they run in turn)")
+    return {"launches": launches, "encode_s": enc_s, "decode_s": dec_s,
+            "k1_ms": k1_ms}
+
+
+def multi_distributed(torch, log) -> dict:
+    """Phase 10, distributed: ``POD_RANKS`` gloo ranks, each on cuda:0,
+    compress photo512 with ``compress_image_pod`` (equal on every rank, to
+    the call in this process and to the native backend's container of the
+    same stripes and flags) and run ``compress_corpus_distributed`` on 4
+    images; one NCCL rank of a world of 1 gathers CUDA streams exactly."""
+    import tempfile
+
+    from llcomp_tpu_torch import api, corpus, distributed
+
+    # by path: ``import tests...`` can find another package named tests
+    path = pathlib.Path(__file__).resolve().parent / "tests" / (
+        "test_torch_distributed.py")
+    spec = importlib.util.spec_from_file_location("torch_distributed_ranks",
+                                                  path)
+    ranks = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(ranks)
+    spawn = ranks.spawn
+
+    img = make_image(512, 512, 3, 1512)
+    imgs = [make_image(64 + 32 * i, 96, 3, 700 + i) for i in range(4)]
+    t0 = time.perf_counter()
+    alone = distributed.compress_image_pod(img, slice_h=8)
+    alone_s = time.perf_counter() - t0
+    native = api.compress(img, slices=512 // 8, seeded=False,
+                          backend="native")
+    check(alone == native, "compress_image_pod in one process != the "
+          "native backend's container")
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        try:
+            res = spawn(POD_RANKS, img, pathlib.Path(tmp) / "pod",
+                        device="cuda:0", corpus=imgs, timeout=120)
+            spawn_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            gather = spawn(1, img, pathlib.Path(tmp) / "nccl",
+                           backend="nccl", device="cuda:0", mode="gather",
+                           timeout=120)
+            nccl_s = time.perf_counter() - t0
+        except RuntimeError as e:
+            raise Failed(f"phase 10 distributed: {e}") from e
+    pods = {bytes.fromhex(r["pod"]) for r in res}
+    check(pods == {alone}, f"pod: {len(pods)} distinct containers over "
+          f"{POD_RANKS} ranks, or != the single-process call")
+    got = [bytes.fromhex(b) for r in res for b in r["blobs"]]
+    for r in res:
+        lo, hi = r["span"]
+        want, _ = corpus.compress_corpus(imgs[lo:hi], slice_h=8,
+                                         backend="native")
+        check(got[lo:hi] == want, f"rank {r['rank']}'s corpus blobs != the "
+              "native backend's")
+    check(gather[0]["equal"] and gather[0]["world"] == 1,
+          f"NCCL world-1 gather: {gather[0]}")
+    pod_s = [r["pod_s"] for r in res]
+    log(f"phase 10 distributed: {POD_RANKS} gloo ranks on cuda:0, photo512 "
+        f"in 8-row stripes: every rank's container == the single-process "
+        f"call == backend='native'; compress_image_pod "
+        + ", ".join(f"{s:.3f}" for s in pod_s) + f" s on the ranks, "
+        f"{alone_s:.3f} s alone; compress_corpus_distributed of 4 images, "
+        f"spans {[r['span'] for r in res]}, == native; ranks' wall "
+        f"{spawn_s:.1f} s; NCCL world of 1: _allgather_streams of CUDA "
+        f"blocks exact ({nccl_s:.1f} s)")
+    return {"pod_s": pod_s, "alone_s": alone_s}
+
+
+def multi_profiling(torch, log) -> dict:
+    """Phase 10, profiling: one compress + decompress of photo512 under
+    ``trace_to`` (the trace names the stage labels and kernels 1 and 2),
+    then under LLCT_PROFILE=1 (the stage report)."""
+    import os
+    import tempfile
+
+    from llcomp_tpu_torch import api, profiling
+
+    img = make_image(512, 512, 3, 1512)
+    with tempfile.TemporaryDirectory() as tmp:
+        with profiling.trace_to(tmp) as path:
+            out = api.decompress(api.compress(img, slices="auto"))
+        events = json.loads(path.read_text())["traceEvents"]
+        size = path.stat().st_size
+    check(np.array_equal(out, img), "profiled round trip not exact")
+    names = {e.get("name", "") for e in events}
+    missing = [lb for lb in STAGE_LABELS if lb not in names]
+    missing += [k for k in KERNEL_NAMES.values()
+                if not any(k in n for n in names)]
+    check(not missing, f"trace lacks {missing}")
+    profiling.stages.totals.clear()
+    profiling.stages.counts.clear()
+    os.environ["LLCT_PROFILE"] = "1"
+    try:
+        t0 = time.perf_counter()
+        blob = api.compress(img, slices="auto")
+        t1 = time.perf_counter()
+        api.decompress(blob)
+        t2 = time.perf_counter()
+    finally:
+        del os.environ["LLCT_PROFILE"]
+    report = profiling.stages.report()
+    check(set(STAGE_LABELS) <= set(report), f"stage report {report}")
+    log(f"phase 10 profiling: trace_to wrote {size} B, {len(events)} events "
+        f"naming {len(STAGE_LABELS)} stage labels and kernels "
+        f"{list(KERNEL_NAMES.values())}; LLCT_PROFILE=1 photo512 compress "
+        f"{t1 - t0:.3f} s, decompress {t2 - t1:.3f} s (synced at every "
+        f"stage: an attribution, not a throughput), stages: "
+        + json.dumps(report))
+    return report
+
+
+def phase_multi(torch, log, card: str, bench: dict) -> dict:
+    """Phase 10: the multi-device and multi-process surface; fails past
+    ``PHASE10_LIMIT_S``."""
+    from llcomp_tpu_torch import graft_entry
+
+    meshes = _meshes(torch)
+    t = {}
+    t0 = time.perf_counter()
+    multi_containers(torch, log, meshes)
+    t["containers"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    shards = multi_bench(torch, log, card, meshes, bench)
+    t["bench batch"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    pod = multi_distributed(torch, log)
+    t["distributed"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    stages = multi_profiling(torch, log)
+    t["profiling"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    fn, args = graft_entry.entry("cuda")
+    out, lens = fn(*args)
+    fn_c, args_c = graft_entry.entry("cpu")
+    out_c, lens_c = fn_c(*args_c)
+    check(torch.equal(lens.cpu(), lens_c) and all(
+        torch.equal(out[s, : lens_c[s]].cpu(), out_c[s, : lens_c[s]])
+        for s in range(len(lens_c))), "entry('cuda') != entry('cpu')")
+    graft_entry.dryrun_multichip(2, mesh=["cuda:0", "cuda:0"])
+    t["graft entry"] = time.perf_counter() - t0
+    total = sum(t.values())
+    log("phase 10 graft entry: entry('cuda') == entry('cpu'), "
+        "dryrun_multichip(2, [cuda:0, cuda:0]) passed")
+    log("phase 10 seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in t.items())
+        + f"; total {total:.1f} of the {PHASE10_LIMIT_S} s limit")
+    check(total < PHASE10_LIMIT_S,
+          f"phase 10 took {total:.1f} s, over its {PHASE10_LIMIT_S} s limit")
+    return {**shards, **pod, "stages": stages, "seconds": t}
+
+
 def main() -> int:
     t_start = time.perf_counter()
     try:
@@ -3340,6 +3708,7 @@ def main() -> int:
         counts = timed(4, phase_main_path, torch, log)
         surface = timed(9, phase_surface, torch, log)
         bench = timed(5, phase_bench, torch, log, card, variants)
+        multi = timed(10, phase_multi, torch, log, card, bench)
         sort = timed(6, phase_sort, torch, log, card, variants)
         decision = timed(7, phase_decision, torch, log, card, variants)
         probe = timed(8, phase_probes, torch, log, card, turns, variants)
@@ -3350,7 +3719,7 @@ def main() -> int:
     except Failed as e:
         print(f"chip_smoke FAILED: {e}", file=sys.stderr)
         return 1
-    log(f"chip_smoke: phases 1-9 passed in "
+    log(f"chip_smoke: phases 1-10 passed in "
         f"{time.perf_counter() - t_start:.1f} s")
 
     def bound_of(b: dict) -> dict:
@@ -3369,7 +3738,9 @@ def main() -> int:
          "ms_subset": bench["encode_sub_ms"], "note": note,
          "launches_phase9": {
              "reencode_slice": surface["reencode"],
-             "corpus": surface["corpus"]["counts"]["encode_fused"]}},
+             "corpus": surface["corpus"]["counts"]["encode_fused"]},
+         "launches_phase10": {m: c["encode_fused"]
+                              for m, c in multi["launches"].items()}},
         {"name": "decode_kernel", "route": "cuda",
          "source": "llcomp_tpu_torch/csrc/decode_kernel.cu",
          "replaces": "llcomp_tpu/pallas/decode_kernel.py:444",
@@ -3379,7 +3750,9 @@ def main() -> int:
          **bound_of(bench["bounds"]["decode_kernel"]),
          "ms_subset": bench["decode_sub_ms"], "note": note,
          "launches_phase9": {
-             "corpus": surface["corpus"]["counts"]["decode_kernel"]}},
+             "corpus": surface["corpus"]["counts"]["decode_kernel"]},
+         "launches_phase10": {m: c["decode_kernel"]
+                              for m, c in multi["launches"].items()}},
     ]
     for name, src, line, err in (("walk_symbols", "walk_symbols", 175, "walk"),
                                  ("coder_scan_off_q", "coder_scan", 574,

@@ -7,8 +7,13 @@ numpy, never JAX.  Public API (lazy: importing the package builds nothing):
     compress_sliced(img) / decompress_sliced(data)            sliced aliases
     reencode_slice(data, index, stripe, device="cuda")        -> bytes
 Beside it: ``corpus`` (many images in shared lane batches), ``host`` (the
-native C++ runtime), ``rev0`` (the legacy bitstream) and the CLI,
-``python -m llcomp_tpu_torch.cli``.
+native C++ runtime), ``rev0`` (the legacy bitstream), ``parallel`` (lanes
+split over a list of devices: ``encode_lanes_sharded``,
+``compress_sharded``, ...), ``distributed`` (processes on
+``torch.distributed``: corpus spans and one image's stripes gathered in
+order), ``profiling`` (stage labels in ``torch.profiler`` traces, the
+``LLCT_PROFILE=1`` stage timer), ``graft_entry`` (``entry`` and
+``dryrun_multichip``) and the CLI, ``python -m llcomp_tpu_torch.cli``.
 """
 from .core.config import EXT, EXT_SLICED, REV2, CodecConfig  # noqa: F401
 

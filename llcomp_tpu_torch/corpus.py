@@ -6,10 +6,8 @@ where one image has few stripes; each image's container is put back
 together in order, byte-equal to compressing the image alone with the
 corpus's settings.  On the device, the batches go through
 ``encode.encode_lanes_pipelined``, which overlaps their uploads, kernels
-and downloads on CUDA streams.
-
-The JAX package's ``mesh=`` (a corpus sharded over devices) is left out
-until the port's multi-device module exists.
+and downloads on CUDA streams; with ``mesh=`` (a list of devices) each
+batch is split over the devices by ``parallel``.
 """
 from __future__ import annotations
 
@@ -97,10 +95,27 @@ def _region_plan(shapes, slice_h: int, tile_w="auto"):
     return eff, regions_per, groups
 
 
+def _resolve(backend: str, device, mesh, lanes: int):
+    """-> (engine, device) as ``api._resolve_backend`` gives them, or, with
+    a mesh (which wins over ``backend``, as in the JAX package), ('torch',
+    the mesh's first device) for the policy's sampling."""
+    if mesh is None:
+        return api._resolve_backend(backend, device, lanes=lanes)
+    from . import parallel
+
+    api._check_backend(backend)
+    return "torch", parallel.devices(mesh)[0]
+
+
 def _encode_chunks(lanes: list[np.ndarray], cfg: CodecConfig, primed: bool,
-                   seed, engine: str, dev) -> list[list[bytes]]:
-    """Each lane batch's streams: the native runtime, or the device
-    engine with the batches pipelined."""
+                   seed, engine: str, dev, mesh=None) -> list[list[bytes]]:
+    """Each lane batch's streams: split over ``mesh``, the native runtime,
+    or the device engine with the batches pipelined."""
+    if mesh is not None:
+        from . import parallel
+
+        return [parallel.encode_lanes_sharded(b, mesh, cfg, primed, seed)
+                for b in lanes]
     if engine == "native":
         from . import host
 
@@ -116,7 +131,8 @@ def compress_corpus(images: list[np.ndarray], slice_h: int = 16,
                     cfg: CodecConfig = REV2, max_lanes_per_batch: int = 4096,
                     primed: bool | None = None, backend: str = "torch",
                     seeded: bool | None = None, tile_w: int | str = "auto",
-                    device="cuda") -> tuple[list[bytes], CorpusStats]:
+                    device="cuda", mesh=None
+                    ) -> tuple[list[bytes], CorpusStats]:
     """Compress many images -> (one sliced container each, stats).
 
     Stripes of all images share lane batches (grouped by shape, at most
@@ -129,6 +145,9 @@ def compress_corpus(images: list[np.ndarray], slice_h: int = 16,
     images that ``api.compress`` tiles; 0 never tiles; an int tiles every
     image wider than it.  ``backend`` and ``device``: as in
     ``api.compress``, 'auto' deciding by the corpus's stripe count.
+    ``mesh``: a list of devices (``parallel.make_mesh``) over which each
+    batch is split; it takes the place of ``backend`` and ``device``, and
+    ``seeded`` None then stores no seed (the JAX package's policy).
     """
     from . import seed as seedmod
 
@@ -136,15 +155,15 @@ def compress_corpus(images: list[np.ndarray], slice_h: int = 16,
     api._check_cfg(cfg)
     shapes = [im.shape for im in images]
     eff, regions_per, groups = _region_plan(shapes, slice_h, tile_w)
-    engine, dev = api._resolve_backend(
-        backend, device, lanes=sum(len(r) for r in regions_per))
+    engine, dev = _resolve(backend, device, mesh,
+                           lanes=sum(len(r) for r in regions_per))
     policy_dev = dev or torch.device("cpu")   # the native runtime's host
     if primed is None:
         votes = [api._pick_primed(im, policy_dev, cfg) for im in images[:8]]
         primed = sum(votes) * 2 > len(votes)
     if seeded is None:
         mean_raw = sum(im.nbytes for im in images) / max(len(images), 1)
-        seeded = primed and mean_raw >= 120_000
+        seeded = primed and mesh is None and mean_raw >= 120_000
     seed_tab = seed_blob = None
     if seeded:
         seed_tab = seedmod.derive_pooled(images[:16], cfg, device=policy_dev)
@@ -164,7 +183,7 @@ def compress_corpus(images: list[np.ndarray], slice_h: int = 16,
             stats.batches += 1
     per_image: list[list] = [[None] * len(regs) for regs in regions_per]
     for chunk, streams in zip(members, _encode_chunks(
-            lanes, cfg, primed, seed_tab, engine, dev)):
+            lanes, cfg, primed, seed_tab, engine, dev, mesh)):
         for (i, j, _region), blob in zip(chunk, streams):
             per_image[i][j] = blob
     stats.encode_s = time.perf_counter() - t0
@@ -187,11 +206,12 @@ def compress_corpus(images: list[np.ndarray], slice_h: int = 16,
 
 def decompress_corpus(blobs: list[bytes], cfg: CodecConfig = REV2,
                       max_lanes_per_batch: int = 4096,
-                      backend: str = "torch",
-                      device="cuda") -> list[np.ndarray]:
+                      backend: str = "torch", device="cuda",
+                      mesh=None) -> list[np.ndarray]:
     """Decompress many sliced containers, stripes of equal shape, flags and
-    seed sharing lane batches across images.  Raises ValueError on a
-    corrupt stream."""
+    seed sharing lane batches across images.  ``mesh``: a list of devices
+    over which each batch is split, in place of ``backend`` and
+    ``device``.  Raises ValueError on a corrupt stream."""
     from . import decode
     from . import seed as seedmod
 
@@ -206,8 +226,8 @@ def decompress_corpus(blobs: list[bytes], cfg: CodecConfig = REV2,
                 container.tile_regions(W, H, slice_h, tile_w)):
             groups.setdefault((y1 - y0, x1 - x0, C, primed, seed_blob),
                               []).append((idx, (y0, y1, x0, x1), streams[j]))
-    engine, dev = api._resolve_backend(
-        backend, device, lanes=sum(len(m) for m in groups.values()))
+    engine, dev = _resolve(backend, device, mesh,
+                           lanes=sum(len(m) for m in groups.values()))
     outs = [np.empty((H, W, C), dtype=np.uint8)
             for (_, W, H, C, _, _, _, _) in metas]
     for (rows, cols, C, primed, seed_blob), group in groups.items():
@@ -216,7 +236,12 @@ def decompress_corpus(blobs: list[bytes], cfg: CodecConfig = REV2,
         for start in range(0, len(group), max_lanes_per_batch):
             chunk = group[start : start + max_lanes_per_batch]
             streams = [m[2] for m in chunk]
-            if engine == "native":
+            if mesh is not None:
+                from . import parallel
+
+                lanes = parallel.decode_lanes_sharded(
+                    streams, (rows, cols, C), mesh, cfg, primed, seed_tab)
+            elif engine == "native":
                 from . import host
 
                 lanes = host.decode_streams(streams, (rows, cols, C),

@@ -34,13 +34,12 @@ Two engines give the same bytes:
 """
 from __future__ import annotations
 
-import collections
-
 import numpy as np
 import torch
 
 from . import coder
 from . import device as devmod
+from . import profiling
 from .core import tables, transform
 from .core.config import REV2, CodecConfig
 from .kernels.encode_fused import encode_fused_async
@@ -50,6 +49,7 @@ from .kernels.encode_kernels import (build_stream, coder_scan_off,
 
 # Device bytes one chunk of lanes may hold (``lane_bytes`` sizes a lane).
 LANE_BUDGET_BYTES = 8 << 30
+MAX_INFLIGHT = 2       # pieces of the fused engine a device holds at once
 ENGINES = ("fused", "sort")
 VARIANTS = ("symbol", "decision")     # the sort engine's two chains
 MAX_SLOTS = 24            # decisions per symbol at most (2 * 10 + 3, rounded)
@@ -319,19 +319,22 @@ def _encode_sort(lanes: torch.Tensor, cfg: CodecConfig, init, cap: int,
     ``stage_done(stage, *made)`` is called after each of the six stages
     with what it made; ``chip_smoke.py`` times the stages and holds the
     kernels against their plain versions through it."""
-    h, diff = _hash_diff(lanes, cfg)
+    timed = profiling.timed
+    h, diff = timed("encode/precompute", _hash_diff, lanes, cfg)
     _, sym_max, quad_max = stage_count(diff)
     K = slots_per_symbol(sym_max)
     stage_done("precompute and counts", K, quad_max)
-    xs, origsym = stage_sym_sort(h, diff, h.shape[1])
+    xs, origsym = timed("encode/sym_sort", stage_sym_sort, h, diff,
+                        h.shape[1])
     stage_done("sym sort", xs, origsym)
-    lo, hi = walk_symbols(xs, K, init)
+    lo, hi = timed("encode/walk", walk_symbols, xs, K, init)
     stage_done("walk", lo, hi)
-    qlo, qhi = stage_compact(lo, hi, origsym, K, quad_max)
+    qlo, qhi = timed("encode/compact_sort", stage_compact, lo, hi, origsym,
+                     K, quad_max)
     stage_done("compact sort", qlo, qhi)
-    kp, fin = coder_scan_off_q(qlo, qhi)
+    kp, fin = timed("encode/coder", coder_scan_off_q, qlo, qhi)
     stage_done("coder", kp, fin)
-    return _finish_bytes(kp, fin, cap, stage_done)
+    return timed("encode/finish", _finish_bytes, kp, fin, cap, stage_done)
 
 
 def _encode_decision(lanes: torch.Tensor, cfg: CodecConfig, init, cap: int,
@@ -344,7 +347,7 @@ def _encode_decision(lanes: torch.Tensor, cfg: CodecConfig, init, cap: int,
     ``check_decision_bounds``.  -> (bytes [S, width] u8, lens [S] int32).
 
     ``stage_done`` as in ``_encode_sort``, after each of the eight stages."""
-    h, diff = _hash_diff(lanes, cfg)
+    h, diff = profiling.timed("encode/precompute", _hash_diff, lanes, cfg)
     total, sym_max, _ = stage_count(diff)
     K = decision_slots(sym_max)
     n_sym = h.shape[1]
@@ -363,10 +366,11 @@ def _encode_decision(lanes: torch.Tensor, cfg: CodecConfig, init, cap: int,
     coder_xs = stage_back_sort(skey, spay, probs)
     del skey, spay, probs
     stage_done("back sort", coder_xs)
-    kp, fin = coder_scan_off(coder_xs)
+    kp, fin = profiling.timed("encode/coder", coder_scan_off, coder_xs)
     del coder_xs
     stage_done("coder", kp, fin)
-    return _finish_bytes(kp, fin, cap, stage_done)
+    return profiling.timed("encode/finish", _finish_bytes, kp, fin, cap,
+                           stage_done)
 
 
 def _streams(out: np.ndarray, lens: np.ndarray) -> list[bytes]:
@@ -429,11 +433,13 @@ def encode_lanes(imgs, cfg: CodecConfig = REV2, primed: bool = False,
     chunk = lanes_per_chunk(n_sym, engine, variant)
     streams: list[bytes] = []
     for c0 in range(0, S, chunk):
-        lanes = torch.from_numpy(imgs[c0 : c0 + chunk]).to(dev)
+        lanes = profiling.timed("encode/upload", torch.from_numpy(
+            imgs[c0 : c0 + chunk]).to, dev)
         out, lens = run(lanes, cfg, init, cap)
         lens_h = lens.cpu().numpy()
         width = int(lens_h.max(initial=0))
-        streams.extend(_streams(out[:, :width].cpu().numpy(), lens_h))
+        streams.extend(_streams(profiling.timed(
+            "encode/download", _to_host, out[:, :width]), lens_h))
     return streams
 
 
@@ -448,87 +454,94 @@ def pipeline_fits(n_sym: int) -> bool:
     return lane_bytes(n_sym, "fused") <= LANE_BUDGET_BYTES
 
 
-_SIDE: dict = {}     # device index -> the pipeline's side streams
+def _fused_input(lanes: torch.Tensor, cfg: CodecConfig) -> torch.Tensor:
+    """Kernel 1's input: the packed symbols of ``lanes``, symbol-major."""
+    return precompute(lanes, cfg).t().contiguous()
 
 
-def _side_streams(dev: torch.device, n: int) -> list:
-    """``n`` side streams of ``dev``, the same ones on every call: the
-    caching allocator keeps freed blocks per stream, so fresh streams would
-    allocate the pieces' buffers anew on each call."""
-    index = torch.cuda.current_device() if dev.index is None else dev.index
-    have = _SIDE.setdefault(index, [])
-    while len(have) < n:
-        have.append(torch.cuda.Stream(index))
-    return have[:n]
+def _to_host(t: torch.Tensor) -> np.ndarray:
+    return t.cpu().numpy()
 
 
-def _launch_piece(host: torch.Tensor, cfg: CodecConfig, init,
+def _launch_piece(lanes: np.ndarray, cfg: CodecConfig, init,
                   dev: torch.device, stream):
-    """Start one piece of lanes ``host`` [S, H, W, C] u8 (pinned when
-    several pieces overlap) through the fused engine on the side stream
-    ``stream``: the H2D copy, the precompute and kernel 1 are queued, then
-    a D2H of the lengths and overflow flags into pinned memory, then an
-    event.  ``stream`` None runs the piece at once on the current stream
-    (the CPU, or a single piece, which has nothing to overlap).  -> what
-    ``_collect_piece`` takes."""
-    cap = outcap(int(np.prod(host.shape[1:])))
-    if stream is None:
-        xs = precompute(host.to(dev), cfg)
-        out, lens, ovf = encode_fused_async(xs.t().contiguous(), init, cap)
-        return out, torch.stack([lens, ovf.to(torch.int32)]), None, None
-    with torch.cuda.stream(stream):
-        xs = precompute(host.to(dev, non_blocking=True), cfg)
-        out, lens, ovf = encode_fused_async(xs.t().contiguous(), init, cap)
-        meta = torch.empty((2, lens.shape[0]), dtype=torch.int32,
-                           pin_memory=True)
-        meta.copy_(torch.stack([lens, ovf.to(torch.int32)]),
-                   non_blocking=True)
-        done = torch.cuda.Event()
-        done.record(stream)
-    return out, meta, done, stream
+    """Start one piece of lanes [S, H, W, C] u8 through the fused engine on
+    ``dev`` and ``stream`` (None: the current stream), both made current:
+    the H2D copy (pageable: the host waits for the copy, not for the
+    kernels before it), the precompute and kernel 1 are queued.  Each stage
+    is ``profiling.timed`` on the current stream and only named
+    (``profiling.marked``) on a side stream, where a sync would undo the
+    overlap.  -> what ``_collect_piece`` takes."""
+    cap = outcap(int(np.prod(lanes.shape[1:])))
+    stage = profiling.timed if stream is None else profiling.marked
+    with devmod.guard(dev, stream):
+        x = stage("encode/upload", torch.from_numpy(lanes).to, dev)
+        xs = stage("encode/precompute", _fused_input, x, cfg)
+        out, lens, ovf = stage("encode/fused_kernel", encode_fused_async, xs,
+                               init, cap)
+        return out, torch.stack([lens, ovf.to(torch.int32)]), stream
 
 
-def _collect_piece(out: torch.Tensor, meta: torch.Tensor, done, stream
+def _collect_piece(out: torch.Tensor, meta: torch.Tensor, stream
                    ) -> list[bytes]:
-    """Wait for a piece's event, then bring back only ``out[:, :max(lens)]``
-    and cut the streams."""
-    if done is not None:
-        done.synchronize()
-    lens, ovf = meta.cpu().numpy()
-    if ovf.any():
-        raise RuntimeError(f"encoded stream overflowed outcap={out.shape[1]}")
-    width = int(lens.max(initial=0))
-    if stream is None:
-        return _streams(out[:, :width].cpu().numpy(), lens)
-    host = torch.empty((out.shape[0], width), dtype=torch.uint8,
-                       pin_memory=True)
-    with torch.cuda.stream(stream):
-        host.copy_(out[:, :width], non_blocking=True)
-    stream.synchronize()
-    return _streams(host.numpy(), lens)
+    """Wait for a piece's stream through its lengths and overflow flags,
+    then bring back only ``out[:, :max(lens)]`` and cut the streams."""
+    stage = profiling.timed if stream is None else profiling.marked
+    with devmod.guard(out.device, stream):
+        lens, ovf = meta.cpu().numpy()
+        if ovf.any():
+            raise RuntimeError(
+                f"encoded stream overflowed outcap={out.shape[1]}")
+        width = int(lens.max(initial=0))
+        return _streams(stage("encode/download", _to_host, out[:, :width]),
+                        lens)
+
+
+def _encode_fused(batches: list[np.ndarray], devs: list, cfg: CodecConfig,
+                  init, max_inflight: int) -> list[list[bytes]]:
+    """The fused engine's loop: each batch's lanes split over ``devs``
+    (``device.shard_plan``) and cut into pieces of at most
+    ``lanes_per_chunk`` lanes (each holding ``outcap`` bytes a lane on the
+    device), run through ``device.overlapped`` with at most
+    ``max_inflight`` pieces of a device in flight, or one where a lane
+    alone outgrows a chunk's budget (``pipeline_fits``), and at least one
+    of each of the device's shards.  -> each batch's streams."""
+    work, where = [], []
+    for bi, b in enumerate(batches):
+        n_sym = int(np.prod(b.shape[1:]))
+        if not pipeline_fits(n_sym):
+            max_inflight = 1
+        for dev, lo, hi in devmod.pieces(len(b), devs,
+                                         lanes_per_chunk(n_sym, "fused")):
+            work.append((dev, (b[lo:hi], cfg, init)))
+            where.append((bi, lo))
+    done = devmod.overlapped(work, _launch_piece, _collect_piece,
+                             max(max_inflight, devmod.most_shards(devs)))
+    streams: list[list[bytes]] = [[] for _ in batches]
+    for (bi, _), piece in sorted(zip(where, done), key=lambda p: p[0]):
+        streams[bi] += piece
+    return streams
 
 
 def encode_lanes_pipelined(batches, cfg: CodecConfig = REV2,
                            primed: bool = False, seed=None, device="cuda",
                            engine: str = "fused",
-                           max_inflight: int = 2) -> list[list[bytes]]:
+                           max_inflight: int = MAX_INFLIGHT
+                           ) -> list[list[bytes]]:
     """Encode several lane batches [S_i, H_i, W_i, C_i] u8 -> each batch's
     streams, equal to ``encode_lanes`` on that batch.
 
     Port of ``encode_lanes_pipelined`` (`encode.py:815-976` of the JAX
-    package) on CUDA streams.  Fused engine: each batch (cut into pieces
-    of at most ``lanes_per_chunk`` lanes, each holding ``outcap`` bytes a
-    lane on the device) is staged in pinned memory and its H2D copy,
-    precompute and kernel 1 run on a side stream, with its lengths on their
-    way back, while earlier pieces are still on the device; pieces are
-    collected in order, each after its event, bringing back only the bytes
-    up to its longest stream.  At most ``max_inflight`` pieces are on the
-    device at once, or one when a lane alone outgrows a chunk's budget
-    (``pipeline_fits``).  A single piece runs at once on the current
-    stream, through pageable copies.
-    engine='sort' runs the batches one after another through
-    ``encode_lanes``.  On the CPU the pieces run in turn through the plain
-    version.
+    package) on CUDA streams.  Fused engine: each batch is cut into pieces
+    of at most ``lanes_per_chunk`` lanes, and each piece's H2D copy,
+    precompute and kernel 1 run on a side stream while earlier pieces are
+    still on the device; pieces are collected in order, bringing back only
+    the bytes up to their longest stream.  At most ``max_inflight`` pieces
+    are on the device at once, or one when a lane alone outgrows a chunk's
+    budget (``pipeline_fits``).  A single piece runs at once on the
+    current stream.  engine='sort' runs the batches one after another
+    through ``encode_lanes``.  On the CPU the pieces run in turn through
+    the plain version.
     """
     _check_args(cfg, engine, "symbol", primed, seed)
     if max_inflight < 1:
@@ -538,32 +551,5 @@ def encode_lanes_pipelined(batches, cfg: CodecConfig = REV2,
     if engine == "sort":
         return [encode_lanes(b, cfg, primed, seed, dev, engine)
                 for b in batches]
-    init = _start_table(primed, seed)
-    pieces = []
-    for bi, b in enumerate(batches):
-        n_sym = int(np.prod(b.shape[1:]))
-        if not pipeline_fits(n_sym):
-            max_inflight = 1
-        step = lanes_per_chunk(n_sym, "fused")
-        pieces += [(bi, b[c0 : c0 + step]) for c0 in range(0, len(b), step)]
-    streams: list[list[bytes]] = [[] for _ in batches]
-    # side streams and pinned staging let the host go on while a piece's
-    # H2D runs; one piece has nothing to overlap and runs at once on the
-    # current stream through pageable copies (with the pinned ones, every
-    # third call of a fresh process ran slow: tools/torch_phase3_seconds.py
-    # --run encode)
-    overlap = dev.type == "cuda" and len(pieces) > 1
-    side = _side_streams(dev, max_inflight) if overlap else [None]
-    inflight: collections.deque = collections.deque()
-    for k, (bi, lanes) in enumerate(pieces):
-        host = torch.from_numpy(lanes)
-        if overlap:
-            host = host.pin_memory()     # staged before waiting on a piece
-        while len(inflight) >= max_inflight:
-            bj, item = inflight.popleft()
-            streams[bj] += _collect_piece(*item)
-        inflight.append((bi, _launch_piece(host, cfg, init, dev,
-                                           side[k % len(side)])))
-    for bj, item in inflight:
-        streams[bj] += _collect_piece(*item)
-    return streams
+    return _encode_fused(batches, [dev], cfg, _start_table(primed, seed),
+                         max_inflight)

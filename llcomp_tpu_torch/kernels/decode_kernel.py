@@ -36,7 +36,7 @@ from ..coder import Decoder, wrap32
 from ..core import tables
 from ..core.config import REV2
 from . import build
-from .encode_fused import _model_start
+from .encode_fused import _model_start, _table, _upload
 
 _NS = REV2.num_states
 _P = ctypes.c_void_p
@@ -138,9 +138,11 @@ def decode(data: torch.Tensor, lens: torch.Tensor, H: int, W: int, C: int,
     (planes [n_sym, S] int32, err [S] int32).  Bytes at or past
     ``min(len, cap)`` read as 0.
 
-    CUDA tensors launch the kernel, counted in ``decode.launches`` and, by
-    instantiation, in ``decode.instances``; CPU tensors run
-    ``decode_plain``.
+    CUDA tensors launch the kernel on their device, made current for the
+    launch, with the constant tables kept on the card and the start table
+    through pinned memory (no host wait), counted
+    in ``decode.launches`` and, by instantiation, in ``decode.instances``;
+    CPU tensors run ``decode_plain``.
     """
     if data.dim() != 2 or data.dtype != torch.uint8:
         raise ValueError(f"data must be [S, cap] uint8, got "
@@ -155,23 +157,24 @@ def decode(data: torch.Tensor, lens: torch.Tensor, H: int, W: int, C: int,
     data = data.contiguous()
     lens = lens.contiguous()
     dev = data.device
-    if cap % 16 or data.data_ptr() % 16:   # rows of aligned 16-byte words
-        wide = torch.zeros((S, -(-cap // 16) * 16), dtype=torch.uint8,
-                           device=dev)
-        wide[:, :cap] = data
-        lens, data, cap = lens.clamp(max=cap), wide, wide.shape[1]
-    tabs = [torch.from_numpy(t.astype(np.int32)).to(dev)
-            for t in (tables.FUSED, tables.QUANT11, tables.QUANT5)]
-    init_t = (None if init is None else
-              torch.from_numpy(tables.pack_u64(init)).to(dev))
-    model = torch.empty((S, _NS), dtype=torch.uint8, device=dev)
-    planes = torch.empty((H * W * C, S), dtype=torch.int32, device=dev)
-    err = torch.empty(S, dtype=torch.int32, device=dev)
     fn = build.load("decode_kernel", "llct_decode", [_P] * 9 + [_I] * 5 + [_P])
-    rc = fn(data.data_ptr(), lens.data_ptr(), *(t.data_ptr() for t in tabs),
-            None if init_t is None else init_t.data_ptr(), model.data_ptr(),
-            planes.data_ptr(), err.data_ptr(), S, cap, H, W, C,
-            torch.cuda.current_stream(dev).cuda_stream)
+    with torch.cuda.device(dev):      # the launch runs on the current device
+        if cap % 16 or data.data_ptr() % 16:  # rows of aligned 16-byte words
+            wide = torch.zeros((S, -(-cap // 16) * 16), dtype=torch.uint8,
+                               device=dev)
+            wide[:, :cap] = data
+            lens, data, cap = lens.clamp(max=cap), wide, wide.shape[1]
+        tabs = [_table(t, dev) for t in ("FUSED", "QUANT11", "QUANT5")]
+        init_t = (None if init is None else
+                  _upload(tables.pack_u64(init), dev))
+        model = torch.empty((S, _NS), dtype=torch.uint8, device=dev)
+        planes = torch.empty((H * W * C, S), dtype=torch.int32, device=dev)
+        err = torch.empty(S, dtype=torch.int32, device=dev)
+        rc = fn(data.data_ptr(), lens.data_ptr(),
+                *(t.data_ptr() for t in tabs),
+                None if init_t is None else init_t.data_ptr(),
+                model.data_ptr(), planes.data_ptr(), err.data_ptr(), S, cap,
+                H, W, C, torch.cuda.current_stream(dev).cuda_stream)
     build.check(rc, "decode")
     decode.launches += 1
     decode.instances[instance(C)] += 1

@@ -91,12 +91,28 @@ def _upload(arr: np.ndarray, dev) -> torch.Tensor:
     return torch.from_numpy(arr).pin_memory().to(dev, non_blocking=True)
 
 
+_TABLES: dict = {}     # (table name, device index) -> the table on that card
+
+
+def _table(name: str, dev: torch.device) -> torch.Tensor:
+    """``tables.<name>`` as int32 on the CUDA device ``dev``, uploaded by
+    the first call for that card and kept: the tables are constants, so
+    later launches queue no copy for them."""
+    index = torch.cuda.current_device() if dev.index is None else dev.index
+    if (name, index) not in _TABLES:
+        _TABLES[name, index] = torch.from_numpy(
+            getattr(tables, name).astype(np.int32)).to(
+                torch.device("cuda", index))
+    return _TABLES[name, index]
+
+
 def encode_fused_async(xs: torch.Tensor, init, outcap: int):
     """``encode_fused`` without its overflow check: -> (bytes [S, outcap]
     u8, lengths [S] int32, overflow flags [S]).  On CUDA nothing waits for
     the kernel: it runs on the current stream (``encode_lanes_pipelined``
     overlaps batches this way) and the caller reads the flags once it has
-    synced.  Counts the launch in ``encode_fused.launches``."""
+    synced.  The kernel launches on ``xs``'s device, made current for the
+    launch.  Counts the launch in ``encode_fused.launches``."""
     if xs.dim() != 2 or xs.dtype != torch.int32:
         raise ValueError(f"xs must be [n_sym, S] int32, got {tuple(xs.shape)} "
                          f"{xs.dtype}")
@@ -107,19 +123,20 @@ def encode_fused_async(xs: torch.Tensor, init, outcap: int):
         raise ValueError(f"outcap must be a multiple of 4, got {outcap}")
     xs = xs.contiguous()
     dev = xs.device
-    fused = _upload(tables.FUSED, dev)
-    init_t = None if init is None else _upload(tables.pack_u64(init), dev)
-    model = torch.empty((S, _NS), dtype=torch.uint8, device=dev)
-    out = torch.empty((S, outcap), dtype=torch.uint8, device=dev)
-    lens = torch.empty(S, dtype=torch.int32, device=dev)
-    ovf = torch.empty(S, dtype=torch.int32, device=dev)
     fn = build.load("encode_fused", "llct_encode_fused",
                     [_P] * 7 + [_I] * 3 + [_P])
-    rc = fn(xs.data_ptr(), fused.data_ptr(),
-            None if init_t is None else init_t.data_ptr(),
-            model.data_ptr(), out.data_ptr(), lens.data_ptr(),
-            ovf.data_ptr(), n_sym, S, outcap,
-            torch.cuda.current_stream(dev).cuda_stream)
+    with torch.cuda.device(dev):      # the launch runs on the current device
+        fused = _table("FUSED", dev)
+        init_t = None if init is None else _upload(tables.pack_u64(init), dev)
+        model = torch.empty((S, _NS), dtype=torch.uint8, device=dev)
+        out = torch.empty((S, outcap), dtype=torch.uint8, device=dev)
+        lens = torch.empty(S, dtype=torch.int32, device=dev)
+        ovf = torch.empty(S, dtype=torch.int32, device=dev)
+        rc = fn(xs.data_ptr(), fused.data_ptr(),
+                None if init_t is None else init_t.data_ptr(),
+                model.data_ptr(), out.data_ptr(), lens.data_ptr(),
+                ovf.data_ptr(), n_sym, S, outcap,
+                torch.cuda.current_stream(dev).cuda_stream)
     build.check(rc, "encode_fused")
     encode_fused.launches += 1
     return out, lens, ovf

@@ -18,8 +18,9 @@ lane-major ``[S, n*K]`` for the forward sort.  The TPU's [G, T, 8, 128]
 lane groups, grid chunks and scratch carries have no counterpart.  The
 source notes in ``csrc/`` say what bounds each kernel on the H100.
 
-A CUDA tensor launches the kernel (and counts the launch on the wrapper); a
-CPU tensor runs the plain version.  Coder records are 10 bits,
+A CUDA tensor launches the kernel on its device, made current for the launch
+(a kernel runs on the host thread's current device), and counts the launch
+on the wrapper; a CPU tensor runs the plain version.  Coder records are 10 bits,
 ``valid<<9 | bit<<8 | prob``; kernels 3 and 4 pair-pack them: quad q's
 records 4q, 4q+1 sit in ``lo`` (``rec_{4q+1}<<10 | rec_{4q}``) and 4q+2,
 4q+3 in ``hi``.
@@ -178,14 +179,15 @@ def walk_symbols(xs: torch.Tensor, K: int = 24, init=None
     xs = xs.contiguous()
     n, S = xs.shape
     dev = xs.device
-    fused = _fused_table(dev)
-    rows = reset_rows(init, dev)
-    lo = torch.empty((n * K // 4, S), dtype=torch.int32, device=dev)
-    hi = torch.empty_like(lo)
     fn = build.load("walk_symbols", "llct_walk_symbols",
                     [_P] * 5 + [_I] * 3 + [_P])
-    rc = fn(xs.data_ptr(), fused.data_ptr(), rows.data_ptr(), lo.data_ptr(),
-            hi.data_ptr(), n, S, K, _stream(dev))
+    with torch.cuda.device(dev):
+        fused = _fused_table(dev)
+        rows = reset_rows(init, dev)
+        lo = torch.empty((n * K // 4, S), dtype=torch.int32, device=dev)
+        hi = torch.empty_like(lo)
+        rc = fn(xs.data_ptr(), fused.data_ptr(), rows.data_ptr(),
+                lo.data_ptr(), hi.data_ptr(), n, S, K, _stream(dev))
     build.check(rc, "walk_symbols")
     walk_symbols.launches += 1
     return lo, hi
@@ -234,11 +236,12 @@ def build_stream(hash_: torch.Tensor, diff: torch.Tensor, n_sym: int,
     hash_, diff = hash_.contiguous(), diff.contiguous()
     S, n_pad = hash_.shape
     dev = hash_.device
-    out = torch.empty((S, n_pad * K), dtype=torch.int32, device=dev)
     fn = build.load("build_stream", "llct_build_stream",
                     [_P] * 3 + [_I] * 4 + [_P])
-    rc = fn(hash_.data_ptr(), diff.data_ptr(), out.data_ptr(), S, n_pad,
-            n_sym, K, _stream(dev))
+    with torch.cuda.device(dev):
+        out = torch.empty((S, n_pad * K), dtype=torch.int32, device=dev)
+        rc = fn(hash_.data_ptr(), diff.data_ptr(), out.data_ptr(), S, n_pad,
+                n_sym, K, _stream(dev))
     build.check(rc, "build_stream")
     build_stream.launches += 1
     return out
@@ -288,11 +291,12 @@ def walk_probs(xs: torch.Tensor) -> torch.Tensor:
     xs = xs.contiguous()
     T, S = xs.shape
     dev = xs.device
-    fused = _fused_table(dev)
-    probs = torch.empty((T, S), dtype=torch.int32, device=dev)
     fn = build.load("walk_probs", "llct_walk_probs", [_P] * 3 + [_I] * 2 + [_P])
-    rc = fn(xs.data_ptr(), fused.data_ptr(), probs.data_ptr(), T, S,
-            _stream(dev))
+    with torch.cuda.device(dev):
+        fused = _fused_table(dev)
+        probs = torch.empty((T, S), dtype=torch.int32, device=dev)
+        rc = fn(xs.data_ptr(), fused.data_ptr(), probs.data_ptr(), T, S,
+                _stream(dev))
     build.check(rc, "walk_probs")
     walk_probs.launches += 1
     return probs
@@ -348,13 +352,14 @@ def _launch_off(entry: str, inputs: tuple, steps: int, T: int, S: int, dev
                 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Launch kernel 4 or 7 (the C entry ``entry``) over ``steps`` input
     rows -> (kp [T, S], fin [5, S], per-lane offset error flags)."""
-    kp = torch.empty((T, S), dtype=torch.int32, device=dev)
-    fin = torch.empty((5, S), dtype=torch.int32, device=dev)
-    bad = torch.empty(S, dtype=torch.int32, device=dev)
     fn = build.load("coder_scan", entry,
                     [_P] * (len(inputs) + 3) + [_I] * 2 + [_P])
-    rc = fn(*(t.data_ptr() for t in inputs), kp.data_ptr(), fin.data_ptr(),
-            bad.data_ptr(), steps, S, _stream(dev))
+    with torch.cuda.device(dev):
+        kp = torch.empty((T, S), dtype=torch.int32, device=dev)
+        fin = torch.empty((5, S), dtype=torch.int32, device=dev)
+        bad = torch.empty(S, dtype=torch.int32, device=dev)
+        rc = fn(*(t.data_ptr() for t in inputs), kp.data_ptr(),
+                fin.data_ptr(), bad.data_ptr(), steps, S, _stream(dev))
     build.check(rc, entry)
     return kp, fin, bad
 
@@ -470,12 +475,13 @@ def coder_scan(xs: torch.Tensor
     xs = xs.contiguous()
     T, S = xs.shape
     dev = xs.device
-    meta = torch.empty((T, S), dtype=torch.int32, device=dev)
-    runs = torch.empty_like(meta)
-    fin = torch.empty((4, S), dtype=torch.int32, device=dev)
     fn = build.load("coder_scan", "llct_coder_scan", [_P] * 4 + [_I] * 2 + [_P])
-    rc = fn(xs.data_ptr(), meta.data_ptr(), runs.data_ptr(), fin.data_ptr(),
-            T, S, _stream(dev))
+    with torch.cuda.device(dev):
+        meta = torch.empty((T, S), dtype=torch.int32, device=dev)
+        runs = torch.empty_like(meta)
+        fin = torch.empty((4, S), dtype=torch.int32, device=dev)
+        rc = fn(xs.data_ptr(), meta.data_ptr(), runs.data_ptr(),
+                fin.data_ptr(), T, S, _stream(dev))
     build.check(rc, "coder_scan")
     coder_scan.launches += 1
     return meta, runs, fin

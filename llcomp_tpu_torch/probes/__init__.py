@@ -116,14 +116,17 @@ def plane(model, lanes: int, dev, planes: int = 0) -> torch.Tensor:
 
 
 def launch(source: str, entry: str, *args) -> None:
-    """Launch ``entry`` of ``csrc/<source>.cu`` on the current stream:
-    tensors pass as pointers, ints as C ints; raises on a launch error."""
+    """Launch ``entry`` of ``csrc/<source>.cu`` on the current stream of
+    the first tensor's device, with that device current (the launch runs on
+    the host thread's current device): tensors pass as pointers, ints as C
+    ints; raises on a launch error."""
     fn = build.load(source, entry,
                     [_P if isinstance(a, torch.Tensor) else _I for a in args]
                     + [_P])
     dev = next(a.device for a in args if isinstance(a, torch.Tensor))
-    rc = fn(*(a.data_ptr() if isinstance(a, torch.Tensor) else int(a)
-              for a in args), torch.cuda.current_stream(dev).cuda_stream)
+    with torch.cuda.device(dev):
+        rc = fn(*(a.data_ptr() if isinstance(a, torch.Tensor) else int(a)
+                  for a in args), torch.cuda.current_stream(dev).cuda_stream)
     build.check(rc, entry)
 
 

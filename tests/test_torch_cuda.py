@@ -21,9 +21,10 @@ from chip_smoke import (CODERS, EDGE_RESIDUALS, P11_TAGS, PG_TAGS, PG_WORDS,
                         p9_hazard_idx, p11_cases, p11_inputs, pack_quads,
                         pF_hazard_cases, pG_cases, reduce_cases, repeat_lanes,
                         running, skewed_recs, walk_case_errs, walk_steps)
-from chip_smoke import _flip_slice, make_image
+from chip_smoke import _flip_slice, _malicious_stream, make_image
 from llcomp_tpu_torch import (api, coder, container, corpus, decode, encode,
-                              probes, seed)
+                              graft_entry, parallel, probes, seed)
+from llcomp_tpu_torch import device as devmod
 from llcomp_tpu_torch.core.config import REV2
 from llcomp_tpu_torch.kernels import build
 from llcomp_tpu_torch.kernels import decode_kernel as dk
@@ -756,3 +757,131 @@ def test_corpus_round_trip_on_the_card(dev):
     assert blobs == native
     for a, b in zip(corpus.decompress_corpus(blobs, device=dev), imgs):
         np.testing.assert_array_equal(a, b)
+
+
+TWICE = ["cuda:0", "cuda:0"]
+
+
+@pytest.mark.parametrize("start", ["unprimed", "primed", "seeded"])
+def test_sharded_on_one_card_twice_equals_one_call(dev, start):
+    """Two shards on cuda:0 (distinct side streams): the streams and pixels
+    of one encode_lanes / decode_lanes call, one launch of kernels 1 and 2
+    a shard, and a corrupt stream named by its global lane index."""
+    lanes = np.concatenate([_lanes((8, 24, 3), n=40), _lanes((8, 24, 3))])
+    kw = {"unprimed": {}, "primed": {"primed": True},
+          "seeded": {"seed": seed.derive(make_image(64, 64, 3, 6),
+                                         device=dev)}}[start]
+    want = encode.encode_lanes(lanes, device=dev, **kw)
+    e0, d0 = ef.encode_fused.launches, dk.decode.launches
+    got = parallel.encode_lanes_sharded(lanes, TWICE, **kw)
+    assert got == want and ef.encode_fused.launches == e0 + 2
+    out = parallel.decode_lanes_sharded(got, (8, 24, 3), TWICE, **kw)
+    np.testing.assert_array_equal(out, lanes)
+    assert dk.decode.launches == d0 + 2
+    if start == "unprimed":
+        got[31] = _malicious_stream()
+        with pytest.raises(ValueError, match=r"lanes \[31\]"):
+            parallel.decode_lanes_sharded(got, (8, 24, 3), TWICE)
+
+
+def test_sharded_shards_of_several_pieces_on_one_card_twice(dev,
+                                                           monkeypatch):
+    """Shards cut into pieces of 3 lanes (encode) and 1 lane (decode):
+    several pieces of each shard in flight on distinct side streams, the
+    streams and pixels of one call, one launch a piece."""
+    lanes = np.concatenate([_lanes((8, 24, 3), n=40), _lanes((8, 24, 3))])
+    want = encode.encode_lanes(lanes, device=dev)
+    monkeypatch.setattr(encode, "LANE_BUDGET_BYTES",
+                        3 * encode.lane_bytes(8 * 24 * 3, "fused"))
+    monkeypatch.setattr(decode, "LANE_BUDGET_BYTES", 1)
+    e0, d0 = ef.encode_fused.launches, dk.decode.launches
+    got = parallel.encode_lanes_sharded(lanes, TWICE)
+    assert got == want
+    assert ef.encode_fused.launches == e0 + len(devmod.pieces(
+        len(lanes), TWICE, 3))
+    np.testing.assert_array_equal(
+        parallel.decode_lanes_sharded(got, (8, 24, 3), TWICE), lanes)
+    assert dk.decode.launches == d0 + len(lanes)
+
+
+@pytest.mark.parametrize("slices", [8, "auto"])
+def test_compress_sharded_on_the_card_equals_the_native_backend(dev, slices):
+    img = make_image(96, 40, 3, 11)
+    blob = parallel.compress_sharded(img, TWICE, slices=slices)
+    if slices == "auto":
+        assert container.unpack_sliced(blob)[4] == api.pick_slice_height(
+            96, 40, 3, target_lanes=16)
+    else:
+        assert blob == api.compress(img, slices=slices, backend="native")
+    np.testing.assert_array_equal(parallel.decompress_sharded(blob, TWICE),
+                                  img)
+    blobs, _ = corpus.compress_corpus([img, img[:40]], slice_h=8, mesh=TWICE)
+    native, _ = corpus.compress_corpus([img, img[:40]], slice_h=8,
+                                       backend="native", seeded=False)
+    assert blobs == native
+
+
+def test_dryrun_multichip_on_one_card_twice(dev):
+    graft_entry.dryrun_multichip(2, mesh=TWICE)
+    fn, args = graft_entry.entry("cuda")
+    want, lens = graft_entry.entry("cpu")[0](*graft_entry.entry("cpu")[1])
+    out, n = fn(*args)
+    assert torch.equal(n.cpu(), lens)
+    for s in range(len(lens)):
+        assert torch.equal(out[s, : lens[s]].cpu(), want[s, : lens[s]])
+
+
+@pytest.fixture
+def two_cards():
+    if not torch.cuda.is_available() or torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA GPUs")
+    return torch.device("cuda", 0), torch.device("cuda", 1)
+
+
+def _all_kernels(dev) -> dict:
+    """Kernels 1-8 and probe p7 on inputs on ``dev`` -> their outputs on the
+    host, by kernel."""
+    lanes = torch.from_numpy(_lanes((4, 16, 3), n=33)).to(dev)
+    init = encode._start_table(True, None)
+    made: dict = {}
+
+    def keep(chain):
+        def done(stage, *t):
+            made[f"{chain} {stage}"] = [
+                x.cpu() if isinstance(x, torch.Tensor) else x for x in t]
+        return done
+
+    xs = encode.precompute(lanes).t().contiguous()
+    out, lens = ef.encode_fused(xs, init, encode.outcap(xs.shape[0]))
+    made["k1"] = [out.cpu(), lens.cpu()]
+    streams = [out[s, : lens[s]].cpu().numpy().tobytes()
+               for s in range(len(lens))]
+    data, n = decode._pack(streams)
+    made["k2"] = [t.cpu() for t in dk.decode(
+        torch.from_numpy(data).to(dev), torch.from_numpy(n).to(dev), 4, 16, 3,
+        init)]
+    encode._encode_sort(lanes, REV2, init, encode.outcap(192), keep("k3-4"))
+    encode._encode_decision(lanes, REV2, None, encode.outcap(192),
+                            keep("k5-7"))
+    made["k8"] = [t.cpu() for t in ek.coder_scan(
+        made["k5-7 back sort"][0].to(dev))]
+    p7 = PROBES["p7"]
+    kw = {**p7.make(0, 128, probes.ROWS, dev), "T": 16}
+    made["p7"] = [p7.fn(**kw).cpu(), kw["model"].cpu()]
+    return made
+
+
+def test_every_kernel_launches_on_its_tensors_device(two_cards):
+    """Lanes on cuda:1 with cuda:0 current: kernels 1-8 and a probe give
+    cuda:0's outputs (each launch runs under its tensors' device)."""
+    d0, d1 = two_cards
+    with torch.cuda.device(d0):
+        want = _all_kernels(d0)
+        got = _all_kernels(d1)
+    assert got.keys() == want.keys()
+    for k in want:
+        for a, b in zip(got[k], want[k]):
+            if isinstance(a, torch.Tensor):
+                assert torch.equal(a, b), k
+            else:
+                assert a == b, k

@@ -16,7 +16,8 @@ import pytest
 import torch
 
 import llcomp_tpu_torch
-from llcomp_tpu_torch import api, decode, encode, seed
+from llcomp_tpu_torch import (api, corpus, decode, distributed, encode,
+                              graft_entry, parallel, seed)
 from tests.conftest import make_photo
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
@@ -35,7 +36,8 @@ def test_sources_never_name_jax_or_the_jax_package():
     assert len(files) >= 15
     names = {p.relative_to(PKG).as_posix() for p in files}
     assert {"cli.py", "corpus.py", "host.py", "rev0.py", "io/images.py",
-            "native/build.py", "native/llcomp_host.cpp"} <= names
+            "native/build.py", "native/llcomp_host.cpp", "parallel.py",
+            "distributed.py", "profiling.py", "graft_entry.py"} <= names
     for p in files + [ROOT / "chip_smoke.py"]:
         hits = FORBIDDEN.findall(p.read_text())
         assert not hits, f"{p.relative_to(ROOT)}: {hits}"
@@ -46,7 +48,9 @@ def test_importing_every_module_loads_no_jax():
     assert {"llcomp_tpu_torch.kernels.decode_kernel", "llcomp_tpu_torch.cli",
             "llcomp_tpu_torch.corpus", "llcomp_tpu_torch.host",
             "llcomp_tpu_torch.rev0", "llcomp_tpu_torch.io.images",
-            "llcomp_tpu_torch.native.build"} <= set(mods)
+            "llcomp_tpu_torch.native.build", "llcomp_tpu_torch.parallel",
+            "llcomp_tpu_torch.distributed", "llcomp_tpu_torch.profiling",
+            "llcomp_tpu_torch.graft_entry"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"
@@ -76,6 +80,15 @@ def test_cuda_request_without_cuda_raises(no_cuda):
         decode.decode_lanes([b""], (8, 8, 3), device="cuda:0")
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         seed.derive(img)
+    for call in (lambda: parallel.compress_sharded(img, ["cuda:0"]),
+                 lambda: parallel.decode_lanes_sharded([b""], (8, 8, 3),
+                                                       ["cpu", "cuda"]),
+                 lambda: corpus.compress_corpus([img], mesh=["cuda:0"]),
+                 lambda: distributed.compress_image_pod(img),
+                 lambda: distributed.compress_corpus_distributed([img]),
+                 lambda: graft_entry.entry()):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            call()
 
 
 def test_chip_smoke_fails_without_cuda_or_without_the_repo(tmp_path):
