@@ -38,7 +38,17 @@ Phases (each prints one line; any failure exits non-zero without the final
    across chunks, a seg on every chunk start, a one-run tail) at T around
    their chunk count and 1, 33, 130 and 513 lanes; the tolerance is exact
    equality of bytes, lengths, planes, error flags, walk records, coder
-   records and final carries;
+   records and final carries; then lanes past their ``encode.outcap`` row
+   (``overflow_batches``: the fault's noise inputs, one lane each, and 64
+   lanes of 8x55x3 noise among 32 photo lanes, unprimed and seeded):
+   kernel 1's flags, counted lengths and bytes inside the row against its
+   plain version, and on the card the fused engine (flagged lanes coded
+   again), the sort engine's symbol variant (kernels 3 and 4 against their
+   plain versions on the mixed batch) and decision variant, each batch's
+   streams equal to ``OVERFLOW_SHA`` (llcomp_tpu's bytes) and decoded
+   exactly by kernel 2; the fused engine timed on the mixed batch beside
+   photo lanes of its shape, and kernel 1's launch again on the flagged
+   lanes;
 4. main path: ``api.compress(img, slices="auto")`` + ``api.decompress`` on a
    512x512x3 and a 2048x2048x3 image; the ``.llct`` sha256 must equal the
    pinned golden (the bytes of ``llcomp_tpu``'s native backend) and the
@@ -54,8 +64,14 @@ Phases (each prints one line; any failure exits non-zero without the final
    ``CORPUS_BATCH`` lanes through ``encode_lanes_pipelined``, every blob
    equal to ``backend="native"``'s, exact round trips, MP/s pipelined and
    in turn and the device idle share; and the CLI as subprocesses
-   (selftest, .ppm and .pgm round trips, info, corpus --verify); kernel 1's
-   and 2's launch counts are set to 0 before each part and read after; the
+   (selftest, .ppm and .pgm round trips, info, corpus --verify); the
+   single-lane inputs past their row through ``api.compress`` on the card
+   and through backend 'native' and 'auto' (one stream and sliced, equal to
+   ``OVERFLOW_SHA``, exact), the mixed batch through
+   ``host.encode_images``, ``reencode_slice`` of a seeded stripe past its
+   row; each of the four ``examples/torch_*.py`` run through its
+   ``main()`` on cuda at its default size, timed; kernel 1's and 2's
+   launch counts are set to 0 before each part and read after; the
    phase fails past ``PHASE9_LIMIT_S`` seconds;
 5. bench-size batch: 16 images of 512x512x3 in 8-row stripes (1,024 lanes x
    12,288 symbols), seeded from the first 8 images; the sha256 of the
@@ -559,6 +575,107 @@ def bench_lanes(imgs) -> np.ndarray:
                            for im in imgs])
 
 
+def noise_image(shape, seed: int) -> np.ndarray:
+    """Uniform uint8 noise of ``shape`` from integer arithmetic only."""
+    n = int(np.prod(shape))
+    return (_hash64(seed, n) % np.uint64(256)).astype(np.uint8).reshape(shape)
+
+
+def overflow_batches() -> dict:
+    """Lanes whose streams pass their ``encode.outcap`` row, by name: the
+    fault's inputs, drawn as reported from NumPy's ``default_rng`` (noise of
+    8x20x4 and 8x55x3, which pass outcap, and of 20x25x3, which passes only
+    the native runtime's raw * 1.5 + 64 buffer; two-level noise, each sample
+    0-47 or 208-255, of 8x168x3), one lane each; and 64 lanes of 8x55x3
+    noise among 32 photo lanes (``MIXED``), about half of the noise past
+    its row."""
+    def rng_noise(shape):
+        return np.random.default_rng(0).integers(0, 256, shape, np.uint8)
+
+    rng = np.random.default_rng(1)
+    two = (rng.integers(0, 2, (8, 168, 3)) * 208
+           + rng.integers(0, 48, (8, 168, 3))).astype(np.uint8)
+    mixed = np.stack([make_image(8, 55, 3, 300 + i) if i % 3 == 2 else
+                      noise_image((8, 55, 3), 400 + i) for i in range(96)])
+    return {"noise 8x20x4": rng_noise((8, 20, 4))[None],
+            "noise 8x55x3": rng_noise((8, 55, 3))[None],
+            "noise 20x25x3": rng_noise((20, 25, 3))[None],
+            "two-level 8x168x3": two[None], MIXED: mixed}
+
+
+MIXED = "mixed 96x8x55x3"
+# a stored seed (flag bit 1) that mispredicts noise: its seeded streams
+# pass their row the most
+OVERFLOW_SEED = (_hash64(5, 121 * 8) % np.uint64(128)).astype(
+    np.uint8).reshape(121, 8)
+
+# sha256 of phase 3's and 9's lanes past their outcap row
+# (``overflow_batches``) and of the bytes llcomp_tpu gives them: each batch's
+# lanes, its headerless streams joined, unprimed and seeded
+# (``OVERFLOW_SEED``; llcomp_tpu's native library into buffers of
+# ``encode.max_stream_bytes``), and for one lane its .llcomp
+# (``oracle.encode``) and its slices='auto' .llct (every stream equal to
+# llcomp_tpu's); tests/test_torch_overflow.py recomputes them
+OVERFLOW_SHA = {
+    "noise 8x20x4": {
+        "lanes":
+            "151f6828ab85b24349bcfebc31fba97ac094cc6cab54957261cc81488004f345",
+        "unprimed":
+            "80f3166ffd279cc2cb50ef19dde54bdbc6476fd5d469c7730633c0fb587ad59a",
+        "seeded":
+            "0b15aeedacf141506678c5ef86cc19ad69d8e05b1932489ea4ada93ca22dff10",
+        "llcomp":
+            "60e4dabc536f4d00c254597966301a7f530a5144447d16fb99af8d86ab0629b7",
+        "llct":
+            "1ff1d8ac99f3bd3c041bbcdbe68498a3a6f7dd69ab915c9a58405b30afaffb9c",
+    },
+    "noise 8x55x3": {
+        "lanes":
+            "f1a892ad83c47286c47adc33db5a7420319cb7b5163b798b56b8dd55a4afc6bd",
+        "unprimed":
+            "8b5724f50cf2b10b0223c30c13f44dc978fe676d23d22558f0700e1b1ab0de00",
+        "seeded":
+            "f5a1b41a5b84c7d6530688105ba83831554eadd76199d1dfd872a1039d5037ed",
+        "llcomp":
+            "936a31910bda597cac2369767cc9d958e74748b0c552a4e98698e6005d6e4423",
+        "llct":
+            "fe495260d570be141e3d8c289a3f5c72106bcb671866c201c0fb829338d707b9",
+    },
+    "noise 20x25x3": {
+        "lanes":
+            "58a9e5b9a8f0adce418ba17ea5f4488e934126f0f0e81cca32147cc3e82f4fb2",
+        "unprimed":
+            "64e9bd370f5259977c8d485060f36d9167d9858f0a8e4a484a49cc739c447563",
+        "seeded":
+            "4774f2b3ed7a45ba4f4c62083884ac33a734cebe1de8e84d280bd23fd3035fc4",
+        "llcomp":
+            "fac8a5d05daeb06537c959612c2a5d4b175e481debc2990cb24611e0179cd045",
+        "llct":
+            "97534c02e107d4c2f7d586b486857d410179d823a7366546a5af4b29efbd9948",
+    },
+    "two-level 8x168x3": {
+        "lanes":
+            "f1ebe221be4451d15720107efe5e78430a76d88211ec6161e6d59d6b7aff65ff",
+        "unprimed":
+            "82b06afaaac5574372acdf8feccdbe853998ef8e12ad5e5d81fb3bd949576994",
+        "seeded":
+            "6fa2df1be4dfb3d7a9e9abe22b0d320435e54517ddd3ce4b3e00660dc7a3aab7",
+        "llcomp":
+            "b07cf2db513452b0b3d29751ad6aed749fec40d0204f77526a58f9482ddff216",
+        "llct":
+            "91666c4c83efdc07f9f7aa33536191a678030404743fc6608152361c9f5b28d6",
+    },
+    MIXED: {
+        "lanes":
+            "5eeb2eeae7a9527d91f8ff8de622c8a39f7ee9e21ac63d3dbe45a75e3761a6fe",
+        "unprimed":
+            "fe77fb462df30a50c92201737a00803b72c70db5cd73e3f331098d1aff972d1c",
+        "seeded":
+            "2fdd2051608b7aba564a252611009b643a904d05339788e69edeb9a68ed08ce5",
+    },
+}
+
+
 def sha(data) -> str:
     return hashlib.sha256(bytes(data)).hexdigest()
 
@@ -847,7 +964,6 @@ def _stage_run(torch, run, lanes_t, init, keep: bool = False):
     in one chunk, with a CUDA event after each stage: (ms per stage, the
     stages' outputs by stage name if ``keep``, (bytes [S, width] u8,
     lens [S]))."""
-    from llcomp_tpu_torch import encode
     from llcomp_tpu_torch.core.config import REV2
 
     marks, made = [], {}
@@ -861,8 +977,7 @@ def _stage_run(torch, run, lanes_t, init, keep: bool = False):
 
     start = torch.cuda.Event(enable_timing=True)
     start.record()
-    res = run(lanes_t, REV2, init, encode.outcap(lanes_t[0].numel()),
-              stage_done)
+    res = run(lanes_t, REV2, init, stage_done)
     torch.cuda.synchronize()
     ms, prev = {}, start
     for stage, ev in marks:
@@ -1266,6 +1381,114 @@ def phase_kernels_vs_plain(torch, log) -> dict:
             "coder_scan": err_coders["coder_scan"]}
 
 
+def phase_overflow(torch, log) -> dict:
+    """Phase 3, lanes past their ``outcap`` row (``overflow_batches``):
+    kernel 1 at outcap against its plain version (the flags, the lengths
+    counted past the row, the bytes inside it), every batch unprimed and
+    the mixed one seeded too; then on the card the fused engine (the
+    flagged lanes coded again), the sort engine's symbol variant (kernels 3
+    and 4 against their plain versions on the mixed batch) and the
+    decision variant (unprimed): each batch's streams joined equal to
+    ``OVERFLOW_SHA``, every lane within ``encode.max_stream_bytes`` and
+    decoded exactly by kernel 2.  Times the fused engine on the mixed
+    batch end to end beside a batch of photo lanes of its shape (nothing
+    coded again), and kernel 1's launch at outcap and its launch again on
+    the flagged lanes."""
+    from llcomp_tpu_torch import decode, encode
+    from llcomp_tpu_torch.core.config import REV2
+    from llcomp_tpu_torch.kernels import encode_fused as ef
+
+    dev = torch.device("cuda")
+    err_enc = err_walk = err_coder = 0
+    n_runs = n_flagged = 0
+    for name, lanes in overflow_batches().items():
+        want = OVERFLOW_SHA[name]
+        check(sha(lanes) == want["lanes"], f"{name}: image generator drifted")
+        S, H, W, C = lanes.shape
+        n_sym = H * W * C
+        cap = encode.outcap(n_sym)
+        x = torch.from_numpy(lanes).to(dev)
+        modes = (("unprimed", None), ("seeded", OVERFLOW_SEED))
+        for mode, init in modes[: 2 if name == MIXED else 1]:
+            xs = encode._fused_input(x, REV2)
+            out_k, len_k, ovf_k = ef.encode_fused_async(xs, init, cap)
+            out_p, len_p, ovf_p = ef.encode_fused_plain(xs.cpu(), init, cap)
+            check(torch.equal(ovf_k.cpu().bool(), ovf_p),
+                  f"{name} {mode}: kernel 1's flags != plain")
+            err_enc = max(err_enc, _stream_err(out_k.cpu(), len_k.cpu(),
+                                               out_p, len_p))
+            n_runs += 1
+            n_flagged += int(ovf_p.sum())
+            check(bool(ovf_p.any()) or name == "noise 20x25x3",
+                  f"{name} {mode}: no lane past its row")
+            streams = encode.encode_lanes(lanes, seed=init, device=dev)
+            check(sha(b"".join(streams)) == want[mode],
+                  f"{name} {mode}: fused streams != golden")
+            check(max(map(len, streams)) <= encode.max_stream_bytes(n_sym),
+                  f"{name} {mode}: a stream past max_stream_bytes")
+            check([len(st) for st in streams] == len_p.tolist(),
+                  f"{name} {mode}: streams != kernel 1's counted lengths")
+            check(encode.encode_lanes(lanes, seed=init, device=dev,
+                                      engine="sort") == streams,
+                  f"{name} {mode}: sort engine != fused")
+            if init is None:
+                check(encode.encode_lanes(lanes, device=dev, engine="sort",
+                                          variant="decision") == streams,
+                      f"{name}: decision variant != fused")
+            out = decode.decode_lanes(streams, (H, W, C), seed=init,
+                                      device=dev)
+            check(np.array_equal(out, lanes),
+                  f"{name} {mode}: kernel 2 round trip not exact")
+            if name == MIXED:
+                _, made, _ = _stage_run(torch, encode._encode_sort, x, init,
+                                        keep=True)
+                e = _sort_kernels_vs_plain(torch, made, init, host=True)
+                err_walk = max(err_walk, e["walk"])
+                err_coder = max(err_coder, e["coder"])
+    check(err_enc == 0 and err_walk == 0 and err_coder == 0,
+          f"past the row: kernel != plain (encode {err_enc}, walk "
+          f"{err_walk}, coder {err_coder})")
+
+    batches = overflow_batches()
+    lanes = batches[MIXED]
+    photos = np.stack([make_image(8, 55, 3, 500 + i) for i in range(96)])
+    tab = OVERFLOW_SEED
+    cost = {}
+    for key, batch in (("mixed", lanes), ("photos", photos)):
+        encode.encode_lanes(batch, seed=tab, device=dev)        # warm-up
+        cost[key] = 1e3 * _median_s(lambda: encode.encode_lanes(
+            batch, seed=tab, device=dev), reps=5)
+    xs = encode._fused_input(torch.from_numpy(lanes).to(dev), REV2)
+    cap = encode.outcap(xs.shape[0])
+    _, len_k, ovf_k = ef.encode_fused_async(xs, tab, cap)
+    redo = torch.nonzero(ovf_k).flatten()
+    need = int(len_k[redo].max())
+    cost["kernel"] = _time_cuda(
+        torch, lambda: ef.encode_fused_async(xs, tab, cap), reps=5)
+    xr = torch.from_numpy(lanes).to(dev)[redo]
+    cost["again"] = _time_cuda(
+        torch, lambda: encode._recode(xr, need, REV2, tab), reps=5)
+    xs_r = xs[:, redo].contiguous()
+    cap_r = -(-need // 4) * 4
+    cost["kernel_again"] = _time_cuda(
+        torch, lambda: ef.encode_fused_async(xs_r, tab, cap_r), reps=5)
+    log(f"phase 3 past the outcap row: {len(batches)} batches "
+        f"({', '.join(batches)}), {n_runs} runs, {n_flagged} "
+        f"lanes flagged; kernel 1 vs plain max_abs_err {err_enc} (flags, "
+        f"lengths counted past the row, bytes inside it); fused, sort and "
+        f"decision streams golden (OVERFLOW_SHA), within max_stream_bytes, "
+        f"kernel 2 exact; kernels 3 and 4 vs plain on the mixed batch "
+        f"(walk {err_walk}, coder {err_coder})")
+    log(f"phase 3 cost of coding again ({MIXED} seeded, {len(redo)} of 96 "
+        f"lanes past {cap} B, to {need} B; median of 5): encode_lanes "
+        f"{cost['mixed']:.3f} ms against {cost['photos']:.3f} for 96 photo "
+        f"lanes of its shape; kernel 1 at outcap {cost['kernel']:.3f} ms, "
+        f"on the flagged lanes at {cap_r} B {cost['kernel_again']:.3f} ms "
+        f"(_recode, precompute and kernel 1, {cost['again']:.3f} ms)")
+    return {"encode": err_enc, "walk": err_walk, "coder": err_coder,
+            "cost_ms": cost, "flagged": n_flagged}
+
+
 def phase_main_path(torch, log) -> dict:
     """Phase 4: the user's entry points on two images; returns launch counts
     made during this phase only."""
@@ -1624,10 +1847,109 @@ def surface_cli(log) -> None:
         + info.splitlines()[0] + "; corpus --verify on 4 .ppm files exact")
 
 
+def surface_overflow(torch, log) -> int:
+    """Phase 9, lanes past their row off the fused engine's batches:
+    ``api.compress`` of each single-lane ``overflow_batches`` input on the
+    card and through backend 'native' and 'auto', one stream and
+    slices='auto', against ``OVERFLOW_SHA`` and decoded exactly;
+    ``host.encode_images`` on the mixed batch unprimed and seeded; and
+    ``reencode_slice`` healing a seeded stripe past its row on the card.
+    -> kernel 1's launches."""
+    from llcomp_tpu_torch import api, container, encode, host
+    from llcomp_tpu_torch import seed as seedmod
+    from llcomp_tpu_torch.kernels import encode_fused as ef
+
+    ef.encode_fused.launches = 0
+    batches = overflow_batches()
+    for name, lanes in batches.items():
+        want = OVERFLOW_SHA[name]
+        if name == MIXED:
+            for mode, init in (("unprimed", None), ("seeded", OVERFLOW_SEED)):
+                got = host.encode_images(lanes, seed=init)
+                check(sha(b"".join(got)) == want[mode],
+                      f"{name} {mode}: host.encode_images != golden")
+            continue
+        img = lanes[0]
+        for backend in ("torch", "native", "auto"):
+            for slices, key in ((None, "llcomp"), ("auto", "llct")):
+                blob = api.compress(img, slices=slices, backend=backend)
+                check(sha(blob) == want[key],
+                      f"{name} {backend} slices={slices}: != golden")
+                check(np.array_equal(api.decompress(blob, backend=backend),
+                                     img),
+                      f"{name} {backend} slices={slices}: not exact")
+    # a container of a photo stripe and a noise stripe past its row, seeded
+    img = np.concatenate([make_image(8, 55, 3, 600), batches[MIXED][0]])
+    regions = container.tile_regions(55, 16, 8, 0)
+    streams = api._encode_regions(img, regions, encode.REV2, False, None,
+                                  seed=OVERFLOW_SEED, backend="native")
+    check(len(streams[1]) > encode.outcap(8 * 55 * 3),
+          "reencode: the noise stripe fits its row")
+    blob = container.pack_sliced(
+        streams, 55, 16, 3, 8, flags=container.FLAG_SEEDED
+        | container.FLAG_CRC, seed_blob=seedmod.pack_blob(OVERFLOW_SEED))
+    broken = _flip_slice(blob, streams, 1)
+    check(api.decompress(broken, strict=False)[1] == [1],
+          "reencode: the flipped slice is not reported")
+    check(api.reencode_slice(broken, 1, img[8:]) == blob,
+          "reencode: the healed container != the native one")
+    launches = ef.encode_fused.launches
+    check(launches > 0, "past the row: kernel 1 never launched")
+    log(f"phase 9 past the row: the {len(batches) - 1} single inputs "
+        f"through backend torch, native and auto, one stream and "
+        f"slices='auto', golden and exact; {MIXED} through "
+        f"host.encode_images unprimed and seeded golden; reencode_slice of "
+        f"a seeded stripe of {len(streams[1])} B (row "
+        f"{encode.outcap(8 * 55 * 3)} B) back to the native container; "
+        f"kernel 1 launches {launches}")
+    return launches
+
+
+EXAMPLES = ("torch_basic_roundtrip", "torch_corpus_pipeline",
+            "torch_fault_tolerance", "torch_ultrawide_tiling")
+
+
+def surface_examples(torch, log) -> dict:
+    """Phase 9, the port's examples (``examples/torch_*.py``): each
+    ``main()`` on cuda at its default size, its output captured, kernels 1
+    and 2's launch counts set to 0 before it and read after.  -> each
+    example's seconds and launches."""
+    import io
+
+    from llcomp_tpu_torch.kernels import decode_kernel as dk
+    from llcomp_tpu_torch.kernels import encode_fused as ef
+
+    root = pathlib.Path(__file__).resolve().parent / "examples"
+    res = {}
+    for name in EXAMPLES:
+        spec = importlib.util.spec_from_file_location(f"example_{name}",
+                                                      root / f"{name}.py")
+        mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mod)
+        ef.encode_fused.launches = dk.decode.launches = 0
+        out = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            rc = mod.main([])
+        secs = time.perf_counter() - t0
+        counts = (ef.encode_fused.launches, dk.decode.launches)
+        check(rc == 0 and "exact" in out.getvalue(),
+              f"example {name}: rc {rc}, {out.getvalue()[-400:]}")
+        check(min(counts) > 0, f"example {name}: launches {counts}")
+        res[name] = {"s": secs, "launches": counts,
+                     "last": out.getvalue().strip().splitlines()[-1]}
+    log("phase 9 examples on cuda at their default sizes (s; kernels 1 and "
+        "2 launches; last line): " + "; ".join(
+            f"{n} {r['s']:.2f} s, {r['launches'][0]} and {r['launches'][1]}, "
+            f"'{r['last']}'" for n, r in res.items()))
+    return res
+
+
 def phase_surface(torch, log) -> dict:
     """Phase 9: the single-host surface on the card (reencode_slice, the
-    native runtime, revision 0, the corpus, the CLI), each part with the
-    launch counts set to 0 just before it and read just after."""
+    native runtime, revision 0, the corpus, the CLI, lanes past their row
+    off the fused batches, the examples), each part with the launch counts
+    set to 0 just before it and read just after."""
     t = {}
 
     def part(name, fn, *args):
@@ -1641,6 +1963,8 @@ def phase_surface(torch, log) -> dict:
     part("rev0", surface_rev0, log)
     res["corpus"] = part("corpus", surface_corpus, torch, log)
     part("cli", surface_cli, log)
+    res["overflow"] = part("past the row", surface_overflow, torch, log)
+    res["examples"] = part("examples", surface_examples, torch, log)
     total = sum(t.values())
     log("phase 9 seconds: " + ", ".join(f"{k} {v}" for k, v in t.items())
         + f"; total {total:.1f} of the {PHASE9_LIMIT_S} s limit")
@@ -3705,6 +4029,9 @@ def main() -> int:
 
         turns = timed("8, one-shot turns", one_shot_turns, torch, variants)
         errs = timed(3, phase_kernels_vs_plain, torch, log)
+        over = timed("3 past the row", phase_overflow, torch, log)
+        for k in ("encode", "walk", "coder"):
+            errs[k] = max(errs[k], over[k])
         counts = timed(4, phase_main_path, torch, log)
         surface = timed(9, phase_surface, torch, log)
         bench = timed(5, phase_bench, torch, log, card, variants)
@@ -3738,7 +4065,10 @@ def main() -> int:
          "ms_subset": bench["encode_sub_ms"], "note": note,
          "launches_phase9": {
              "reencode_slice": surface["reencode"],
-             "corpus": surface["corpus"]["counts"]["encode_fused"]},
+             "corpus": surface["corpus"]["counts"]["encode_fused"],
+             "past_the_row": surface["overflow"],
+             "examples": {n: r["launches"][0]
+                          for n, r in surface["examples"].items()}},
          "launches_phase10": {m: c["encode_fused"]
                               for m, c in multi["launches"].items()}},
         {"name": "decode_kernel", "route": "cuda",
@@ -3750,7 +4080,9 @@ def main() -> int:
          **bound_of(bench["bounds"]["decode_kernel"]),
          "ms_subset": bench["decode_sub_ms"], "note": note,
          "launches_phase9": {
-             "corpus": surface["corpus"]["counts"]["decode_kernel"]},
+             "corpus": surface["corpus"]["counts"]["decode_kernel"],
+             "examples": {n: r["launches"][1]
+                          for n, r in surface["examples"].items()}},
          "launches_phase10": {m: c["decode_kernel"]
                               for m, c in multi["launches"].items()}},
     ]

@@ -203,7 +203,11 @@ class Encoder:
         self.low = torch.where(one, self.low + self.rng - range1, self.low)
         self.rng = torch.where(valid, torch.where(one, range1,
                                                   self.rng - range1), self.rng)
-        self._shift(valid & (self.rng < 0x100))
+        do = valid & (self.rng < 0x100)
+        # most decisions shift no lane: skip the shift's ops then, where the
+        # test costs no device sync
+        if do.is_cuda or bool(do.any()):
+            self._shift(do)
 
     def finish(self) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
         """Two forced shifts (`llcomp.hpp:75-81`); the byte left pending is

@@ -7,9 +7,12 @@ Two engines give the same bytes:
   ``_outcap``) and of its precompute (``_stage_precompute_g``,
   ``_apply_rct``, ``_stage_xs_fused``, `encode.py:213-290,691-696`).  The
   precompute runs as torch ops on the lanes' device; kernel 1
-  (``kernels.encode_fused``) codes the streams.  Each lane's output is sized
-  at ``outcap`` (raw * 1.5 + 64, the coder's hard bound), so the TPU path's
-  overflow fallback, cap ladder and marker expansion have no counterpart.
+  (``kernels.encode_fused``) codes the streams.  Each lane's output row is
+  ``outcap`` bytes (raw * 1.5 + 64, rounded up), which most streams fit;
+  it is not a bound (``max_stream_bytes`` is).  Kernel 1 counts a lane's
+  length past its row and flags it, and the lane loop codes the flagged lanes
+  again at their counted length, so the TPU path's cap ladder and marker
+  expansion have no counterpart.
 * ``"sort"``: the symbol-granular sort chain, the JAX package's
   ``engine="pallas"`` (`encode.py:1030-1059`, the symbol branch of
   ``_launch_stage_rest`` with ``_stage_sym_sort``, ``_stage_compact``,
@@ -67,15 +70,36 @@ SORT_SLOT_BYTES = 22
 DECISION_SLOT_BYTES = 54
 SLOT_LIMIT = 1 << 25      # n_sym * 24 below this: the compact key's 23 bits
 POS_LIMIT = 1 << 20       # decision variant: n_sym * K below this (20-bit pos)
-OUTCAP_LIMIT = 1 << 21    # outcap below this: the byte offsets' bound
+OUTCAP_LIMIT = 1 << 21    # sort chain: streams and outcap below this many
+                          # bytes (a record packs off << 9 in an int32)
 _DEAD_HASH = 0x1FFF       # symbol padding sorts after every context run
 _BIG = 1 << 22            # forward-sort context of a padding slot
 _INT64_MAX = 0x7FFFFFFFFFFFFFFF
 
 
 def outcap(n_sym: int) -> int:
-    """Per-lane compressed-size bound, bucketed (raw + raw/2 + 64)."""
+    """Bytes of a lane's output row on the fused engine's common path:
+    raw + raw/2 + 64, rounded up to a multiple of 1,024.  Not a bound: a
+    stream of noise can pass it (``max_stream_bytes`` bounds a stream), and
+    the lanes that do are coded again at their counted length."""
     return -(-(n_sym + n_sym // 2 + 64) // 1024) * 1024
+
+
+def max_stream_bytes(n_sym: int) -> int:
+    """The most bytes a headerless rev-2 stream of ``n_sym`` symbols can
+    take: ``max_bins_per_symbol * n_sym + 1``.
+
+    Derivation (``coder.Encoder``, `llcomp.hpp:38-81`): a decision codes at
+    P(1) = p/256 with p in [7, 247] on a range of at least 0x100, so both
+    sub-ranges keep at least 7 and one shift (range << 8) restores 0x100:
+    a decision renormalises at most once.  Each shift hands one byte to the
+    coder: the first becomes the pending byte, later ones flush the pending
+    byte and its deferred run or add to the run, so after k shifts the
+    bytes written, the pending byte and the run sum to k.  ``finish`` adds
+    two shifts and drops the pending byte: a stream of D decisions is at
+    most D + 2 - 1 bytes, and a symbol takes at most 2e + 3 = 23 <=
+    ``max_bins_per_symbol`` decisions."""
+    return REV2.max_bins_per_symbol * n_sym + 1
 
 
 def lane_bytes(n_sym: int, engine: str, variant: str = "symbol") -> int:
@@ -134,13 +158,15 @@ def _start_table(primed: bool, seed):
 def check_sort_bounds(n_sym: int) -> None:
     """Raise ValueError for a stripe outside the sort chain's format bounds
     (`encode.py:801-812`): n_sym * 24 < 2^25 decision slots per lane and
-    outcap < 2^21 bytes."""
+    outcap < 2^21 bytes.  A stream longer than ``outcap`` is checked
+    against ``OUTCAP_LIMIT`` once its length is counted
+    (``_finish_bytes``)."""
     if n_sym * MAX_SLOTS >= SLOT_LIMIT:
         raise ValueError(f"a stripe of {n_sym} symbols breaks the sort "
                          f"chain's slot bound n_sym*24 < 2^25")
     if outcap(n_sym) >= OUTCAP_LIMIT:
         raise ValueError(f"a stripe of {n_sym} symbols breaks the sort "
-                         f"chain's byte bound outcap < 2^21")
+                         f"chain's byte-offset limit outcap < 2^21")
 
 
 def stage_count(diff: torch.Tensor) -> tuple[int, int, int]:
@@ -294,22 +320,26 @@ def _no_hook(stage: str, *made) -> None:
     pass
 
 
-def _finish_bytes(kp: torch.Tensor, fin: torch.Tensor, cap: int, stage_done
+def _finish_bytes(kp: torch.Tensor, fin: torch.Tensor, stage_done
                   ) -> tuple[torch.Tensor, torch.Tensor]:
     """Offset-packed records and final carries -> (bytes [S, width] u8,
     lens [S] int32), expanded at the longest stream once the lengths are
     synced (``_stage_finish``, ``_collect_bytes``, `encode.py:445-461,
-    626-643`)."""
+    626-643`).  The coders count a lane's bytes exactly, but a record keeps
+    its offset as ``off << 9`` in an int32: raises ValueError, before any
+    byte is expanded, where a stream reaches ``OUTCAP_LIMIT`` bytes."""
     kp_fin, lens = coder.finish_steps_off(fin)
     width = int(lens.max())
-    if width > cap:      # cannot happen for the rev-2 coder
-        raise RuntimeError(f"stream overflow: {width} > bound {cap}")
+    if width >= OUTCAP_LIMIT:
+        raise ValueError(f"a stream of {width} bytes reaches the sort "
+                         f"chain's byte-offset limit of {OUTCAP_LIMIT} "
+                         f"(OUTCAP_LIMIT): code it with engine='fused'")
     out = coder.expand_kp(kp, kp_fin, width)
     stage_done("finish and expansion", out, lens)
     return out, lens
 
 
-def _encode_sort(lanes: torch.Tensor, cfg: CodecConfig, init, cap: int,
+def _encode_sort(lanes: torch.Tensor, cfg: CodecConfig, init,
                  stage_done=_no_hook):
     """The sort chain on one chunk of lanes (the symbol branch of
     ``_launch_stage_rest`` with ``_collect_bytes``, `encode.py:546-643`):
@@ -334,10 +364,10 @@ def _encode_sort(lanes: torch.Tensor, cfg: CodecConfig, init, cap: int,
     stage_done("compact sort", qlo, qhi)
     kp, fin = timed("encode/coder", coder_scan_off_q, qlo, qhi)
     stage_done("coder", kp, fin)
-    return timed("encode/finish", _finish_bytes, kp, fin, cap, stage_done)
+    return timed("encode/finish", _finish_bytes, kp, fin, stage_done)
 
 
-def _encode_decision(lanes: torch.Tensor, cfg: CodecConfig, init, cap: int,
+def _encode_decision(lanes: torch.Tensor, cfg: CodecConfig, init,
                      stage_done=_no_hook):
     """The decision variant of the sort chain on one chunk of unprimed lanes
     (``init`` is None; the else branch of ``_launch_stage_rest`` with
@@ -369,7 +399,7 @@ def _encode_decision(lanes: torch.Tensor, cfg: CodecConfig, init, cap: int,
     kp, fin = profiling.timed("encode/coder", coder_scan_off, coder_xs)
     del coder_xs
     stage_done("coder", kp, fin)
-    return profiling.timed("encode/finish", _finish_bytes, kp, fin, cap,
+    return profiling.timed("encode/finish", _finish_bytes, kp, fin,
                            stage_done)
 
 
@@ -426,7 +456,6 @@ def encode_lanes(imgs, cfg: CodecConfig = REV2, primed: bool = False,
         return encode_lanes_pipelined([imgs], cfg, primed, seed, dev)[0]
     S = imgs.shape[0]
     n_sym = int(np.prod(imgs.shape[1:]))
-    cap = outcap(n_sym)
     init = _start_table(primed, seed)
     check_sort_bounds(n_sym)
     run = _encode_sort if variant == "symbol" else _encode_decision
@@ -435,7 +464,7 @@ def encode_lanes(imgs, cfg: CodecConfig = REV2, primed: bool = False,
     for c0 in range(0, S, chunk):
         lanes = profiling.timed("encode/upload", torch.from_numpy(
             imgs[c0 : c0 + chunk]).to, dev)
-        out, lens = run(lanes, cfg, init, cap)
+        out, lens = run(lanes, cfg, init)
         lens_h = lens.cpu().numpy()
         width = int(lens_h.max(initial=0))
         streams.extend(_streams(profiling.timed(
@@ -479,22 +508,73 @@ def _launch_piece(lanes: np.ndarray, cfg: CodecConfig, init,
         xs = stage("encode/precompute", _fused_input, x, cfg)
         out, lens, ovf = stage("encode/fused_kernel", encode_fused_async, xs,
                                init, cap)
-        return out, torch.stack([lens, ovf.to(torch.int32)]), stream
+        return (out, torch.stack([lens, ovf.to(torch.int32)]), stream,
+                (lanes, cfg, init))
 
 
-def _collect_piece(out: torch.Tensor, meta: torch.Tensor, stream
+def _recode(x: torch.Tensor, need: int, cfg: CodecConfig, init):
+    """Kernel 1 again, queued on the current device and stream, on lanes
+    ``x`` [k, H, W, C] u8 whose streams passed their ``outcap`` row, at a
+    row of ``need`` bytes (their longest counted length) rounded up to a
+    multiple of 4.  -> (bytes [k, row] u8, lengths [k] int32, flags [k])."""
+    return encode_fused_async(_fused_input(x, cfg), init, -(-need // 4) * 4)
+
+
+def _check_recoded(lens: torch.Tensor, ovf: torch.Tensor, want) -> np.ndarray:
+    """The lengths of a ``_recode`` on the host; raises unless each lane
+    fit its row at the length the first launch counted (``want``)."""
+    got, bad = torch.stack([lens, ovf.to(torch.int32)]).cpu().numpy()
+    if bad.any() or not np.array_equal(got, want):
+        raise RuntimeError(f"kernel 1 coded lanes again to lengths {got}, "
+                           f"not the {want} it counted")
+    return got
+
+
+def _collect_piece(out: torch.Tensor, meta: torch.Tensor, stream, piece
                    ) -> list[bytes]:
     """Wait for a piece's stream through its lengths and overflow flags,
-    then bring back only ``out[:, :max(lens)]`` and cut the streams."""
+    then bring back only ``out[:, :width]``, width the longest stream that
+    fit its row, and cut the streams.  Lanes flagged as past their row
+    (their lengths counted all the same) are coded again from the piece's
+    host lanes ``piece`` = (lanes, cfg, init) by ``_recode`` and their
+    streams put in their places; an ordinary piece only reads the flags."""
     stage = profiling.timed if stream is None else profiling.marked
     with devmod.guard(out.device, stream):
         lens, ovf = meta.cpu().numpy()
-        if ovf.any():
-            raise RuntimeError(
-                f"encoded stream overflowed outcap={out.shape[1]}")
-        width = int(lens.max(initial=0))
-        return _streams(stage("encode/download", _to_host, out[:, :width]),
-                        lens)
+        fit = ovf == 0
+        width = int(lens[fit].max(initial=0))
+        streams = _streams(stage("encode/download", _to_host, out[:, :width]),
+                           np.where(fit, lens, 0))
+        if not fit.all():
+            lanes, cfg, init = piece
+            redo = np.flatnonzero(~fit)
+            x = torch.from_numpy(lanes[redo]).to(out.device)
+            out2, lens2, ovf2 = stage("encode/recode", _recode, x,
+                                      int(lens[redo].max()), cfg, init)
+            got = _check_recoded(lens2, ovf2, lens[redo])
+            for s, blob in zip(redo, _streams(_to_host(out2), got)):
+                streams[s] = blob
+        return streams
+
+
+def fused_tensors(lanes: torch.Tensor, cfg: CodecConfig = REV2, init=None
+                  ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Kernel 1 on lanes [S, H, W, C] u8 on their device -> (bytes [S, row]
+    u8, lengths [S] int32): lane s's stream is ``bytes[s, :lengths[s]]``.
+    The row is ``outcap``, or, where a stream passed it, that lane's
+    counted length rounded up to a multiple of 4: those lanes are coded
+    again (``_recode``) into widened rows.  Syncs once, on the flags."""
+    out, lens, ovf = encode_fused_async(_fused_input(lanes, cfg), init,
+                                        outcap(lanes[0].numel()))
+    redo = torch.nonzero(ovf).flatten()
+    if len(redo):
+        need = lens[redo]
+        out2, lens2, ovf2 = _recode(lanes[redo], int(need.max()), cfg, init)
+        _check_recoded(lens2, ovf2, need.cpu().numpy())
+        out = torch.nn.functional.pad(out, (0, out2.shape[1] - out.shape[1]))
+        out[redo] = out2
+        lens[redo] = lens2
+    return out, lens
 
 
 def _encode_fused(batches: list[np.ndarray], devs: list, cfg: CodecConfig,

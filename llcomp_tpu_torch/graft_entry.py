@@ -16,7 +16,6 @@ import torch
 from . import device as devmod
 from . import encode, parallel
 from .core.config import REV2
-from .kernels.encode_fused import encode_fused
 
 H, W, C, S = 16, 16, 3, 8
 
@@ -24,13 +23,12 @@ H, W, C, S = 16, 16, 3, 8
 def entry(device="cuda"):
     """-> (fn, args): ``fn(*args)`` codes the 8 lanes of 16x16x3 in
     ``args`` (on ``device``) through the fused engine, returning the
-    (bytes [8, outcap] u8, lengths [8] int32) tensors; lane s's stream is
-    ``bytes[s, :lengths[s]]``."""
+    (bytes [8, row] u8, lengths [8] int32) tensors of
+    ``encode.fused_tensors``; lane s's stream is ``bytes[s, :lengths[s]]``."""
     dev = devmod.resolve(device)
-    cap = encode.outcap(H * W * C)
 
     def fn(lanes: torch.Tensor):
-        return encode_fused(encode._fused_input(lanes, REV2), None, cap)
+        return encode.fused_tensors(lanes, REV2)
 
     rng = np.random.default_rng(0)
     yy, xx = np.mgrid[0:H, 0:W]

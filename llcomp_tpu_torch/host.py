@@ -3,6 +3,11 @@
 Port of ``llcomp_tpu/host.py``: headerless rev-2 streams, one a thread on
 the CPU, the same bytes as the device engines.  ``api`` applies the
 containers.  This is ``backend="native"``: no kernel runs here.
+
+An encode writes into a buffer of ``llct_out_cap`` bytes (raw * 1.5 + 64),
+which most streams fit.  The runtime counts a stream past its buffer and
+returns the length it needed; such a stream is encoded again into a buffer
+of that length.
 """
 from __future__ import annotations
 
@@ -43,12 +48,17 @@ def encode_stream(img: np.ndarray, primed: bool = False,
     img = np.ascontiguousarray(img, dtype=np.uint8)
     H, W, C = img.shape
     lib = load_library()
-    cap = lib.llct_bound(W, H, C)
-    out = np.empty(cap, dtype=np.uint8)
     tab = _prior_tab(primed, seed)
-    n = lib.llct_encode_stream(img.ctypes.data, W, H, C, out.ctypes.data,
-                               cap, _ptr(tab))
-    if n == 0:
+
+    def run(cap: int) -> tuple[np.ndarray, int]:
+        out = np.empty(cap, dtype=np.uint8)
+        return out, lib.llct_encode_stream(img.ctypes.data, W, H, C,
+                                           out.ctypes.data, cap, _ptr(tab))
+
+    out, n = run(lib.llct_out_cap(W, H, C))
+    if n > out.size:                  # past the buffer: again at its length
+        out, n = run(n)
+    if n == 0 or n > out.size:
         raise ValueError(f"native encode failed for shape {img.shape}")
     return out[:n].tobytes()
 
@@ -89,24 +99,43 @@ def decode_streams(streams: list[bytes], shape: tuple[int, int, int],
     return out
 
 
-def encode_images(imgs: np.ndarray, n_threads: int = 0,
-                  primed: bool = False, seed=None) -> list[bytes]:
-    """Equal-shaped images [S, H, W, C] -> one stream each, one image a
-    worker thread."""
-    imgs = np.ascontiguousarray(imgs, dtype=np.uint8)
+def _encode_batch(imgs: np.ndarray, cap: int, n_threads: int, tab
+                  ) -> tuple[np.ndarray, np.ndarray]:
+    """One ``llct_encode_batch`` into buffers of ``cap`` bytes -> (buffers
+    [S, cap] u8, each stream's length [S], above ``cap`` where it did not
+    fit)."""
     S, H, W, C = imgs.shape
-    lib = load_library()
-    cap = lib.llct_bound(W, H, C)
     bufs = np.empty((S, cap), dtype=np.uint8)
     srcs = (ctypes.c_void_p * S)(*[imgs[s].ctypes.data for s in range(S)])
     outs = (ctypes.c_void_p * S)(*[bufs[s].ctypes.data for s in range(S)])
     out_lens = (ctypes.c_size_t * S)()
+    load_library().llct_encode_batch(srcs, S, W, H, C, outs, cap, out_lens,
+                                     _threads(n_threads), _ptr(tab))
+    return bufs, np.array(out_lens, dtype=np.int64)
+
+
+def encode_images(imgs: np.ndarray, n_threads: int = 0,
+                  primed: bool = False, seed=None) -> list[bytes]:
+    """Equal-shaped images [S, H, W, C] -> one stream each, one image a
+    worker thread.  Streams that pass the common buffer are encoded again,
+    together, into buffers of the longest one's length."""
+    imgs = np.ascontiguousarray(imgs, dtype=np.uint8)
+    S, H, W, C = imgs.shape
     tab = _prior_tab(primed, seed)
-    lib.llct_encode_batch(srcs, S, W, H, C, outs, cap, out_lens,
-                          _threads(n_threads), _ptr(tab))
-    if any(out_lens[s] == 0 for s in range(S)):
+    cap = load_library().llct_out_cap(W, H, C)
+    bufs, lens = _encode_batch(imgs, cap, n_threads, tab)
+    streams = [bufs[s, : lens[s]].tobytes() for s in range(S)]
+    redo = np.flatnonzero(lens > cap)
+    if redo.size:
+        bufs, again = _encode_batch(imgs[redo], int(lens[redo].max()),
+                                    n_threads, tab)
+        if not np.array_equal(again, lens[redo]):
+            raise ValueError("native batch encode failed")
+        for k, s in enumerate(redo):
+            streams[s] = bufs[k, : again[k]].tobytes()
+    if not lens.all():
         raise ValueError("native batch encode failed")
-    return [bufs[s, : out_lens[s]].tobytes() for s in range(S)]
+    return streams
 
 
 def expand_slots(meta: np.ndarray, runs: np.ndarray) -> bytes:

@@ -37,6 +37,7 @@ from ..core.config import REV2
 from . import build
 
 _NS = REV2.num_states
+_BLOCK = 64        # symbols whose decisions the plain version lays out at once
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 
@@ -60,28 +61,37 @@ def _symbol_fields(x: torch.Tensor):
 
 def encode_fused_plain(xs: torch.Tensor, init, outcap: int):
     """The kernel's function in plain torch, vectorised over lanes, with
-    Python loops over symbols and decisions.  -> (out [S, outcap] u8,
-    lens [S] int32, ovf [S] bool)."""
+    Python loops over symbols and decisions (each symbol's decisions laid
+    out at once by ``transform.binarize``).  -> (out [S, outcap] u8, lens
+    [S] int32, ovf [S] bool): a lane's bytes past ``outcap`` are not
+    written, its length counts them and its flag is set."""
     n_sym, S = xs.shape
     dev = xs.device
-    x = xs.to(torch.int64)
-    live, h, d, ad, e = _symbol_fields(x)
+    live, h, d, ad, e = _symbol_fields(xs.to(torch.int64))
     nbins = torch.where(ad != 0, 2 * e + 3, 1) * live
     steps = nbins.amax(dim=1).tolist() if S else [0] * n_sym
     fused = torch.from_numpy(tables.FUSED.astype(np.int64)).to(dev)
-    model = _model_start(init, S, dev)
+    model = _model_start(init, S, dev).to(torch.int64)
     enc = Encoder(S, outcap, dev)
     for i in range(n_sym):
+        if i % _BLOCK == 0:      # the next block's decisions, [24, S] each
+            blk = slice(i, i + _BLOCK)
+            ctx, bit, valid = (t.view(-1, S, t.shape[1]).transpose(1, 2)
+                               for t in transform.binarize(d[blk]))
+            idx_b = (h[blk, None] * 8 + ctx).unsqueeze(3)
+            one_b, valid_b = bit == 1, valid & live[blk, None]
+        if not steps[i]:
+            continue
+        idx = idx_b[i % _BLOCK].unbind(0)
+        one = one_b[i % _BLOCK].unbind(0)
+        valid = valid_b[i % _BLOCK].unbind(0)
         for k in range(steps[i]):
-            ctx, bit = transform.decision(k, d[i], ad[i], e[i])
-            valid = nbins[i] > k
-            idx = (h[i] * 8 + ctx)[:, None]
-            st = model.gather(1, idx)[:, 0].to(torch.int64)
-            f = fused[st]
-            ns = torch.where(bit == 1, f >> 16, f >> 8) & 0xFF
-            model.scatter_(1, idx, torch.where(valid, ns, st)
-                           .to(torch.uint8)[:, None])
-            enc.put(bit, f & 0xFF, valid)
+            st = model.gather(1, idx[k])
+            f = fused[st[:, 0]]
+            ns = torch.where(one[k], f >> 16, f >> 8) & 0xFF
+            model.scatter_(1, idx[k], torch.where(valid[k], ns, st[:, 0])
+                           .unsqueeze(1))
+            enc.put(one[k], f & 0xFF, valid[k])
     return enc.finish()
 
 
@@ -107,9 +117,11 @@ def _table(name: str, dev: torch.device) -> torch.Tensor:
 
 
 def encode_fused_async(xs: torch.Tensor, init, outcap: int):
-    """``encode_fused`` without its overflow check: -> (bytes [S, outcap]
-    u8, lengths [S] int32, overflow flags [S]).  On CUDA nothing waits for
-    the kernel: it runs on the current stream (``encode_lanes_pipelined``
+    """``encode_fused`` without its check of the rows: -> (bytes [S,
+    outcap] u8, lengths [S] int32, flags [S]).  A lane whose stream passes
+    its ``outcap``-byte row has its flag set and its full length counted;
+    its bytes past the row are not written.  On CUDA nothing waits for the
+    kernel: it runs on the current stream (``encode_lanes_pipelined``
     overlaps batches this way) and the caller reads the flags once it has
     synced.  The kernel launches on ``xs``'s device, made current for the
     launch.  Counts the launch in ``encode_fused.launches``."""
@@ -149,12 +161,15 @@ def encode_fused(xs: torch.Tensor, init, outcap: int
 
     A CUDA ``xs`` launches the kernel (``outcap`` a multiple of 4: it stores
     32-bit words) and counts the launch in ``encode_fused.launches``; a CPU
-    ``xs`` runs ``encode_fused_plain``.  Raises if a lane's bytes overflow
-    ``outcap``.
+    ``xs`` runs ``encode_fused_plain``.  Raises RuntimeError if a lane's
+    stream passes its ``outcap``-byte row: ``outcap`` is a buffer, not a
+    bound, and the lane loops (``encode``) code such lanes again at their
+    counted length.
     """
     out, lens, ovf = encode_fused_async(xs, init, outcap)
     if bool(ovf.any()):
-        raise RuntimeError(f"encoded stream overflowed outcap={outcap}")
+        raise RuntimeError(f"a stream overflowed its row of outcap={outcap} "
+                           "bytes")
     return out, lens
 
 

@@ -82,7 +82,7 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     vp, sz, i = ctypes.c_void_p, ctypes.c_size_t, ctypes.c_int
     pp = ctypes.POINTER(vp)
     sigs = {
-        "llct_bound": (sz, [i, i, i]),
+        "llct_out_cap": (sz, [i, i, i]),
         "llct_encode_stream": (sz, [vp, i, i, i, vp, sz, vp]),
         "llct_decode_stream": (i, [vp, sz, i, i, i, vp, vp]),
         "llct_expand_slots": (sz, [vp, vp, sz, vp, sz]),

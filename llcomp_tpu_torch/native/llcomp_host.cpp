@@ -10,7 +10,10 @@
 //     oracle and the JAX pipeline.
 //
 // Differences from the reference by design: bounds-checked output (the
-// reference overflows on incompressible input), grayscale decode guarded on
+// reference overflows on incompressible input; here a stream that passes
+// its buffer is counted to its end, and its length returned, so that the
+// caller can encode it again into a buffer that size), grayscale decode
+// guarded on
 // channels >= 3 (the reference applies the inverse color transform
 // unconditionally and corrupts), and >0xFFFF dimensions rejected rather than
 // silently truncated.  None of these change emitted bytes for inputs the
@@ -116,14 +119,15 @@ inline void init_model(uint8_t* model, const uint8_t* prior) {
                 prior + size_t(h % kPriorBuckets) * kSub, kSub);
 }
 
+// Bytes past `cap` are counted and not written: `pos` is the stream's
+// length whatever the buffer.
 struct Sink {
   uint8_t* buf;
   size_t cap;
   size_t pos = 0;
-  bool overflow = false;
   inline void push(uint8_t b) {
-    if (pos < cap) buf[pos++] = b;
-    else overflow = true;
+    if (pos < cap) buf[pos] = b;
+    ++pos;
   }
 };
 
@@ -283,15 +287,21 @@ inline int fold_hash_predict(const int16_t* cur, const int16_t* up,
 
 extern "C" {
 
-// Worst case: 6-byte header + every symbol at the 23-decision bound cannot
-// exceed ~1.5 bits/decision after coder overhead; raw*3/2 + 64 is generous.
-size_t llct_bound(int width, int height, int channels) {
+// The output buffer of the common path: raw + raw/2 + 64 bytes.  Not a
+// bound: a stream of noise can pass it.  A stream takes at most
+// 24 * raw + 1 bytes (a decision renormalises at most once, each shift
+// hands the coder one byte, and a symbol codes at most 23 decisions; the
+// port's encode.max_stream_bytes), which is not worth allocating for
+// every image.
+size_t llct_out_cap(int width, int height, int channels) {
   size_t raw = size_t(width) * height * channels;
   return raw + raw / 2 + 64;
 }
 
-// Encode one headerless stream.  Returns bytes written, or 0 on overflow /
-// bad arguments.  `img` is uint8 [height, width, channels], C-contiguous.
+// Encode one headerless stream.  Returns the stream's length, or 0 on bad
+// arguments; a length above `out_cap` means that only the first `out_cap`
+// bytes were written (encode again into a buffer of that length).  `img`
+// is uint8 [height, width, channels], C-contiguous.
 size_t llct_encode_stream(const uint8_t* img, int width, int height,
                           int channels, uint8_t* out, size_t out_cap,
                           const uint8_t* prior) {
@@ -307,7 +317,7 @@ size_t llct_encode_stream(const uint8_t* img, int width, int height,
   enc.out = &sink;
 
   const uint8_t* src = img;
-  for (int h = 0; h < height && !sink.overflow; ++h) {
+  for (int h = 0; h < height; ++h) {
     int16_t* cur = rowbuf + (h % 3) * stride;
     const int16_t* up = rowbuf + ((h + 2) % 3) * stride;
     const int16_t* upup = rowbuf + ((h + 1) % 3) * stride;
@@ -343,7 +353,7 @@ size_t llct_encode_stream(const uint8_t* img, int width, int height,
   }
   enc.flush();
 
-  size_t n = sink.overflow ? 0 : sink.pos;
+  size_t n = sink.pos;
   delete[] rowbuf;
   delete[] model;
   return n;
@@ -442,7 +452,8 @@ int llct_decode_batch(const uint8_t* const* datas, const size_t* lens, int n,
 }
 
 // Batch encode twin: n images -> n streams (written into caller buffers of
-// `cap` bytes each; out_lens receives the true lengths, 0 marks failure).
+// `cap` bytes each; out_lens receives each stream's length, 0 on bad
+// arguments, above `cap` where the stream did not fit its buffer).
 struct EncJob {
   const uint8_t* const* imgs;
   uint8_t* const* outs;

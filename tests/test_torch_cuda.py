@@ -21,9 +21,10 @@ from chip_smoke import (CODERS, EDGE_RESIDUALS, P11_TAGS, PG_TAGS, PG_WORDS,
                         p9_hazard_idx, p11_cases, p11_inputs, pack_quads,
                         pF_hazard_cases, pG_cases, reduce_cases, repeat_lanes,
                         running, skewed_recs, walk_case_errs, walk_steps)
-from chip_smoke import _flip_slice, _malicious_stream, make_image
+from chip_smoke import (MIXED, OVERFLOW_SEED, _flip_slice, _malicious_stream,
+                        make_image, overflow_batches)
 from llcomp_tpu_torch import (api, coder, container, corpus, decode, encode,
-                              graft_entry, parallel, probes, seed)
+                              graft_entry, host, parallel, probes, seed)
 from llcomp_tpu_torch import device as devmod
 from llcomp_tpu_torch.core.config import REV2
 from llcomp_tpu_torch.kernels import build
@@ -728,6 +729,34 @@ def test_pipelined_equals_encode_lanes(dev, monkeypatch, n_batches,
         monkeypatch.undo()
 
 
+@pytest.mark.parametrize("max_inflight", [1, 2])
+@pytest.mark.parametrize("seeded", [False, True])
+def test_lanes_past_their_row_are_coded_again_in_place(dev, monkeypatch,
+                                                       max_inflight, seeded):
+    """Noise lanes whose streams pass their outcap row, among photo lanes:
+    kernel 1 flags them and counts their lengths; every lane loop on the card
+    (pieces of at most 3 lanes in flight, two shards on the card,
+    fused_tensors) gives the native runtime's streams."""
+    lanes = overflow_batches()[MIXED][:24]
+    init = OVERFLOW_SEED if seeded else None
+    xs = encode._fused_input(torch.from_numpy(lanes).to(dev), REV2)
+    _, lens, ovf = ef.encode_fused_async(xs, init, encode.outcap(xs.shape[0]))
+    want = host.encode_images(lanes, seed=init)
+    assert ovf.any() and not ovf.all()
+    assert lens.tolist() == [len(w) for w in want]
+    assert encode.encode_lanes(lanes, seed=init, device=dev) == want
+    monkeypatch.setattr(encode, "LANE_BUDGET_BYTES",
+                        3 * encode.lane_bytes(lanes[0].size, "fused"))
+    assert encode.encode_lanes_pipelined(
+        [lanes, lanes[::-1]], seed=init, device=dev,
+        max_inflight=max_inflight) == [want, want[::-1]]
+    monkeypatch.undo()
+    assert parallel.encode_lanes_sharded(lanes, [dev, dev], seed=init) == want
+    out, n = encode.fused_tensors(torch.from_numpy(lanes).to(dev), REV2, init)
+    assert [out[s, : n[s]].cpu().numpy().tobytes()
+            for s in range(len(lanes))] == want
+
+
 @pytest.mark.parametrize("tile_w", [0, 10])
 def test_reencode_slice_on_the_card_equals_the_cpu(dev, tile_w):
     img = make_image(16, 24, 3, 8)
@@ -860,9 +889,8 @@ def _all_kernels(dev) -> dict:
     made["k2"] = [t.cpu() for t in dk.decode(
         torch.from_numpy(data).to(dev), torch.from_numpy(n).to(dev), 4, 16, 3,
         init)]
-    encode._encode_sort(lanes, REV2, init, encode.outcap(192), keep("k3-4"))
-    encode._encode_decision(lanes, REV2, None, encode.outcap(192),
-                            keep("k5-7"))
+    encode._encode_sort(lanes, REV2, init, keep("k3-4"))
+    encode._encode_decision(lanes, REV2, None, keep("k5-7"))
     made["k8"] = [t.cpu() for t in ek.coder_scan(
         made["k5-7 back sort"][0].to(dev))]
     p7 = PROBES["p7"]

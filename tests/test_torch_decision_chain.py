@@ -337,7 +337,7 @@ def test_stage_hook_sees_every_stage_in_order():
     seen = []
     out, lens = encode._encode_decision(
         torch.from_numpy(lanes), encode.REV2, None,
-        encode.outcap(lanes[0].size), lambda stage, *o: seen.append((stage, o)))
+        lambda stage, *o: seen.append((stage, o)))
     made = dict(seen)
     assert [s for s, _ in seen] == STAGES
     K, total, h, diff = made["precompute and counts"]

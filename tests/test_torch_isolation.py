@@ -63,6 +63,31 @@ def test_importing_every_module_loads_no_jax():
     assert r.returncode == 0, r.stderr[-2000:]
 
 
+EXAMPLES = sorted((ROOT / "examples").glob("torch_*.py"))
+
+
+def test_examples_never_import_jax_or_the_jax_package():
+    """The port's examples name neither JAX nor llcomp_tpu, and loading
+    them (their imports) loads neither."""
+    assert [p.name for p in EXAMPLES] == [
+        "torch_basic_roundtrip.py", "torch_corpus_pipeline.py",
+        "torch_fault_tolerance.py", "torch_ultrawide_tiling.py"]
+    for p in EXAMPLES:
+        hits = re.findall(r"\bjax\b|\bllcomp_tpu\b", p.read_text())
+        assert not hits, f"{p.name}: {hits}"
+    code = (
+        "import importlib.util, sys\n"
+        f"for i, p in enumerate({[str(p) for p in EXAMPLES]!r}):\n"
+        "    spec = importlib.util.spec_from_file_location(f'ex{i}', p)\n"
+        "    spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'llcomp_tpu')]\n"
+        "assert not bad, bad\n")
+    r = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stderr[-2000:]
+
+
 @pytest.fixture
 def no_cuda(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)

@@ -340,7 +340,7 @@ def test_stage_hook_sees_every_stage_in_order():
     seen = []
     out, lens = encode._encode_sort(
         torch.from_numpy(lanes), encode.REV2, tables.PRIOR_TAB,
-        encode.outcap(lanes[0].size), lambda stage, *o: seen.append((stage, o)))
+        lambda stage, *o: seen.append((stage, o)))
     made = dict(seen)
     assert [s for s, _ in seen] == ["precompute and counts", "sym sort", "walk",
                                     "compact sort", "coder",
