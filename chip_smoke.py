@@ -173,16 +173,49 @@ Phases (each prints one line; any failure exits non-zero without the final
    lanes) and pG and its copies on ``pG_cases`` (maxima of 100 and 101,
    in the head, int4 and tail words, wrapping at both ends of int32; 1 to
    8,192 words, x off a 16-byte boundary); the one PyTorch call that
-   computes the same function, where there is one, timed and equal.
+   computes the same function, where there is one, timed and equal;
+11. (run last) conformance: the fuzz, ``FUZZ_SEEDS`` cases (``fuzz_case``:
+   h and w 1-40, C 1-5, noise, flat and cumsum, unprimed, primed and
+   seeded) through ``encode_lanes`` on the card with the fused engine, the
+   sort engine's symbol variant and (unprimed) its decision variant, each
+   equal to ``backend="native"``, decoded exactly by kernel 2, and a cut
+   or flipped stream a case through kernel 2 equal to the native runtime
+   where kernel 2 flags no fault and to ``decode_plain`` up to
+   ``FUZZ_PLAIN_SYMBOLS`` symbols; then the sanitizers: compute-sanitizer
+   is run on a one-kernel program, and where it works one child process
+   a tool (memcheck, initcheck, racecheck, synccheck: ``python3
+   chip_smoke.py --sanitize-child TOOL`` under the tool, the caching
+   allocator off, on the sources built with -lineinfo) runs every kernel
+   entry of the ten sources at small shapes on phase 3's inputs
+   (``SANITIZE_WORK``: kernels 1-8, every instantiation of kernel 2, the
+   21 probes, pH at 1, 8 and 16 blocks a cluster), each equal to its plain
+   version, with no report in the port's kernels (reports elsewhere are
+   printed); where the tool is missing or refuses the card, that is
+   printed and one child runs the same work under the guard allocator
+   (``tools/torch_guard_alloc.cu``: guard bytes around every tensor,
+   checked before and after every launch, fresh bytes in every tensor),
+   the stand-in for memcheck and initcheck on global memory; each child
+   must launch every kernel its tool covers (``SYNC_ROWS`` for racecheck
+   and synccheck); one line a tool; the phase fails past
+   ``PHASE11_LIMIT_S`` seconds.
 
 Phases 5-8 compute each kernel's bound (``bound``): the least time the
 card could take for the bytes and integer operations of its work on this
 run's inputs; a one-shot probe's row also carries that bound raised to the
 launch floor (``launch_bound_ms``, ``launch_bound_by`` "launch" where the
-floor wins).  The last two lines are the per-kernel JSON record and
-``{"ok": true, "device": {...}}``.  Test images use integer arithmetic only
-(a counter-based hash, no libm, no NumPy random streams), and their own
-sha256 is pinned so a generator drift is told apart from a codec fault.
+floor wins).  The last two lines are the per-kernel JSON record (each
+row with its sanitizer coverage from phase 11: compute-sanitizer's
+state, and each child that covered it with its launches and errors there)
+and ``{"ok": true, "device": {...}}``.  Test images use integer arithmetic
+only (a counter-based hash, no libm, no NumPy random streams; the
+overflow inputs excepted), and their own sha256 is pinned so a generator
+drift is told apart from a codec fault.
+
+    python3 chip_smoke.py --sanitize-child guard [--parts codec,probes]
+
+runs phase 11's child alone (``--sanitize-child memcheck`` and the other
+tools under ``compute-sanitizer --tool ...``; ``--parts`` a subset of
+``SANITIZE_PARTS``), printing its report as JSON.
 """
 from __future__ import annotations
 
@@ -856,11 +889,13 @@ def sass_chain(body: list, passes: int = 16) -> tuple:
     return (ends[-1] - ends[half - 1]) / (passes - half), chain[::-1]
 
 
-def build_copy(name: str, tag: str, edits) -> tuple[pathlib.Path, str]:
+def build_copy(name: str, tag: str, edits, flags=()
+               ) -> tuple[pathlib.Path, str]:
     """``csrc/<name>.cu`` with each edit (old, new) made, every old text
     found once, or the whole source at path ``edits``, built with the
-    port's flags (``csrc/`` and ``tools/designs/`` on the include path)
-    as copy ``tag``: (its library, the compiler's report)."""
+    port's flags and ``flags`` (``csrc/`` and ``tools/designs/`` on the
+    include path) as copy ``tag``: (its library, the compiler's
+    report)."""
     from llcomp_tpu_torch.kernels import build
 
     if isinstance(edits, pathlib.Path):
@@ -876,7 +911,7 @@ def build_copy(name: str, tag: str, edits) -> tuple[pathlib.Path, str]:
     cu = build.BUILD_DIR / f"{stem}.cu"
     cu.write_text(src)
     so = cu.with_suffix(".so")
-    r = subprocess.run([build.nvcc(), *build.NVCC_FLAGS, "-I",
+    r = subprocess.run([build.nvcc(), *build.NVCC_FLAGS, *flags, "-I",
                         str(build.CSRC), "-I", str(DESIGNS), "-o", str(so),
                         str(cu)],
                        capture_output=True, text=True)
@@ -895,14 +930,19 @@ def build_variant(key: tuple[str, str]) -> tuple[pathlib.Path, str]:
 @contextlib.contextmanager
 def running(name: str, so: pathlib.Path):
     """Inside the block, the wrapper of kernel ``name`` launches the library
-    ``so`` (a ``build_variant``) in place of the shipped build."""
+    ``so`` (a ``build_variant``) in place of the build it launched
+    before."""
     from llcomp_tpu_torch.kernels import build
 
+    before = build._libs.get(name)
     build._libs[name] = ctypes.CDLL(str(so))
     try:
         yield
     finally:
-        del build._libs[name]      # the next launch loads the shipped build
+        if before is None:
+            del build._libs[name]  # the next launch loads the shipped build
+        else:
+            build._libs[name] = before
 
 
 def repeat_lanes(shape) -> list[np.ndarray]:
@@ -1217,26 +1257,16 @@ def _skewed_records(torch, Tq: int, S: int, dev):
                  for q in pack_quads(skewed_recs(4 * Tq, S)))
 
 
-def phase_kernels_vs_plain(torch, log) -> dict:
-    """Phase 3: each kernel against its plain version, exact."""
-    from llcomp_tpu_torch import decode, encode, seed
-    from llcomp_tpu_torch.core import transform
-    from llcomp_tpu_torch.kernels import build
-    from llcomp_tpu_torch.kernels import decode_kernel as dk
-    from llcomp_tpu_torch.kernels import encode_fused as ef
-    from llcomp_tpu_torch.kernels import encode_kernels as ek
-
-    dev = torch.device("cuda")
-    err_enc = err_dec = err_walk = err_coder = 0
-    n_err_lanes = 0
-    t_kernel = t_plain = 0.0
-    mal = _malicious_stream()
+def codec_batches() -> dict:
+    """Phase 3's lane batches, by name: photo, flat and noise lanes,
+    grayscale, RGBA, one row, one column, odd strides, context hashes
+    repeating every 1 to 5 symbols, C = 2 and 5, 1, 33 and 130 lanes."""
     photo = [make_image(4, 16, 3, s) for s in range(5)]
 
     def cycle(imgs, S):                  # S lanes taken in turn from imgs
         return np.stack([imgs[i % len(imgs)] for i in range(S)])
 
-    batches = {
+    return {
         "rgb 4x16x3": np.stack(photo + [
             np.full((4, 16, 3), 77, np.uint8),
             (_hash64(9, 4 * 16 * 3) % np.uint64(256)).astype(np.uint8)
@@ -1257,70 +1287,113 @@ def phase_kernels_vs_plain(torch, log) -> dict:
                                + repeat_lanes((4, 6, 5)), 130),
         "S1 5x8x3": make_image(5, 8, 3, 3)[None],
     }
+
+
+def codec_runs(torch, dev) -> list:
+    """Phase 3's runs of ``codec_batches``: every batch unprimed, the RGB
+    one primed and seeded too, the C = 5 one seeded too -> [(name, lanes,
+    mode, start table)]."""
+    from llcomp_tpu_torch import encode, seed
+
+    batches = codec_batches()
     tab = seed.derive(make_image(64, 64, 3, 5), device=dev)
     runs = [(name, lanes, mode) for name, lanes in batches.items()
             for mode in (("unprimed", "primed", "seeded")
                          if name == "rgb 4x16x3" else ("unprimed",))]
     runs.append(("rgb 4x16x3", batches["rgb 4x16x3"], "primed"))
     runs.append(("c5 4x6x5 S130", batches["c5 4x6x5 S130"], "seeded"))
+    return [(name, lanes, mode,
+             encode._start_table(mode == "primed",
+                                 tab if mode == "seeded" else None))
+            for name, lanes, mode in runs]
+
+
+def codec_case(torch, dev, name: str, lanes, mode: str, init) -> dict:
+    """One of ``codec_runs``: kernel 1 (with a dead tail) and kernel 2
+    against their plain versions, kernel 2 on flipped bytes, a stream cut
+    inside a 16-byte word, (unprimed) a stream that must trip the error
+    flag and garbage past every lane's length, which must read as zeros;
+    then the sort engine's kernels 3 and 4 as it ran them against their
+    plain versions.  Fails on any difference -> {"encode", "decode",
+    "walk", "coder" (max_abs_err), "flagged" (lanes), "kernel_s",
+    "plain_s" (kernel 1's and its plain version's seconds)}."""
+    from llcomp_tpu_torch import decode, encode
+    from llcomp_tpu_torch.core import transform
+    from llcomp_tpu_torch.kernels import decode_kernel as dk
+    from llcomp_tpu_torch.kernels import encode_fused as ef
+
+    S, H, W, C = lanes.shape
+    xs = encode.precompute(torch.from_numpy(lanes).to(dev)).t().contiguous()
+    # a dead tail (live bit clear), which codes nothing
+    xs = torch.cat([xs, xs[:5] & ~(1 << 25)])
+    cap = encode.outcap(xs.shape[0])
+    t0 = time.perf_counter()
+    out_k, len_k = ef.encode_fused(xs, init, cap)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    out_p, len_p, _ = ef.encode_fused_plain(xs.cpu(), init, cap)
+    t2 = time.perf_counter()
+    err_enc = _stream_err(out_k.cpu(), len_k.cpu(), out_p, len_p)
+    streams = [out_k[s, : int(len_k[s])].cpu().numpy().tobytes()
+               for s in range(S)]
+    # corruptions: flipped bytes, a truncation inside a 16-byte word,
+    # and (unprimed) a stream that must trip the error flag; garbage
+    # past every lane's length, which must read as zeros
+    n_bad = 3 if S > 3 else 0
+    if n_bad:
+        streams[0] = bytes(b ^ 0x5A for b in streams[0])
+        streams[1] = streams[1][: min(len(streams[1]) - 1,
+                                      16 * (len(streams[1]) // 32) + 7)]
+        if mode == "unprimed":
+            streams[2] = _malicious_stream()
+    data, lens = decode._pack(streams)
+    data[np.arange(data.shape[1])[None, :] >= lens[:, None]] = 0xA5
+    d = torch.from_numpy(data).to(dev)
+    ln = torch.from_numpy(lens).to(dev)
+    p_k, e_k = dk.decode(d, ln, H, W, C, init)
+    p_k, e_k = p_k.cpu(), e_k.cpu()
+    p_p, e_p = dk.decode_plain(torch.from_numpy(data),
+                               torch.from_numpy(lens), H, W, C, init)
+    check(torch.equal(e_k, e_p), f"{name} {mode}: decode err flags differ")
+    if n_bad and mode == "unprimed":
+        check(int(e_k[2]) == 1, f"{name}: corrupt lane not flagged")
+    err_dec = _max_err(p_k, p_p)
+    imgs = transform.rct_inverse(p_k.t().reshape(S, H, W, C)).cpu().numpy()
+    check(np.array_equal(imgs[n_bad:], lanes[n_bad:]),
+          f"{name} {mode}: clean lanes did not round-trip")
+    check(err_enc == 0 and err_dec == 0,
+          f"{name} {mode}: kernel != plain (enc {err_enc}, dec {err_dec})")
+    _, made, _ = _stage_run(torch, encode._encode_sort,
+                            torch.from_numpy(lanes).to(dev), init, keep=True)
+    e = _sort_kernels_vs_plain(torch, made, init, host=True)
+    check(e["walk"] == 0 and e["coder"] == 0, f"{name} {mode}: sort kernels "
+          f"!= plain (walk {e['walk']}, coder {e['coder']})")
+    return {"encode": err_enc, "decode": err_dec, "walk": e["walk"],
+            "coder": e["coder"], "flagged": int(e_k.sum()),
+            "kernel_s": t1 - t0, "plain_s": t2 - t1}
+
+
+def phase_kernels_vs_plain(torch, log) -> dict:
+    """Phase 3: each kernel against its plain version, exact."""
+    from llcomp_tpu_torch.kernels import build
+    from llcomp_tpu_torch.kernels import decode_kernel as dk
+    from llcomp_tpu_torch.kernels import encode_kernels as ek
+
+    dev = torch.device("cuda")
+    err_enc = err_dec = err_walk = err_coder = 0
+    n_err_lanes = 0
+    t_kernel = t_plain = 0.0
     for k in dk.decode.instances:
         dk.decode.instances[k] = 0
-    for name, lanes, mode in runs:
-        init = encode._start_table(mode == "primed",
-                                   tab if mode == "seeded" else None)
-        S, H, W, C = lanes.shape
-        xs = encode.precompute(torch.from_numpy(lanes).to(dev)).t().contiguous()
-        # a dead tail (live bit clear), which codes nothing
-        xs = torch.cat([xs, xs[:5] & ~(1 << 25)])
-        cap = encode.outcap(xs.shape[0])
-        t0 = time.perf_counter()
-        out_k, len_k = ef.encode_fused(xs, init, cap)
-        torch.cuda.synchronize()
-        t1 = time.perf_counter()
-        out_p, len_p, _ = ef.encode_fused_plain(xs.cpu(), init, cap)
-        t2 = time.perf_counter()
-        t_kernel += t1 - t0
-        t_plain += t2 - t1
-        err_enc = max(err_enc, _stream_err(out_k.cpu(), len_k.cpu(), out_p,
-                                           len_p))
-        streams = [out_k[s, : int(len_k[s])].cpu().numpy().tobytes()
-                   for s in range(S)]
-        # corruptions: flipped bytes, a truncation inside a 16-byte word,
-        # and (unprimed) a stream that must trip the error flag; garbage
-        # past every lane's length, which must read as zeros
-        n_bad = 3 if S > 3 else 0
-        if n_bad:
-            streams[0] = bytes(b ^ 0x5A for b in streams[0])
-            streams[1] = streams[1][: min(len(streams[1]) - 1,
-                                          16 * (len(streams[1]) // 32) + 7)]
-            if mode == "unprimed":
-                streams[2] = mal
-        data, lens = decode._pack(streams)
-        data[np.arange(data.shape[1])[None, :] >= lens[:, None]] = 0xA5
-        d = torch.from_numpy(data).to(dev)
-        ln = torch.from_numpy(lens).to(dev)
-        p_k, e_k = dk.decode(d, ln, H, W, C, init)
-        p_k, e_k = p_k.cpu(), e_k.cpu()
-        p_p, e_p = dk.decode_plain(torch.from_numpy(data),
-                                   torch.from_numpy(lens), H, W, C, init)
-        check(torch.equal(e_k, e_p), f"{name} {mode}: decode err flags differ")
-        if n_bad and mode == "unprimed":
-            check(int(e_k[2]) == 1, f"{name}: corrupt lane not flagged")
-        n_err_lanes += int(e_k.sum())
-        err_dec = max(err_dec, _max_err(p_k, p_p))
-        imgs = transform.rct_inverse(p_k.t().reshape(S, H, W, C)).cpu().numpy()
-        check(np.array_equal(imgs[n_bad:], lanes[n_bad:]),
-              f"{name} {mode}: clean lanes did not round-trip")
-        check(err_enc == 0 and err_dec == 0,
-              f"{name} {mode}: kernel != plain (enc {err_enc}, dec {err_dec})")
-        _, made, _ = _stage_run(torch, encode._encode_sort,
-                                torch.from_numpy(lanes).to(dev), init,
-                                keep=True)
-        e = _sort_kernels_vs_plain(torch, made, init, host=True)
-        e_walk, e_coder = e["walk"], e["coder"]
-        err_walk, err_coder = max(err_walk, e_walk), max(err_coder, e_coder)
-        check(e_walk == 0 and e_coder == 0, f"{name} {mode}: sort kernels "
-              f"!= plain (walk {e_walk}, coder {e_coder})")
+    runs = codec_runs(torch, dev)
+    for run in runs:
+        r = codec_case(torch, dev, *run)
+        err_enc, err_dec = max(err_enc, r["encode"]), max(err_dec, r["decode"])
+        err_walk, err_coder = max(err_walk, r["walk"]), max(err_coder,
+                                                            r["coder"])
+        n_err_lanes += r["flagged"]
+        t_kernel += r["kernel_s"]
+        t_plain += r["plain_s"]
     e_coder = _kernel_err(ek.coder_scan_off_q, ek.coder_scan_off_q_plain,
                           *_skewed_records(torch, 1024, 256, dev))
     err_coder = max(err_coder, e_coder)
@@ -1381,6 +1454,59 @@ def phase_kernels_vs_plain(torch, log) -> dict:
             "coder_scan": err_coders["coder_scan"]}
 
 
+def overflow_case(torch, dev, name: str, lanes, mode: str, init) -> dict:
+    """One batch of ``overflow_batches`` in one start (``mode``, table
+    ``init``): kernel 1 at outcap against its plain version (the flags, the
+    lengths counted past the row, the bytes inside it); the fused engine
+    (flagged lanes coded again), the sort engine's symbol variant and
+    (unprimed) its decision variant, the streams joined equal to
+    ``OVERFLOW_SHA``, within ``encode.max_stream_bytes``, decoded exactly
+    by kernel 2; on the mixed batch kernels 3 and 4 against their plain
+    versions.  Fails on any difference -> {"encode", "walk", "coder"
+    (max_abs_err), "flagged" (lanes past their row)}."""
+    from llcomp_tpu_torch import decode, encode
+    from llcomp_tpu_torch.core.config import REV2
+    from llcomp_tpu_torch.kernels import encode_fused as ef
+
+    want = OVERFLOW_SHA[name]
+    S, H, W, C = lanes.shape
+    n_sym = H * W * C
+    cap = encode.outcap(n_sym)
+    x = torch.from_numpy(lanes).to(dev)
+    xs = encode._fused_input(x, REV2)
+    out_k, len_k, ovf_k = ef.encode_fused_async(xs, init, cap)
+    out_p, len_p, ovf_p = ef.encode_fused_plain(xs.cpu(), init, cap)
+    check(torch.equal(ovf_k.cpu().bool(), ovf_p),
+          f"{name} {mode}: kernel 1's flags != plain")
+    res = {"encode": _stream_err(out_k.cpu(), len_k.cpu(), out_p, len_p),
+           "walk": 0, "coder": 0, "flagged": int(ovf_p.sum())}
+    check(bool(ovf_p.any()) or name == "noise 20x25x3",
+          f"{name} {mode}: no lane past its row")
+    streams = encode.encode_lanes(lanes, seed=init, device=dev)
+    check(sha(b"".join(streams)) == want[mode],
+          f"{name} {mode}: fused streams != golden")
+    check(max(map(len, streams)) <= encode.max_stream_bytes(n_sym),
+          f"{name} {mode}: a stream past max_stream_bytes")
+    check([len(st) for st in streams] == len_p.tolist(),
+          f"{name} {mode}: streams != kernel 1's counted lengths")
+    check(encode.encode_lanes(lanes, seed=init, device=dev,
+                              engine="sort") == streams,
+          f"{name} {mode}: sort engine != fused")
+    if init is None:
+        check(encode.encode_lanes(lanes, device=dev, engine="sort",
+                                  variant="decision") == streams,
+              f"{name}: decision variant != fused")
+    out = decode.decode_lanes(streams, (H, W, C), seed=init, device=dev)
+    check(np.array_equal(out, lanes),
+          f"{name} {mode}: kernel 2 round trip not exact")
+    if name == MIXED:
+        _, made, _ = _stage_run(torch, encode._encode_sort, x, init,
+                                keep=True)
+        e = _sort_kernels_vs_plain(torch, made, init, host=True)
+        res["walk"], res["coder"] = e["walk"], e["coder"]
+    return res
+
+
 def phase_overflow(torch, log) -> dict:
     """Phase 3, lanes past their ``outcap`` row (``overflow_batches``):
     kernel 1 at outcap against its plain version (the flags, the lengths
@@ -1394,7 +1520,7 @@ def phase_overflow(torch, log) -> dict:
     batch end to end beside a batch of photo lanes of its shape (nothing
     coded again), and kernel 1's launch at outcap and its launch again on
     the flagged lanes."""
-    from llcomp_tpu_torch import decode, encode
+    from llcomp_tpu_torch import encode
     from llcomp_tpu_torch.core.config import REV2
     from llcomp_tpu_torch.kernels import encode_fused as ef
 
@@ -1402,49 +1528,16 @@ def phase_overflow(torch, log) -> dict:
     err_enc = err_walk = err_coder = 0
     n_runs = n_flagged = 0
     for name, lanes in overflow_batches().items():
-        want = OVERFLOW_SHA[name]
-        check(sha(lanes) == want["lanes"], f"{name}: image generator drifted")
-        S, H, W, C = lanes.shape
-        n_sym = H * W * C
-        cap = encode.outcap(n_sym)
-        x = torch.from_numpy(lanes).to(dev)
+        check(sha(lanes) == OVERFLOW_SHA[name]["lanes"],
+              f"{name}: image generator drifted")
         modes = (("unprimed", None), ("seeded", OVERFLOW_SEED))
         for mode, init in modes[: 2 if name == MIXED else 1]:
-            xs = encode._fused_input(x, REV2)
-            out_k, len_k, ovf_k = ef.encode_fused_async(xs, init, cap)
-            out_p, len_p, ovf_p = ef.encode_fused_plain(xs.cpu(), init, cap)
-            check(torch.equal(ovf_k.cpu().bool(), ovf_p),
-                  f"{name} {mode}: kernel 1's flags != plain")
-            err_enc = max(err_enc, _stream_err(out_k.cpu(), len_k.cpu(),
-                                               out_p, len_p))
+            r = overflow_case(torch, dev, name, lanes, mode, init)
+            err_enc = max(err_enc, r["encode"])
+            err_walk = max(err_walk, r["walk"])
+            err_coder = max(err_coder, r["coder"])
             n_runs += 1
-            n_flagged += int(ovf_p.sum())
-            check(bool(ovf_p.any()) or name == "noise 20x25x3",
-                  f"{name} {mode}: no lane past its row")
-            streams = encode.encode_lanes(lanes, seed=init, device=dev)
-            check(sha(b"".join(streams)) == want[mode],
-                  f"{name} {mode}: fused streams != golden")
-            check(max(map(len, streams)) <= encode.max_stream_bytes(n_sym),
-                  f"{name} {mode}: a stream past max_stream_bytes")
-            check([len(st) for st in streams] == len_p.tolist(),
-                  f"{name} {mode}: streams != kernel 1's counted lengths")
-            check(encode.encode_lanes(lanes, seed=init, device=dev,
-                                      engine="sort") == streams,
-                  f"{name} {mode}: sort engine != fused")
-            if init is None:
-                check(encode.encode_lanes(lanes, device=dev, engine="sort",
-                                          variant="decision") == streams,
-                      f"{name}: decision variant != fused")
-            out = decode.decode_lanes(streams, (H, W, C), seed=init,
-                                      device=dev)
-            check(np.array_equal(out, lanes),
-                  f"{name} {mode}: kernel 2 round trip not exact")
-            if name == MIXED:
-                _, made, _ = _stage_run(torch, encode._encode_sort, x, init,
-                                        keep=True)
-                e = _sort_kernels_vs_plain(torch, made, init, host=True)
-                err_walk = max(err_walk, e["walk"])
-                err_coder = max(err_coder, e["coder"])
+            n_flagged += r["flagged"]
     check(err_enc == 0 and err_walk == 0 and err_coder == 0,
           f"past the row: kernel != plain (encode {err_enc}, walk "
           f"{err_walk}, coder {err_coder})")
@@ -3964,8 +4057,717 @@ def phase_multi(torch, log, card: str, bench: dict) -> dict:
     return {**shards, **pod, "stages": stages, "seconds": t}
 
 
+# --- phase 11: conformance: fuzz across the engines, sanitizers -------------
+
+PHASE11_LIMIT_S = 120   # phase 11 fails past this many seconds
+FUZZ_SEEDS = range(240)  # phase 11's fuzz cases, named by their seeds
+FUZZ_STARTS = ("unprimed", "primed", "seeded")
+# fuzz cases of at most this many symbols also decode their corrupt stream
+# through kernel 2's plain version, which takes milliseconds a symbol on
+# the host
+FUZZ_PLAIN_SYMBOLS = 100
+SANITIZER_TOOLS = ("memcheck", "initcheck", "racecheck", "synccheck")
+KERNEL_ROWS = ("encode_fused", "decode_kernel", "walk_symbols",
+               "coder_scan_off_q", "build_stream", "walk_probs",
+               "coder_scan_off", "coder_scan")
+# the rows with shared memory, a barrier or a warp's reduction: those
+# racecheck and synccheck must see launch (memcheck, initcheck and the
+# guard child every row)
+SYNC_ROWS = (*KERNEL_ROWS, "p11", "pG", "pH", "reduce")
+# the sanitizer child's work, each part a function of this section
+SANITIZE_PARTS = ("codec", "overflow", "decision", "coders", "walks",
+                  "probes")
+SANITIZE_LANES = (1, 33, 130)   # the child's probes' lanes (pH: 520 too)
+SANITIZE_T = 33                 # and their steps
+# the child's runs of phase 3's batches (one a batch of each C and lane
+# count, the seeded one of C = 5): name -> start
+SANITIZE_CODEC = {"rgb 4x16x3": "unprimed", "gray 6x10x1": "unprimed",
+                  "rgba 3x8x4": "unprimed", "odd 7x5x1": "unprimed",
+                  "c2 5x12x2 S33": "unprimed", "c5 4x6x5 S130": "seeded",
+                  "S1 5x8x3": "unprimed"}
+# the child's walks: T = mul x the chunk count C + dT, at these lanes
+# (``walk_steps``' lengths, the longest at one lane)
+SANITIZE_WALKS = ((-1, 1, SANITIZE_LANES), (0, 1, (33,)),
+                  (1, 1, SANITIZE_LANES), (3, 5, (1,)))
+# the child's builds: each source and pH's one-block cluster, with
+# -lineinfo, so that a sanitizer's report names a line
+LINEINFO = {**{name: [] for name in KERNEL_SOURCES},
+            "probe_mosaic3 cluster 1": [VARIANTS["probe_mosaic3",
+                                                 "cluster 1"]]}
+GUARD_SRC = pathlib.Path(__file__).resolve().parent / "tools" / \
+    "torch_guard_alloc.cu"
+_SANITIZER_PROBE = r"""
+__global__ void one(int* p) { p[threadIdx.x] = threadIdx.x; }
+int main() {
+  int* p = nullptr;
+  if (cudaMalloc(&p, 32 * sizeof(int)) != cudaSuccess) return 2;
+  one<<<1, 32>>>(p);
+  return cudaDeviceSynchronize() == cudaSuccess ? 0 : 3;
+}
+"""
+
+
+def fuzz_case(seed: int) -> tuple[np.ndarray, str]:
+    """Phase 11's fuzz case ``seed``: (image, start).  h and w 1-40 (rows
+    cross 16-byte words), C 1-5, content in the styles of
+    ``tests/test_fuzz.py`` by ``seed % 3`` (noise; flat; a clipped random
+    walk along rows) and start (``FUZZ_STARTS``) by ``seed // 3 % 3``, from
+    integer hashes only."""
+    r = _hash64(70_000 + seed, 4)
+    h, w, c = 1 + int(r[0] % 40), 1 + int(r[1] % 40), 1 + int(r[2] % 5)
+    v = _hash64(80_000 + seed, h * w * c).reshape(h, w, c)
+    if seed % 3 == 0:
+        img = v % np.uint64(256)
+    elif seed % 3 == 1:
+        img = np.full((h, w, c), int(r[3] % 256))
+    else:
+        steps = (v % np.uint64(5)).astype(np.int64) - 2
+        img = np.clip(int(r[3] % 256) + np.cumsum(steps, axis=1), 0, 255)
+    return img.astype(np.uint8), FUZZ_STARTS[seed // 3 % 3]
+
+
+def corrupt_stream(stream: bytes, seed: int) -> bytes:
+    """Fuzz case ``seed``'s corrupt stream: cut inside a 16-byte word (even
+    seeds) or every byte flipped (odd seeds)."""
+    if seed % 2 == 0:
+        return stream[: min(len(stream) - 1, 16 * (len(stream) // 32) + 7)]
+    return bytes(b ^ 0x5A for b in stream)
+
+
+def launch_counters() -> dict:
+    """Each row of the kernels line (kernels 1-8 and the 21 probes) -> the
+    wrapper whose ``launches`` counts its kernel."""
+    from llcomp_tpu_torch.kernels import decode_kernel as dk
+    from llcomp_tpu_torch.kernels import encode_fused as ef
+    from llcomp_tpu_torch.kernels import encode_kernels as ek
+    from llcomp_tpu_torch.probes import mosaic, mosaic2, mosaic3, reduce
+
+    allp = {k: p for m in (mosaic, mosaic2, mosaic3, reduce)
+            for k, p in m.PROBES.items()}
+    fns = {"encode_fused": ef.encode_fused, "decode_kernel": dk.decode,
+           **{name: getattr(ek, name) for name in KERNEL_ROWS[2:]}}
+    fns.update({row: allp[keys[0]].fn
+                for row, (keys, _) in PROBE_ROWS.items()})
+    return fns
+
+
+def fuzz_check(torch, dev, seed: int) -> dict:
+    """Fuzz case ``seed`` (``fuzz_case``) on ``dev``: ``encode_lanes``
+    with the fused engine, the sort engine's symbol variant and (unprimed)
+    its decision variant, each equal to ``backend='native'`` (the port's
+    runtime), decoded exactly by kernel 2 (``decode_lanes``); the case's
+    corrupt stream (``corrupt_stream``, 0xA5 past its length) through
+    kernel 2 equal to the runtime's decode where kernel 2 flags no fault
+    (the runtime stops at its first, kernel 2 runs on with its flag set),
+    and, up to ``FUZZ_PLAIN_SYMBOLS`` symbols, to ``decode_plain``'s pixels
+    and flag.  On the CPU kernel 2 is its plain version.  Fails on a
+    difference -> {"symbols", "flagged" (kernel 2's flag), "plain"
+    (whether decode_plain ran)}."""
+    from llcomp_tpu_torch import decode, encode, host
+    from llcomp_tpu_torch import seed as seedmod
+    from llcomp_tpu_torch.core import transform
+    from llcomp_tpu_torch.kernels import decode_kernel as dk
+    from llcomp_tpu_torch.native import load_library
+
+    img, start = fuzz_case(seed)
+    H, W, C = img.shape
+    what = f"fuzz seed {seed} ({H}x{W}x{C}, {start})"
+    tab = seedmod.derive(img, device=dev) if start == "seeded" else None
+    kw = {"primed": start == "primed", "seed": tab}
+    want = host.encode_stream(img, **kw)
+    engines = {"fused": {}, "sort": {"engine": "sort"}}
+    if start == "unprimed":
+        engines["decision"] = {"engine": "sort", "variant": "decision"}
+    for name, ekw in engines.items():
+        got = encode.encode_lanes(img[None], device=dev, **kw, **ekw)[0]
+        check(got == want, f"{what}: the {name} engine != native")
+    out = decode.decode_lanes([want], (H, W, C), device=dev, **kw)
+    check(np.array_equal(out[0], img), f"{what}: kernel 2 not exact")
+
+    bad = corrupt_stream(want, seed)
+    data, lens = decode._pack([bad])
+    data[:, len(bad):] = 0xA5
+    init = encode._start_table(kw["primed"], tab)
+    p_k, e_k = dk.decode(torch.from_numpy(data).to(dev),
+                         torch.from_numpy(lens).to(dev), H, W, C, init)
+    p_k, e_k = p_k.cpu(), e_k.cpu()
+    flagged = int(e_k[0])
+    if not flagged:
+        ref = np.zeros((H, W, C), np.uint8)
+        buf = np.frombuffer(bad, np.uint8)
+        rc = load_library().llct_decode_stream(
+            buf.ctypes.data if buf.size else None, buf.size, W, H, C,
+            ref.ctypes.data, host._ptr(host._prior_tab(kw["primed"], tab)))
+        pixels = transform.rct_inverse(p_k.t().reshape(1, H, W, C))[0]
+        check(rc == 0 and np.array_equal(pixels.numpy(), ref),
+              f"{what}: kernel 2 != the runtime on the corrupt stream "
+              f"(rc {rc})")
+    plain = H * W * C <= FUZZ_PLAIN_SYMBOLS
+    if plain:
+        p_p, e_p = dk.decode_plain(torch.from_numpy(data),
+                                   torch.from_numpy(lens), H, W, C, init)
+        check(torch.equal(p_k, p_p) and torch.equal(e_k, e_p),
+              f"{what}: kernel 2 != decode_plain on the corrupt stream")
+    return {"symbols": H * W * C, "flagged": flagged, "plain": plain}
+
+
+def phase_fuzz(torch, log) -> dict:
+    """Phase 11, fuzz: ``fuzz_check`` of every ``FUZZ_SEEDS`` case on the
+    card.  -> {"cases", "plain" (the seeds decode_plain checked),
+    "flagged", "launches" (each row's in this part)}."""
+    dev = torch.device("cuda")
+    counters = launch_counters()
+    for fn in counters.values():
+        fn.launches = 0
+    results = {s: fuzz_check(torch, dev, s) for s in FUZZ_SEEDS}
+    plain = [s for s, r in results.items() if r["plain"]]
+    flagged = sum(r["flagged"] for r in results.values())
+    launches = {row: fn.launches for row, fn in counters.items()
+                if fn.launches}
+    log(f"phase 11 fuzz: {len(results)} cases (seeds "
+        f"{min(FUZZ_SEEDS)}-{max(FUZZ_SEEDS)}, h and w 1-40, C 1-5, noise, "
+        f"flat and cumsum, unprimed, primed and seeded; "
+        f"{sum(r['symbols'] for r in results.values())} symbols): fused, "
+        f"sort and (unprimed) decision streams == backend='native', kernel "
+        f"2 exact; corrupt streams (even seeds cut inside a 16-byte word, "
+        f"odd ones flipped, 0xA5 past the length) through kernel 2 == the "
+        f"native runtime's decode where kernel 2 flags none ({flagged} "
+        f"flagged), and == decode_plain's pixels and flag on the "
+        f"{len(plain)} cases of at most {FUZZ_PLAIN_SYMBOLS} symbols (seeds "
+        f"{plain}); launches {launches}")
+    return {"cases": len(results), "plain": plain, "flagged": flagged,
+            "launches": launches}
+
+
+# --- the sanitizer child: every kernel entry at small shapes ----------------
+
+
+def _held(torch, kernel, plain, *args, what: str) -> None:
+    """``kernel`` on ``args`` equal to ``plain`` on CPU copies of them
+    (``_kernel_err``), outputs taken as a tuple."""
+    def tup(fn):
+        def call(*a):
+            r = fn(*a)
+            return r if isinstance(r, tuple) else (r,)
+        return call
+
+    e = _kernel_err(tup(kernel), tup(plain), *args)
+    check(e == 0, f"{what}: kernel != plain ({e})")
+
+
+def _san_codec(torch, dev) -> int:
+    """Kernels 1-4 on the ``SANITIZE_CODEC`` runs of phase 3
+    (``codec_case``)."""
+    runs = [run for run in codec_runs(torch, dev)
+            if run[0] in SANITIZE_CODEC and run[2] == SANITIZE_CODEC[run[0]]]
+    for run in runs:
+        codec_case(torch, dev, *run)
+    return len(runs)
+
+
+def _san_overflow(torch, dev) -> int:
+    """A lane past its row (``overflow_case``), alone in its batch, so
+    that the row's end is its tensor's: 8x20x4 noise, unprimed and
+    seeded."""
+    batches = overflow_batches()
+    cases = (("noise 8x20x4", "unprimed", None),
+             ("noise 8x20x4", "seeded", OVERFLOW_SEED))
+    for name, mode, init in cases:
+        overflow_case(torch, dev, name, batches[name], mode, init)
+    return len(cases)
+
+
+def _san_decision(torch, dev) -> int:
+    """Kernels 5-8 on the decision variant's own inputs (unprimed) for
+    three of ``codec_batches`` (7, 33 and 130 lanes, C = 3, 2 and 5)."""
+    from llcomp_tpu_torch import encode
+    from llcomp_tpu_torch.kernels import encode_kernels as ek
+
+    batches = codec_batches()
+    n = 0
+    for name in ("rgb 4x16x3", "c2 5x12x2 S33", "c5 4x6x5 S130"):
+        lanes = batches[name]
+        _, made, _ = _stage_run(torch, encode._encode_decision,
+                                torch.from_numpy(lanes).to(dev), None,
+                                keep=True)
+        K, _, h, diff = made["precompute and counts"]
+        (xs,), (cx,) = made["walk xs"], made["back sort"]
+        n_sym = int(np.prod(lanes.shape[1:]))
+        for kernel, args in (("build_stream", (h, diff, n_sym, K)),
+                             ("walk_probs", (xs,)), ("coder_scan_off", (cx,)),
+                             ("coder_scan", (cx,))):
+            _held(torch, getattr(ek, kernel), getattr(ek, f"{kernel}_plain"),
+                  *args, what=f"{kernel}, {name}")
+            n += 1
+    return n
+
+
+def _san_coders(torch, dev) -> int:
+    """The three coders on ``coder_cases``."""
+    from llcomp_tpu_torch.kernels import encode_kernels as ek
+
+    n = 0
+    for name in CODERS:
+        for case, args in coder_cases(name).items():
+            _held(torch, getattr(ek, name), getattr(ek, f"{name}_plain"),
+                  *(torch.from_numpy(a).to(dev) for a in args),
+                  what=f"{name}, {case}")
+            n += 1
+    return n
+
+
+def _san_walks(torch, dev) -> int:
+    """Kernels 3 and 6 on ``seg_cases`` at ``SANITIZE_WALKS``
+    (``walk_case_errs``)."""
+    from llcomp_tpu_torch.kernels import build
+
+    n = 0
+    for name in ("walk_symbols", "walk_probs"):
+        C = build.constant(name, "kChunks")
+        for dT, mul, lanes in SANITIZE_WALKS:
+            for S in lanes:
+                T = mul * C + dT
+                for pattern, e in walk_case_errs(torch, name, T, S,
+                                                 dev).items():
+                    check(e == 0, f"{name} {pattern}, T {T}, {S} lanes: "
+                          f"kernel != plain ({e})")
+                    n += 1
+    return n
+
+
+def _probe_held(torch, p, kw: dict, what: str) -> None:
+    """Probe ``p`` on ``kw`` against its plain version on CPU copies:
+    the output and every tensor argument after the call, exact."""
+    ref = {k: v.cpu().clone() if isinstance(v, torch.Tensor) else v
+           for k, v in kw.items()}
+    out = p.fn(**kw)
+    want = p.plain(**ref)
+    check(torch.equal(out.cpu(), want) and all(
+        torch.equal(v.cpu(), ref[k]) for k, v in kw.items()
+        if isinstance(v, torch.Tensor)), f"{p.name}, {what}: kernel != plain")
+
+
+def _san_probes(torch, dev) -> int:
+    """The 21 probes at ``SANITIZE_LANES`` (stepped ones at T
+    ``SANITIZE_T``, planes of random words; reduce at 128 lanes, its
+    most, for 130; pH also at 520 lanes, a cluster of 16 blocks, and as
+    the one-block cluster copy), p7, p8 and
+    pF on their ring hazards, p9 and p10 on the byte edges, p11 on
+    ``p11_cases`` at 100 and 128 lanes, pG on ``pG_cases`` and reduce on
+    ``reduce_cases``."""
+    from llcomp_tpu_torch import probes
+    from llcomp_tpu_torch.probes import mosaic, mosaic2, mosaic3, reduce
+
+    allp = {k: p for m in (mosaic, mosaic2, mosaic3, reduce)
+            for k, p in m.PROBES.items()}
+    n = 0
+
+    def inputs(p, lanes, T, seed=0):
+        kw = p.make(seed, lanes, probes.ROWS, dev)
+        if p.T:
+            kw["T"] = T
+        if "model" in kw:
+            kw["model"] = probes.words(seed, kw["model"].shape, dev)
+        return kw
+
+    for key, p in allp.items():
+        for lanes in ((1, 33, 128) if key == "reduce" else SANITIZE_LANES
+                      + ((520,) if key in ("pHw", "pHn") else ())):
+            _probe_held(torch, p, inputs(p, lanes, SANITIZE_T),
+                        f"{lanes} lanes")
+            n += 1
+    one = _lineinfo_builds()["probe_mosaic3 cluster 1"]
+    for key in ("pHw", "pHn"):
+        with running(mosaic3.SRC, one):
+            _probe_held(torch, allp[key], inputs(allp[key], 33, SANITIZE_T),
+                        "one block")
+        n += 1
+    for key, hazards in (("p7", p7_hazard_cases()),
+                         ("p8", p7_hazard_cases(STAGE_DEPTHS)),
+                         ("pF", pF_hazard_cases())):
+        for name, idx, rows, T in hazards:
+            shape = ((2,) if key == "p7" else ()) + (rows, idx.shape[1])
+            _probe_held(torch, allp[key], {
+                "idx": torch.from_numpy(idx).to(dev), "T": T,
+                "model": probes.words(rows, shape, dev)}, name)
+            n += 1
+    for key in ("p9", "p10"):
+        for T in (0, 1, 2, SANITIZE_T):
+            _probe_held(torch, allp[key], {
+                "idx": torch.from_numpy(p9_hazard_idx()).to(dev), "T": T},
+                f"byte edges, T {T}")
+            n += 1
+    for name, lanes, rows, T, nstage in p11_cases():
+        if lanes > max(SANITIZE_LANES):
+            continue
+        idx, plane = p11_inputs(name, lanes, rows)
+        _probe_held(torch, allp["p11"], {
+            "idx": torch.from_numpy(idx).to(dev), "T": T, "nstage": nstage,
+            "model": torch.from_numpy(plane).to(dev)}, name)
+        n += 1
+    for name, x, off in pG_cases():
+        _probe_held(torch, allp["pG"], {"x": at_offset(torch, x, off)}, name)
+        n += 1
+    for name, x in reduce_cases():
+        _probe_held(torch, allp["reduce"], {"x": torch.from_numpy(x).to(dev)},
+                    name)
+        n += 1
+    return n
+
+
+SANITIZE_WORK = {"codec": _san_codec, "overflow": _san_overflow,
+                 "decision": _san_decision, "coders": _san_coders,
+                 "walks": _san_walks, "probes": _san_probes}
+
+
+def lineinfo_copy(name: str) -> tuple[str, str, list]:
+    """``LINEINFO[name]`` as ``build_copy``'s (source, tag, edits)."""
+    source, _, tag = name.partition(" ")
+    return source, f"{tag} lineinfo".strip(), LINEINFO[name]
+
+
+def _lineinfo_builds() -> dict:
+    """``LINEINFO``'s libraries, as phase 2 built them into ``_build/``
+    (``build_copy`` with -lineinfo), built in parallel where missing:
+    name -> path."""
+    from llcomp_tpu_torch.kernels import build
+
+    def one(name):
+        source, tag, edits = lineinfo_copy(name)
+        so = build.BUILD_DIR / (re.sub(r"\W", "_", f"variant_{source}_{tag}")
+                                + ".so")
+        if not so.exists():
+            so = build_copy(source, tag, edits, flags=("-lineinfo",))[0]
+        return name, so
+
+    with ThreadPoolExecutor(len(LINEINFO)) as pool:
+        return dict(pool.map(one, LINEINFO))
+
+
+def guard_library() -> pathlib.Path:
+    """``tools/torch_guard_alloc.cu`` built into ``_build/`` unless there."""
+    from llcomp_tpu_torch.kernels import build
+
+    so = build.BUILD_DIR / "libtorch_guard_alloc.so"
+    if not so.exists():
+        build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        r = subprocess.run([build.nvcc(), "-std=c++17", "-O2", "-shared",
+                            "-Xcompiler", "-fPIC", "-o", str(so),
+                            str(GUARD_SRC)], capture_output=True, text=True)
+        check(r.returncode == 0, f"{GUARD_SRC.name} did not build:\n"
+              + r.stderr[-3000:])
+    return so
+
+
+def _entry_row(entry: str) -> str:
+    """The kernels-line row of C entry point ``entry``."""
+    row = entry.removeprefix("llct_").removeprefix("probe_")
+    return "decode_kernel" if row == "decode" else row
+
+
+def sanitize_child(tool: str, parts) -> int:
+    """``--sanitize-child TOOL``: every kernel entry of the ``parts`` of
+    ``SANITIZE_WORK``, each against its plain version, on the ``LINEINFO``
+    builds; run by phase 11 (``sanitize``) under compute-sanitizer's
+    ``tool``, or with ``tool`` 'guard' under the allocator of
+    ``tools/torch_guard_alloc.cu`` (its guards checked before and after
+    every launch).  Prints the launches of each row and the guard's
+    report as the last line's JSON; exits 1 on a difference."""
+    import gc
+
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: CUDA is not available", file=sys.stderr)
+        return 1
+    guard = None
+    try:
+        if tool == "guard":
+            so = guard_library()
+            torch.cuda.memory.change_current_allocator(
+                torch.cuda.memory.CUDAPluggableAllocator(
+                    str(so), "llct_guard_malloc", "llct_guard_free"))
+            guard = ctypes.CDLL(str(so))
+            guard.llct_guard_check.argtypes = [ctypes.c_char_p]
+            for fn in ("llct_guard_check", "llct_guard_violations",
+                       "llct_guard_allocations"):
+                getattr(guard, fn).restype = ctypes.c_longlong
+        from llcomp_tpu_torch.kernels import build
+
+        for name, so in _lineinfo_builds().items():
+            if " " not in name:
+                build._libs[name] = ctypes.CDLL(str(so))
+        by_row: dict = {}
+        if guard is not None:
+            load = build.load
+
+            def guarded(name, entry, argtypes):
+                fn = load(name, entry, argtypes)
+
+                def call(*args):
+                    before = guard.llct_guard_check(
+                        f"torch's work before {entry}".encode())
+                    rc = fn(*args)
+                    after = guard.llct_guard_check(entry.encode())
+                    for key, n in (("torch", before), (_entry_row(entry),
+                                                        after)):
+                        if n:
+                            by_row[key] = by_row.get(key, 0) + abs(n)
+                    return rc
+                return call
+            build.load = guarded
+        counters = launch_counters()
+        for fn in counters.values():
+            fn.launches = 0
+        dev = torch.device("cuda")
+        t0 = time.perf_counter()
+        cases = {part: SANITIZE_WORK[part](torch, dev) for part in parts}
+        report = {"tool": tool, "cases": cases,
+                  "seconds": round(time.perf_counter() - t0, 1),
+                  "launches": {row: fn.launches
+                               for row, fn in counters.items()}}
+        if guard is not None:
+            gc.collect()
+            n = guard.llct_guard_check(b"the child's end")
+            if n:
+                by_row["torch"] = by_row.get("torch", 0) + abs(n)
+            report["guard"] = {
+                "bytes": guard.llct_guard_violations(), "by_row": by_row,
+                "allocations": guard.llct_guard_allocations()}
+    except Failed as e:
+        print(f"chip_smoke --sanitize-child {tool} FAILED: {e}",
+              file=sys.stderr)
+        return 1
+    print(json.dumps(report), flush=True)
+    return 0
+
+
+# --- phase 11's parent side --------------------------------------------------
+
+
+def sanitizer_path() -> pathlib.Path:
+    """compute-sanitizer beside nvcc."""
+    from llcomp_tpu_torch.kernels import build
+
+    return pathlib.Path(build.nvcc()).parent / "compute-sanitizer"
+
+
+def sanitizer_status() -> dict:
+    """compute-sanitizer (``sanitizer_path``): {"path", "version" (None if
+    the tool is missing), "refused" (its message where it refuses this
+    card's device, run on a one-kernel program, else None)}."""
+    from llcomp_tpu_torch.kernels import build
+
+    tool = sanitizer_path()
+    status = {"path": str(tool), "version": None, "refused": None}
+    if not tool.exists():
+        return status
+    r = subprocess.run([str(tool), "--version"], capture_output=True,
+                       text=True, timeout=60)
+    status["version"] = (re.findall(r"Version \S+", r.stdout) or
+                         [r.stdout.strip()[-80:]])[0]
+    cu = build.BUILD_DIR / "sanitizer_probe.cu"
+    exe = cu.with_suffix("")
+    build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    cu.write_text(_SANITIZER_PROBE)
+    b = subprocess.run([build.nvcc(), "-gencode", "arch=compute_90a,"
+                        "code=sm_90a", "-o", str(exe), str(cu)],
+                       capture_output=True, text=True)
+    check(b.returncode == 0, f"the sanitizer probe did not build:\n"
+          + b.stderr[-2000:])
+    r = subprocess.run([str(tool), "--tool", "memcheck", "--error-exitcode",
+                        "86", str(exe)], capture_output=True, text=True,
+                       timeout=120)
+    said = r.stdout + r.stderr
+    refused = re.search(r"Error: Device not supported[^\n]*", said)
+    if refused:
+        status["refused"] = refused[0]
+    else:
+        check(r.returncode == 0, f"compute-sanitizer failed on a one-kernel "
+              f"program (rc {r.returncode}):\n{said[-2000:]}")
+    return status
+
+
+def _run_group(cmd: list, env: dict, timeout: float):
+    """``cmd`` in a process group of its own, killed with all it started
+    past ``timeout`` seconds: (returncode, stdout, stderr)."""
+    import os
+    import signal
+
+    p = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                         text=True, env=env, start_new_session=True)
+    try:
+        out, err = p.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        os.killpg(p.pid, signal.SIGKILL)
+        p.communicate()
+        raise Failed(f"{' '.join(cmd[-4:])} passed its {timeout:.0f} s")
+    return p.returncode, out, err
+
+
+def _tool_reports(said: str) -> tuple[int, int, list]:
+    """compute-sanitizer's reports in ``said``: (reports naming a source of
+    the port, other reports, the lines that start the other ones).  A
+    report starts at a '========= ' line that is not indented and runs to
+    the next; the port's builds name their ``_build`` or ``csrc`` file."""
+    blocks, ours, other, heads = [], 0, 0, []
+    for line in said.splitlines():
+        if not line.startswith("========="):
+            continue
+        body = line[9:]
+        if body.startswith(" ") and not body.startswith("  ") and \
+                body.strip() and not re.match(
+                    r" (ERROR|RACECHECK|SYNCCHECK|INITCHECK) SUMMARY|"
+                    r" COMPUTE-SANITIZER|\s*$|"
+                    r" Target application returned", body):
+            blocks.append([body])
+        elif blocks:
+            blocks[-1].append(body)
+    for block in blocks:
+        if any(("_build/" in b or "/csrc/" in b) for b in block):
+            ours += 1
+        else:
+            other += 1
+            heads.append(block[0].strip())
+    return ours, other, heads
+
+
+def sanitize(tool: str, parts=SANITIZE_PARTS, timeout: float = 600) -> dict:
+    """One sanitizer child (``sanitize_child``) on ``parts``: under
+    compute-sanitizer's ``tool`` (the caching allocator off, so that the
+    tool sees each tensor's end) or, for 'guard', under the guard
+    allocator.  Fails if the child fails or finds a difference.  -> the
+    child's report, with "errors" (the tool's reports in the port's
+    kernels, or the guard's bytes written past a block in a launch of
+    one), "other" (the tool's reports elsewhere, or the guard's in torch's
+    work, printed by the caller and not failed), "other_heads" and
+    "wall_s"."""
+    import os
+
+    env = dict(os.environ)
+    cmd = [sys.executable, str(pathlib.Path(__file__).resolve()),
+           "--sanitize-child", tool, "--parts", ",".join(parts)]
+    if tool != "guard":
+        env["PYTORCH_NO_CUDA_MEMORY_CACHING"] = "1"
+        cmd = [str(sanitizer_path()), "--tool", tool,
+               "--error-exitcode", "86", "--print-limit", "1000", *cmd]
+    t0 = time.perf_counter()
+    rc, out, err = _run_group(cmd, env, timeout)
+    wall = time.perf_counter() - t0
+    lines = [ln for ln in out.splitlines() if ln.startswith("{")]
+    check(bool(lines) and rc in (0, 86), f"sanitizer child {tool} failed "
+          f"(rc {rc}):\n{out[-3000:]}\n{err[-3000:]}")
+    report = json.loads(lines[-1])
+    if tool == "guard":
+        by_row = report["guard"]["by_row"]
+        report["other"] = by_row.get("torch", 0)
+        report["errors"] = sum(n for row, n in by_row.items()
+                               if row != "torch")
+        report["other_heads"] = [ln for ln in err.splitlines()
+                                 if ln.startswith("guard:")][:20]
+    else:
+        ours, other, heads = _tool_reports(out + err)
+        check(rc == 0 or ours + other, f"sanitizer child {tool} exited "
+              f"{rc} with no report:\n{out[-3000:]}")
+        report.update(errors=ours, other=other, other_heads=heads[:20])
+    report["wall_s"] = wall
+    return report
+
+
+def phase_conformance(torch, log) -> dict:
+    """Phase 11: the fuzz (``phase_fuzz``), then the sanitizers: where
+    compute-sanitizer runs on this card, one child (``sanitize``) a tool of
+    ``SANITIZER_TOOLS``; where it is missing or refuses the device, that
+    is printed and the guard child runs instead.  Each child runs every
+    part of ``SANITIZE_WORK``; memcheck, initcheck and the guard child
+    must see every row of the kernels line launch, racecheck and
+    synccheck every ``SYNC_ROWS`` row; no report in the port's kernels.
+    The phase fails past ``PHASE11_LIMIT_S`` seconds.  -> {"fuzz",
+    "status", "reports": {tool: report}, "seconds"}"""
+    t0 = time.perf_counter()
+    fuzz = phase_fuzz(torch, log)
+    t_fuzz = time.perf_counter() - t0
+    status = sanitizer_status()
+    t_status = time.perf_counter() - t0 - t_fuzz
+    if status["version"] is None or status["refused"]:
+        log(f"phase 11 compute-sanitizer ({status['path']}): "
+            + ("missing" if status["version"] is None else
+               f"{status['version']}, refuses this card on a one-kernel "
+               f"program ('{status['refused']}')")
+            + "; memcheck, initcheck, racecheck and synccheck not run: the "
+            "guard child stands in for memcheck and initcheck on global "
+            "memory, nothing for racecheck and synccheck")
+        tools = ("guard",)
+    else:
+        tools = SANITIZER_TOOLS
+    reports = {}
+    rows = (*KERNEL_ROWS, *PROBE_ROWS)
+    for tool in tools:
+        left = PHASE11_LIMIT_S - (time.perf_counter() - t0)
+        r = reports[tool] = sanitize(tool, timeout=max(left, 1))
+        covered = SYNC_ROWS if tool in ("racecheck", "synccheck") else rows
+        idle = [row for row in covered if not r["launches"].get(row)]
+        check(not idle, f"sanitizer child {tool}: no launch of {idle}")
+        log(f"phase 11 {tool}: {len(covered)} kernels covered "
+            f"({', '.join(f'{row} {r['launches'][row]}' for row in covered)}"
+            f"), {sum(r['cases'].values())} cases ({r['cases']}), each "
+            f"equal to its plain version; {r['errors']} errors in the "
+            f"port's kernels, {r['other']} elsewhere"
+            + (f" ({r['other_heads']})" if r["other"] else "")
+            + (f"; {r['guard']['allocations']} guarded allocations"
+               if tool == "guard" else "")
+            + f"; {r['seconds']} s of work, {r['wall_s']:.1f} s in all")
+        check(r["errors"] == 0, f"sanitizer child {tool}: {r['errors']} "
+              "errors in the port's kernels")
+    total = time.perf_counter() - t0
+    log(f"phase 11 seconds: fuzz {t_fuzz:.1f}, compute-sanitizer's check "
+        f"{t_status:.1f}, "
+        + ", ".join(f"{t} {r['wall_s']:.1f}" for t, r in reports.items())
+        + f"; total {total:.1f} of the {PHASE11_LIMIT_S} s limit")
+    check(total < PHASE11_LIMIT_S,
+          f"phase 11 took {total:.1f} s, over its {PHASE11_LIMIT_S} s limit")
+    return {"fuzz": fuzz, "status": status, "reports": reports,
+            "seconds": total}
+
+
+def sanitizer_coverage(conf: dict) -> dict:
+    """Each kernels-line row -> its sanitizer coverage in phase 11: each
+    child that covered it, with its launches there and its errors (the
+    guard's by row), and compute-sanitizer's status."""
+    st = conf["status"]
+    state = ("missing" if st["version"] is None else
+             f"{st['version']}, refused: {st['refused'].split('.')[0]}"
+             if st["refused"] else st["version"])
+    out = {}
+    for row in (*KERNEL_ROWS, *PROBE_ROWS):
+        cov = {"compute_sanitizer": state}
+        for tool, r in conf["reports"].items():
+            if tool in ("racecheck", "synccheck") and row not in SYNC_ROWS:
+                continue
+            cov[tool] = {"launches": r["launches"][row],
+                         "errors": (r["guard"]["by_row"].get(row, 0)
+                                    if tool == "guard" else r["errors"])}
+        out[row] = cov
+    return out
+
+
 def main() -> int:
     t_start = time.perf_counter()
+    if len(sys.argv) > 1:
+        import argparse
+
+        ap = argparse.ArgumentParser(description="Smoke run of the port on "
+                                     "one GPU; with --sanitize-child, phase "
+                                     "11's child alone.")
+        ap.add_argument("--sanitize-child", required=True,
+                        choices=("guard", *SANITIZER_TOOLS))
+        ap.add_argument("--parts", default=",".join(SANITIZE_PARTS),
+                        help="comma-separated parts of SANITIZE_WORK")
+        a = ap.parse_args()
+        parts = a.parts.split(",")
+        if not set(parts) <= set(SANITIZE_WORK):
+            ap.error(f"--parts takes {','.join(SANITIZE_WORK)}")
+        return sanitize_child(a.sanitize_child, parts)
     try:
         import torch
     except ImportError:
@@ -3992,13 +4794,21 @@ def main() -> int:
         from llcomp_tpu_torch.kernels import build
 
         t0 = time.perf_counter()
-        with ThreadPoolExecutor(len(KERNEL_SOURCES) + len(VARIANTS)) as pool:
+        with ThreadPoolExecutor(len(KERNEL_SOURCES) + len(VARIANTS)
+                                + len(LINEINFO) + 1) as pool:
+            lineinfo = [pool.submit(build_copy, *lineinfo_copy(name),
+                                    flags=("-lineinfo",))
+                        for name in LINEINFO]
+            guard = pool.submit(guard_library)
             variants = dict(zip(VARIANTS, pool.map(build_variant, VARIANTS)))
             list(pool.map(build.build, KERNEL_SOURCES))
+            for f in (*lineinfo, guard):
+                f.result()
         log(f"phase 2 build: {len(KERNEL_SOURCES)} kernel sources from "
             f"llcomp_tpu_torch/csrc and {len(VARIANTS)} copies of kernels "
-            f"1-8 and probes p7-p11, pF, pG, pH and reduce, one nvcc each in "
-            f"parallel, in "
+            f"1-8 and probes p7-p11, pF, pG, pH and reduce, and phase 11's "
+            f"{len(LINEINFO)} builds with -lineinfo and guard allocator, "
+            f"one nvcc each in parallel, in "
             f"{time.perf_counter() - t0:.2f} s")
         regs = {name: registers(build.compiler_log(name))
                 for name in PTXAS_SOURCES}
@@ -4039,6 +4849,7 @@ def main() -> int:
         sort = timed(6, phase_sort, torch, log, card, variants)
         decision = timed(7, phase_decision, torch, log, card, variants)
         probe = timed(8, phase_probes, torch, log, card, turns, variants)
+        conf = timed(11, phase_conformance, torch, log)
         log("phase seconds: " + ", ".join(f"{k} {v}" for k, v in
                                            took.items()))
         if "jax" in sys.modules or "llcomp_tpu" in sys.modules:
@@ -4046,7 +4857,7 @@ def main() -> int:
     except Failed as e:
         print(f"chip_smoke FAILED: {e}", file=sys.stderr)
         return 1
-    log(f"chip_smoke: phases 1-10 passed in "
+    log(f"chip_smoke: phases 1-11 passed in "
         f"{time.perf_counter() - t_start:.1f} s")
 
     def bound_of(b: dict) -> dict:
@@ -4117,6 +4928,9 @@ def main() -> int:
             **({k: r[k] for k in ("piece", "thread_walk")}
                if name == "walk_probs" else {})})
     kernels += probe["rows"]
+    coverage = sanitizer_coverage(conf)
+    for row in kernels:
+        row["sanitizer"] = coverage[row["name"]]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

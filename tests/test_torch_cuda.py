@@ -22,7 +22,8 @@ from chip_smoke import (CODERS, EDGE_RESIDUALS, P11_TAGS, PG_TAGS, PG_WORDS,
                         pF_hazard_cases, pG_cases, reduce_cases, repeat_lanes,
                         running, skewed_recs, walk_case_errs, walk_steps)
 from chip_smoke import (MIXED, OVERFLOW_SEED, _flip_slice, _malicious_stream,
-                        make_image, overflow_batches)
+                        make_image, overflow_batches, sanitize,
+                        sanitizer_status)
 from llcomp_tpu_torch import (api, coder, container, corpus, decode, encode,
                               graft_entry, host, parallel, probes, seed)
 from llcomp_tpu_torch import device as devmod
@@ -858,6 +859,80 @@ def test_dryrun_multichip_on_one_card_twice(dev):
     assert torch.equal(n.cpu(), lens)
     for s in range(len(lens)):
         assert torch.equal(out[s, : lens[s]].cpu(), want[s, : lens[s]])
+
+
+def test_sanitizer_child_on_kernels_1_and_2(dev):
+    """``chip_smoke.py --sanitize-child`` on phase 3's runs of kernels 1
+    and 2 (part 'codec', kernels 3 and 4 too): under compute-sanitizer's
+    memcheck where it runs on this card, else under the guard allocator
+    that stands in for it on global memory.  No error in the port's
+    kernels, each output equal to its plain version, both kernels
+    launched."""
+    status = sanitizer_status()
+    tool = ("guard" if status["version"] is None or status["refused"]
+            else "memcheck")
+    r = sanitize(tool, ("codec",))
+    assert r["errors"] == 0, r
+    assert r["launches"]["encode_fused"] and r["launches"]["decode_kernel"]
+
+
+# p0 under the guard allocator, in a fresh process (the allocator is set
+# before the first CUDA allocation): the shipped kernel, and copies built
+# at run time (``chip_smoke.build_copy``) that write one word past out and
+# that leave the cells off each lane's row unwritten
+_GUARD_MUTANTS = """
+import contextlib, ctypes, json
+import torch
+import chip_smoke as cs
+so = cs.guard_library()
+torch.cuda.memory.change_current_allocator(
+    torch.cuda.memory.CUDAPluggableAllocator(
+        str(so), "llct_guard_malloc", "llct_guard_free"))
+g = ctypes.CDLL(str(so))
+g.llct_guard_check.argtypes = [ctypes.c_char_p]
+g.llct_guard_check.restype = ctypes.c_longlong
+from llcomp_tpu_torch.probes import mosaic
+stop = "  if (l >= lanes) return;\\n  const int32_t r = fmod_floor"
+store = "  for (int i = 0; i < 64; ++i) out[i * n + l] = i == r ? r : 0;"
+copies = {"past the end": [(stop, stop.replace(">=", ">"))],
+          "unwritten": [(store, store.replace(
+              "out[i * n + l] = i == r ? r : 0",
+              "if (i == r) out[i * n + l] = r"))]}
+idx = torch.randint(0, 1 << 30, (1, 33), dtype=torch.int32, device="cuda")
+want = mosaic.p0_scalar_store_plain(idx.cpu())
+res = {}
+for tag in ("shipped", *copies):
+    so = None if tag == "shipped" else cs.build_copy(
+        "probe_mosaic", f"mutant {tag}", copies[tag])[0]
+    with cs.running("probe_mosaic", so) if so else contextlib.nullcontext():
+        out = mosaic.p0_scalar_store(idx)
+    res[tag] = [g.llct_guard_check(tag.encode()),
+                torch.equal(out.cpu(), want)]
+print(json.dumps(res))
+"""
+
+
+def test_guard_allocator_tells_p0_copies_that_write_past_or_leave_out(dev):
+    """The guard allocator (phase 11's stand-in for memcheck and
+    initcheck): a copy of p0 that writes one word past out draws guard
+    bytes at its launch; one that leaves cells unwritten draws none but
+    returns the guard's fill there, so it differs from the plain version;
+    the shipped p0 does neither."""
+    import json
+    import os
+    import pathlib
+    import subprocess
+    import sys
+
+    root = pathlib.Path(__file__).resolve().parents[1]
+    r = subprocess.run([sys.executable, "-c", _GUARD_MUTANTS], cwd=root,
+                       capture_output=True, text=True, timeout=600,
+                       env={**os.environ, "PYTHONPATH": str(root)})
+    assert r.returncode == 0, r.stderr[-3000:]
+    res = json.loads(r.stdout.splitlines()[-1])
+    assert res["shipped"] == [0, True]
+    assert res["past the end"][0] > 0 and "written past a block" in r.stderr
+    assert res["unwritten"] == [0, False]
 
 
 @pytest.fixture
