@@ -197,19 +197,35 @@ Phases (each prints one line; any failure exits non-zero without the final
    the stand-in for memcheck and initcheck on global memory; each child
    must launch every kernel its tool covers (``SYNC_ROWS`` for racecheck
    and synccheck); one line a tool; the phase fails past
-   ``PHASE11_LIMIT_S`` seconds.
+   ``PHASE11_LIMIT_S`` seconds;
+12. (run after phase 8, before 11) every codec configuration of
+   ``CFG_CASES`` (REV2, the small model, e_lim 3 / r_lim 5 / sign_ctx 6, 4
+   substates, 16 substates, revision 3): kernels 1 and 2 built for each
+   cfg's ``config.defines`` (one nvcc each, in parallel; seconds and
+   registers printed), each build held exactly against its plain versions
+   on ``CFG_BATCHES`` of phase 3 (``codec_case``: hash repeats, dead
+   tails, flipped and cut streams, a stream past the cap, garbage past the
+   lengths; primed and seeded too at 8 substates); under each cfg the bench
+   batch (1,024 lanes of 8x512x3) through ``encode_lanes`` and
+   ``decode_lanes``, the first 4 lanes' streams equal to
+   ``CFG_GOLDEN_SHA`` (the JAX package oracle's bytes) and the pixels exact,
+   with the cfg build's launches counted from 0 around it and a photo512
+   compress/decompress (slices 'auto'), and both kernels timed alone at
+   that shape; the phase fails past ``PHASE12_LIMIT_S`` seconds; the
+   sanitizer child's "cfgs" part runs each build on phase 3's RGB batch.
 
-Phases 5-8 compute each kernel's bound (``bound``): the least time the
+Phases 5-8 and 12 compute each kernel's bound (``bound``): the least time the
 card could take for the bytes and integer operations of its work on this
 run's inputs; a one-shot probe's row also carries that bound raised to the
 launch floor (``launch_bound_ms``, ``launch_bound_by`` "launch" where the
 floor wins).  The last two lines are the per-kernel JSON record (each
 row with its sanitizer coverage from phase 11: compute-sanitizer's
 state, and each child that covered it with its launches and errors there)
-and ``{"ok": true, "device": {...}}``.  Test images use integer arithmetic
-only (a counter-based hash, no libm, no NumPy random streams; the
-overflow inputs excepted), and their own sha256 is pinned so a generator
-drift is told apart from a codec fault.
+and ``{"ok": true, "device": {...}}``; each cfg build of kernels 1 and 2
+has a row of its own there ("encode_fused [small model]" ...).  Test images
+use integer arithmetic only (a counter-based hash, no libm, no NumPy random
+streams; the overflow inputs excepted), and their own sha256 is pinned so a
+generator drift is told apart from a codec fault.
 
     python3 chip_smoke.py --sanitize-child guard [--parts codec,probes]
 
@@ -391,8 +407,8 @@ VARIANTS = {
        for d in (4, 8)},
     ("encode_fused", "no decisions"): (
         "code_symbol(c, w, xv[k], s_fused);",
-        "w += static_cast<uint32_t>(xv[k]); "
-        "c.put_byte(static_cast<uint32_t>(w));"),
+        "w.w[0] += static_cast<uint32_t>(xv[k]); "
+        "c.put_byte(static_cast<uint32_t>(w.w[0]));"),
     **{("coder_scan", f"{n} lanes"): (_CODER_BLOCK,
                                       f"constexpr int kBlock = {n};")
        for n in (1, 4)},
@@ -564,6 +580,33 @@ GOLDEN_SHA = {
         "cee8f22798245fe970081eb830e54c51ddff98d1f757b7012423fb1ae1d0b099",
 }
 BENCH_IMAGES, BENCH_SIZE, BENCH_SLICE_H = 16, 512, 8
+# phase 12's codec configurations (``CodecConfig`` keywords), and the sha256
+# of the first 4 lanes of the bench batch (``bench_lanes``), unprimed, coded
+# under each (the JAX package oracle's bytes; tests/test_torch_config.py
+# recomputes them)
+CFG_CASES = {
+    "rev2": {},
+    "small model": {"large_model": False},
+    "e3 r5 s6": {"e_lim": 3, "r_lim": 5, "sign_ctx": 6},
+    "substates 4": {"substates": 4, "e_lim": 2, "r_lim": 3, "sign_ctx": 3},
+    "substates 16": {"substates": 16, "e_lim": 8, "r_lim": 12,
+                     "sign_ctx": 15},
+    "revision 3": {"revision": 3},
+}
+CFG_GOLDEN_SHA = {
+    "rev2":
+        "464adfd174cc4140578b86fd39ea942ea2b3234bc13a1c2339de70cc82a10489",
+    "small model":
+        "f5b60ab721b41d12f4fe9ede15e0a68a8fa2c344cd25267036abfda6aca9e9a8",
+    "e3 r5 s6":
+        "0356cb4941f3f650beae20332e7d999f37888e72d2d0aeff2a7825009d219e89",
+    "substates 4":
+        "3d397c26523d80603dbb69a49e4e8679497233df6c6a0da3220bb14bb21be54f",
+    "substates 16":
+        "9095fe7cb212589caea71c627f000108b6932d5f936ae8f017dba37c8b9cba47",
+    "revision 3":
+        "464adfd174cc4140578b86fd39ea942ea2b3234bc13a1c2339de70cc82a10489",
+}
 PLAIN_SUBSET_ROWS = 1   # rows of each bench stripe the plain versions time
 
 
@@ -934,15 +977,16 @@ def running(name: str, so: pathlib.Path):
     before."""
     from llcomp_tpu_torch.kernels import build
 
-    before = build._libs.get(name)
-    build._libs[name] = ctypes.CDLL(str(so))
+    key = (name, ())                       # the REV2 build's
+    before = build._libs.get(key)
+    build._libs[key] = ctypes.CDLL(str(so))
     try:
         yield
     finally:
         if before is None:
-            del build._libs[name]  # the next launch loads the shipped build
+            del build._libs[key]   # the next launch loads the shipped build
         else:
-            build._libs[name] = before
+            build._libs[key] = before
 
 
 def repeat_lanes(shape) -> list[np.ndarray]:
@@ -1308,30 +1352,37 @@ def codec_runs(torch, dev) -> list:
             for name, lanes, mode in runs]
 
 
-def codec_case(torch, dev, name: str, lanes, mode: str, init) -> dict:
+def codec_case(torch, dev, name: str, lanes, mode: str, init,
+               cfg=None) -> dict:
     """One of ``codec_runs``: kernel 1 (with a dead tail) and kernel 2
     against their plain versions, kernel 2 on flipped bytes, a stream cut
     inside a 16-byte word, (unprimed) a stream that must trip the error
     flag and garbage past every lane's length, which must read as zeros;
-    then the sort engine's kernels 3 and 4 as it ran them against their
-    plain versions.  Fails on any difference -> {"encode", "decode",
-    "walk", "coder" (max_abs_err), "flagged" (lanes), "kernel_s",
-    "plain_s" (kernel 1's and its plain version's seconds)}."""
+    then (under REV2) the sort engine's kernels 3 and 4 as it ran them
+    against their plain versions.  ``cfg``: the codec configuration of
+    kernels 1 and 2's build (None: REV2).  Fails on any difference ->
+    {"encode", "decode", "walk", "coder" (max_abs_err), "flagged"
+    (lanes), "kernel_s", "plain_s" (kernel 1's and its plain version's
+    seconds), "dec_kernel_s", "dec_plain_s" (kernel 2's and its plain
+    version's)}."""
     from llcomp_tpu_torch import decode, encode
     from llcomp_tpu_torch.core import transform
+    from llcomp_tpu_torch.core.config import REV2
     from llcomp_tpu_torch.kernels import decode_kernel as dk
     from llcomp_tpu_torch.kernels import encode_fused as ef
 
+    cfg = REV2 if cfg is None else cfg
     S, H, W, C = lanes.shape
-    xs = encode.precompute(torch.from_numpy(lanes).to(dev)).t().contiguous()
+    xs = encode.precompute(torch.from_numpy(lanes).to(dev),
+                           cfg).t().contiguous()
     # a dead tail (live bit clear), which codes nothing
     xs = torch.cat([xs, xs[:5] & ~(1 << 25)])
     cap = encode.outcap(xs.shape[0])
     t0 = time.perf_counter()
-    out_k, len_k = ef.encode_fused(xs, init, cap)
+    out_k, len_k = ef.encode_fused(xs, init, cap, cfg)
     torch.cuda.synchronize()
     t1 = time.perf_counter()
-    out_p, len_p, _ = ef.encode_fused_plain(xs.cpu(), init, cap)
+    out_p, len_p, _ = ef.encode_fused_plain(xs.cpu(), init, cap, cfg)
     t2 = time.perf_counter()
     err_enc = _stream_err(out_k.cpu(), len_k.cpu(), out_p, len_p)
     streams = [out_k[s, : int(len_k[s])].cpu().numpy().tobytes()
@@ -1350,10 +1401,13 @@ def codec_case(torch, dev, name: str, lanes, mode: str, init) -> dict:
     data[np.arange(data.shape[1])[None, :] >= lens[:, None]] = 0xA5
     d = torch.from_numpy(data).to(dev)
     ln = torch.from_numpy(lens).to(dev)
-    p_k, e_k = dk.decode(d, ln, H, W, C, init)
+    t3 = time.perf_counter()
+    p_k, e_k = dk.decode(d, ln, H, W, C, init, cfg)
     p_k, e_k = p_k.cpu(), e_k.cpu()
+    t4 = time.perf_counter()
     p_p, e_p = dk.decode_plain(torch.from_numpy(data),
-                               torch.from_numpy(lens), H, W, C, init)
+                               torch.from_numpy(lens), H, W, C, init, cfg)
+    t5 = time.perf_counter()
     check(torch.equal(e_k, e_p), f"{name} {mode}: decode err flags differ")
     if n_bad and mode == "unprimed":
         check(int(e_k[2]) == 1, f"{name}: corrupt lane not flagged")
@@ -1363,14 +1417,18 @@ def codec_case(torch, dev, name: str, lanes, mode: str, init) -> dict:
           f"{name} {mode}: clean lanes did not round-trip")
     check(err_enc == 0 and err_dec == 0,
           f"{name} {mode}: kernel != plain (enc {err_enc}, dec {err_dec})")
-    _, made, _ = _stage_run(torch, encode._encode_sort,
-                            torch.from_numpy(lanes).to(dev), init, keep=True)
-    e = _sort_kernels_vs_plain(torch, made, init, host=True)
+    e = {"walk": 0, "coder": 0}
+    if cfg == REV2:
+        _, made, _ = _stage_run(torch, encode._encode_sort,
+                                torch.from_numpy(lanes).to(dev), init,
+                                keep=True)
+        e = _sort_kernels_vs_plain(torch, made, init, host=True)
     check(e["walk"] == 0 and e["coder"] == 0, f"{name} {mode}: sort kernels "
           f"!= plain (walk {e['walk']}, coder {e['coder']})")
     return {"encode": err_enc, "decode": err_dec, "walk": e["walk"],
             "coder": e["coder"], "flagged": int(e_k.sum()),
-            "kernel_s": t1 - t0, "plain_s": t2 - t1}
+            "kernel_s": t1 - t0, "plain_s": t2 - t1, "dec_kernel_s": t4 - t3,
+            "dec_plain_s": t5 - t4}
 
 
 def phase_kernels_vs_plain(torch, log) -> dict:
@@ -4057,6 +4115,210 @@ def phase_multi(torch, log, card: str, bench: dict) -> dict:
     return {**shards, **pod, "stages": stages, "seconds": t}
 
 
+# --- phase 12: every codec configuration -----------------------------------
+
+PHASE12_LIMIT_S = 60    # phase 12 fails past this many seconds
+# phase 3's batches that phase 12 runs on each cfg build: C = 3, 1, 4, 2
+# and 5 (every instantiation of kernel 2), hash repeats at short periods,
+# 1 to 130 lanes
+CFG_BATCHES = ("rgb 4x16x3", "gray 6x10x1", "repeats 6x24x1", "rgba 3x8x4",
+               "c2 5x12x2 S33", "c5 4x6x5 S130")
+
+
+def cfg_groups() -> dict:
+    """``config.defines`` of each of ``CFG_CASES`` -> the cfgs built with
+    them (REV2's build, with no define, is phase 2's)."""
+    from llcomp_tpu_torch.core import config
+    from llcomp_tpu_torch.core.config import CodecConfig
+
+    out: dict = {}
+    for name, kw in CFG_CASES.items():
+        out.setdefault(config.defines(CodecConfig(**kw)), []).append(name)
+    return out
+
+
+def cfg_build(name: str, defines) -> tuple[float, dict]:
+    """``csrc/<name>.cu`` built with ``defines`` unless built: (seconds,
+    registers and spills by kernel from the compiler's report)."""
+    from llcomp_tpu_torch.kernels import build
+
+    t0 = time.perf_counter()
+    build.build(name, defines)
+    return (time.perf_counter() - t0,
+            registers(build.compiler_log(name, defines)))
+
+
+def _cfg_start(cfg, batch: str) -> tuple:
+    """The starts phase 12 codes ``batch`` from under ``cfg``: unprimed,
+    and the RGB batch primed and seeded too where the cfg has the start
+    tables' 8 substates."""
+    from llcomp_tpu_torch.core import tables
+
+    if cfg.substates == 8 and batch == "rgb 4x16x3":
+        return (("unprimed", None), ("primed", tables.PRIOR_TAB),
+                ("seeded", OVERFLOW_SEED))
+    return (("unprimed", None),)
+
+
+def phase_cfgs(torch, log, card: str) -> dict:
+    """Phase 12: every cfg of ``CFG_CASES``.  Kernels 1 and 2 built for
+    each cfg's defines (one nvcc each, in parallel; seconds and registers);
+    each build against its plain versions on ``CFG_BATCHES`` (phase 3's
+    ``codec_case``: dead tails, flipped and cut streams, a stream past the
+    cap, garbage past the lengths), exact; then under each cfg the bench
+    batch (1,024 lanes of 8x512x3) through the lane path, encode_lanes
+    then decode_lanes: the first 4 lanes' streams equal
+    ``CFG_GOLDEN_SHA`` and the pixels are exact, with the cfg build's
+    launches counted from 0 around it and a photo512 compress/decompress
+    (slices 'auto'); both kernels alone timed at that shape (CUDA events).
+    Fails past ``PHASE12_LIMIT_S`` seconds.  -> {"rows": the kernels
+    line's rows of each cfg build, "seconds"}"""
+    from llcomp_tpu_torch import api, decode, encode
+    from llcomp_tpu_torch.core import config
+    from llcomp_tpu_torch.core.config import CodecConfig
+    from llcomp_tpu_torch.kernels import decode_kernel as dk
+    from llcomp_tpu_torch.kernels import encode_fused as ef
+
+    t0 = time.perf_counter()
+    dev = torch.device("cuda")
+    groups = cfg_groups()
+    new = [d for d in groups if d]
+    with ThreadPoolExecutor(2 * len(new)) as pool:
+        futures = {(src, d): pool.submit(cfg_build, src, d) for d in new
+                   for src in ("encode_fused", "decode_kernel")}
+        builds = {key: f.result() for key, f in futures.items()}
+    t_build = time.perf_counter() - t0
+    log(f"phase 12 builds: kernels 1 and 2 for {len(new)} cfgs, one nvcc "
+        f"each, {2 * len(new)} in parallel, in {t_build:.1f} s: " + "; ".join(
+            f"{groups[d][0]} ({' '.join(d)}) {src} {sec:.1f} s, registers "
+            + ", ".join(f"{k} {v[0]}" + (f" ({v[1]} B spilled)"
+                                          if v[1] else "")
+                        for k, v in regs.items())
+            for (src, d), (sec, regs) in builds.items()))
+
+    batches = codec_batches()
+    held: dict = {}
+    for d in new:
+        cfg = CodecConfig(**CFG_CASES[groups[d][0]])
+        h = held[d] = {"encode": 0, "decode": 0, "cases": 0, "flagged": 0,
+                       "kernel_s": 0.0, "plain_s": 0.0, "dec_kernel_s": 0.0,
+                       "dec_plain_s": 0.0}
+        for bname in CFG_BATCHES:
+            for mode, init in _cfg_start(cfg, bname):
+                r = codec_case(torch, dev, bname, batches[bname], mode, init,
+                               cfg)
+                for k in ("encode", "decode"):
+                    h[k] = max(h[k], r[k])
+                for k in ("flagged", "kernel_s", "plain_s", "dec_kernel_s",
+                          "dec_plain_s"):
+                    h[k] += r[k]
+                h["cases"] += 1
+    t_held = time.perf_counter() - t0 - t_build
+    log(f"phase 12 kernels vs plain: each cfg build on phase 3's batches "
+        f"{CFG_BATCHES} (the RGB one primed and seeded too at 8 substates): "
+        + "; ".join(f"{groups[d][0]} {h['cases']} runs exact (max_abs_err "
+                    f"encode {h['encode']}, decode {h['decode']}; "
+                    f"{h['flagged']} flagged lanes agree)"
+                    for d, h in held.items())
+        + f" ({t_held:.1f} s, the REV2 build's in phase 3)")
+
+    imgs = bench_images(100)
+    lanes = bench_lanes(imgs)
+    check(sha(lanes) == IMAGE_SHA["batch"], "bench images drifted")
+    S, H, W, C = lanes.shape
+    photo = make_image(512, 512, 3, 1512)
+    lanes_t = torch.from_numpy(lanes).to(dev)
+    per = {}
+    for name, kw in CFG_CASES.items():
+        cfg = CodecConfig(**kw)
+        d = config.defines(cfg)
+        ef.encode_fused.by_cfg[d] = dk.decode.by_cfg[d] = 0
+        ts = time.perf_counter()
+        streams = encode.encode_lanes(lanes, cfg, device=dev)
+        tm = time.perf_counter()
+        back = decode.decode_lanes(streams, (H, W, C), cfg, device=dev)
+        te = time.perf_counter()
+        blob = api.compress(photo, slices="auto", cfg=cfg, device=dev)
+        photo_ok = np.array_equal(api.decompress(blob, cfg, device=dev),
+                                  photo)
+        launches = (ef.encode_fused.by_cfg[d], dk.decode.by_cfg[d])
+        check(sha(b"".join(streams[:4])) == CFG_GOLDEN_SHA[name],
+              f"{name}: the first 4 lanes' streams != CFG_GOLDEN_SHA")
+        check(np.array_equal(back, lanes), f"{name}: bench batch round trip "
+              "not exact")
+        check(photo_ok, f"{name}: photo512 round trip not exact")
+        check(all(launches), f"{name}: a kernel of its build never launched "
+              f"on the main path: {launches}")
+        xs = encode.precompute(lanes_t, cfg).t().contiguous()
+        cap = encode.outcap(xs.shape[0])
+        enc_ms = _time_cuda(torch, lambda: ef.encode_fused(xs, None, cap,
+                                                            cfg))
+        data, lens = decode._pack(streams)
+        dd, ln = torch.from_numpy(data).to(dev), torch.from_numpy(lens).to(dev)
+        dec_ms = _time_cuda(torch, lambda: dk.decode(dd, ln, H, W, C, None,
+                                                      cfg))
+        _, diff = encode._hash_diff(lanes_t, cfg)
+        n_dec, n_all = _decisions(torch, diff), xs.numel()
+        n_bytes = int(lens.sum())
+        per_dec = OPS_DECISION + OPS_STATE + OPS_CODER
+        per[name] = {
+            "defines": d, "launches": launches, "enc_ms": enc_ms,
+            "dec_ms": dec_ms, "enc_s": tm - ts, "dec_s": te - tm,
+            "bytes": n_bytes, "model_bytes": ef.model_bytes(cfg),
+            "photo_bytes": len(blob),
+            "bounds": {
+                "encode_fused": bound(4 * n_all + n_bytes + 4 * S,
+                                      n_dec * per_dec
+                                      + n_all * OPS_SYMBOL_ENC),
+                "decode_kernel": bound(n_bytes + 4 * S + 4 * n_all + 4 * S,
+                                       n_dec * per_dec
+                                       + n_all * OPS_SYMBOL_DEC)}}
+        bounds = per[name]["bounds"]
+        log(f"phase 12 {name} ({' '.join(d) or 'no defines'}): {S} lanes x "
+            f"{H * W * C} symbols, {n_bytes} B, golden ok, exact; end to end "
+            f"encode {tm - ts:.3f} s, decode {te - tm:.3f} s; kernels alone "
+            f"(CUDA events, median of 3) encode_fused {enc_ms:.3f} ms, "
+            f"decode {dec_ms:.3f} ms on {card}; model {ef.model_bytes(cfg)} "
+            f"B a lane; bounds {bounds['encode_fused']['bound_ms']:.4f} and "
+            f"{bounds['decode_kernel']['bound_ms']:.4f} ms; photo512 "
+            f"slices='auto' {len(blob)} B exact; launches {launches}")
+    total = time.perf_counter() - t0
+    log(f"phase 12 seconds: builds {t_build:.1f}, kernels vs plain "
+        f"{t_held:.1f}, full width and photo512 "
+        f"{total - t_build - t_held:.1f}; total {total:.1f} of the "
+        f"{PHASE12_LIMIT_S} s limit")
+    check(total < PHASE12_LIMIT_S,
+          f"phase 12 took {total:.1f} s, over its {PHASE12_LIMIT_S} s limit")
+
+    rows = []
+    for d in new:
+        name = groups[d][0]
+        r, h = per[name], held[d]
+        for src, line, k, ms, plain_s, kern_s, err in (
+                ("encode_fused", "llcomp_tpu/pallas/encode_fused.py:150",
+                 0, r["enc_ms"], h["plain_s"], h["kernel_s"], h["encode"]),
+                ("decode_kernel", "llcomp_tpu/pallas/decode_kernel.py:444",
+                 1, r["dec_ms"], h["dec_plain_s"], h["dec_kernel_s"],
+                 h["decode"])):
+            sec, regs = builds[src, d]
+            rows.append({
+                "name": f"{src} [{name}]", "route": "cuda",
+                "source": f"llcomp_tpu_torch/csrc/{src}.cu",
+                "replaces": line, "launches": r["launches"][k],
+                "max_abs_err": err, "ms": ms, "plain_ms": plain_s * 1e3,
+                "bound_ms": r["bounds"][src]["bound_ms"],
+                "bound_by": r["bounds"][src]["bound_by"], "library_ms": None,
+                "ms_subset": kern_s * 1e3,
+                "note": f"ms at {S} lanes x {H * W * C} symbols; plain_ms "
+                        f"and ms_subset (host clock, one call each, synced) "
+                        f"summed over phase 12's {h['cases']} runs of "
+                        f"{CFG_BATCHES}",
+                "defines": list(d), "model_bytes": r["model_bytes"],
+                "build_s": sec,
+                "registers": {kn: v[0] for kn, v in regs.items()}})
+    return {"rows": rows, "per": per, "seconds": total}
+
+
 # --- phase 11: conformance: fuzz across the engines, sanitizers -------------
 
 PHASE11_LIMIT_S = 120   # phase 11 fails past this many seconds
@@ -4076,7 +4338,7 @@ KERNEL_ROWS = ("encode_fused", "decode_kernel", "walk_symbols",
 SYNC_ROWS = (*KERNEL_ROWS, "p11", "pG", "pH", "reduce")
 # the sanitizer child's work, each part a function of this section
 SANITIZE_PARTS = ("codec", "overflow", "decision", "coders", "walks",
-                  "probes")
+                  "probes", "cfgs")
 SANITIZE_LANES = (1, 33, 130)   # the child's probes' lanes (pH: 520 too)
 SANITIZE_T = 33                 # and their steps
 # the child's runs of phase 3's batches (one a batch of each C and lane
@@ -4415,9 +4677,25 @@ def _san_probes(torch, dev) -> int:
     return n
 
 
+def _san_cfgs(torch, dev) -> int:
+    """Kernels 1 and 2 of each cfg build of phase 12 (``cfg_groups``, built
+    without -lineinfo) on phase 3's RGB batch (``codec_case``)."""
+    from llcomp_tpu_torch.core.config import CodecConfig
+
+    batch = codec_batches()["rgb 4x16x3"]
+    n = 0
+    for d, names in cfg_groups().items():
+        if d:
+            codec_case(torch, dev, "rgb 4x16x3", batch, "unprimed", None,
+                       CodecConfig(**CFG_CASES[names[0]]))
+            n += 1
+    return n
+
+
 SANITIZE_WORK = {"codec": _san_codec, "overflow": _san_overflow,
                  "decision": _san_decision, "coders": _san_coders,
-                 "walks": _san_walks, "probes": _san_probes}
+                 "walks": _san_walks, "probes": _san_probes,
+                 "cfgs": _san_cfgs}
 
 
 def lineinfo_copy(name: str) -> tuple[str, str, list]:
@@ -4496,13 +4774,13 @@ def sanitize_child(tool: str, parts) -> int:
 
         for name, so in _lineinfo_builds().items():
             if " " not in name:
-                build._libs[name] = ctypes.CDLL(str(so))
+                build._libs[name, ()] = ctypes.CDLL(str(so))
         by_row: dict = {}
         if guard is not None:
             load = build.load
 
-            def guarded(name, entry, argtypes):
-                fn = load(name, entry, argtypes)
+            def guarded(name, entry, argtypes, defines=()):
+                fn = load(name, entry, argtypes, defines)
 
                 def call(*args):
                     before = guard.llct_guard_check(
@@ -4849,6 +5127,7 @@ def main() -> int:
         sort = timed(6, phase_sort, torch, log, card, variants)
         decision = timed(7, phase_decision, torch, log, card, variants)
         probe = timed(8, phase_probes, torch, log, card, turns, variants)
+        cfgs = timed(12, phase_cfgs, torch, log, card)
         conf = timed(11, phase_conformance, torch, log)
         log("phase seconds: " + ", ".join(f"{k} {v}" for k, v in
                                            took.items()))
@@ -4857,7 +5136,7 @@ def main() -> int:
     except Failed as e:
         print(f"chip_smoke FAILED: {e}", file=sys.stderr)
         return 1
-    log(f"chip_smoke: phases 1-11 passed in "
+    log(f"chip_smoke: phases 1-12 passed in "
         f"{time.perf_counter() - t_start:.1f} s")
 
     def bound_of(b: dict) -> dict:
@@ -4927,10 +5206,10 @@ def main() -> int:
             **({"copies_ms": r["copies"]} if "copies" in r else {}),
             **({k: r[k] for k in ("piece", "thread_walk")}
                if name == "walk_probs" else {})})
-    kernels += probe["rows"]
+    kernels += probe["rows"] + cfgs["rows"]
     coverage = sanitizer_coverage(conf)
-    for row in kernels:
-        row["sanitizer"] = coverage[row["name"]]
+    for row in kernels:     # a cfg build's row: its source's entry point's
+        row["sanitizer"] = coverage[row["name"].split(" [")[0]]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

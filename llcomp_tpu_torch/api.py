@@ -12,10 +12,15 @@ versions; 'cuda' without a GPU raises.  ``backend`` says which engine:
 * 'oracle': the plain versions on the CPU (``backend='torch',
   device='cpu'``);
 * 'auto': 'native' for a single stream or fewer than ``MIN_DEVICE_LANES``
-  stripes, else 'torch' on ``device``, chosen by the shape of the work only.
+  stripes, else 'torch' on ``device``, chosen by the shape of the work only;
+  'torch' for a cfg other than REV2.
 
 Every backend gives the same bytes.  A failed build or launch raises; no
-path falls back to another engine.
+path falls back to another engine.  ``cfg`` may be any configuration that
+``config.check`` passes; 'native' takes REV2 only, as the JAX package's
+native runtime does.  The static prior and the stored seed hold 8
+substates a bucket, so under other ``substates`` the automatic policy
+neither primes nor seeds, and asking for either raises.
 """
 from __future__ import annotations
 
@@ -24,7 +29,7 @@ import torch
 
 from . import container
 from . import device as devmod
-from .core import geometry, transform
+from .core import config, geometry, transform
 from .core.config import REV2, CodecConfig
 
 
@@ -39,9 +44,12 @@ def _as_image(img) -> np.ndarray:
     return img
 
 
-def _check_cfg(cfg: CodecConfig) -> None:
-    if cfg != REV2:
-        raise ValueError("llcomp_tpu_torch supports the rev-2 cfg only")
+def _check_cfg(cfg: CodecConfig, backend: str = "torch") -> None:
+    """``config.check``, and REV2 only for the native runtime."""
+    config.check(cfg)
+    if backend == "native" and cfg != REV2:
+        raise ValueError("backend='native' supports the rev-2 cfg only (its "
+                         "C++ runtime is compiled for rev 2's constants)")
 
 
 def pick_slice_height(height: int, width: int, channels: int,
@@ -146,9 +154,12 @@ PRIMED_ZERO_FRAC_MAX = 0.2
 def _pick_primed(img: np.ndarray, dev: torch.device,
                  cfg: CodecConfig = REV2) -> bool:
     """Prime iff the zero-residual fraction over sampled 8-row bands (up to
-    ~2 MP, the bands ``seed.derive`` samples) is below PRIMED_ZERO_FRAC_MAX."""
+    ~2 MP, the bands ``seed.derive`` samples) is below PRIMED_ZERO_FRAC_MAX;
+    never under a cfg whose substates are not the prior's 8."""
     from . import seed
 
+    if cfg.substates != config.TABLE_SUBSTATES:
+        return False
     zs, n = 0, 0
     for y0 in seed.band_starts(img, 2.0):
         v = transform.rct_forward(torch.from_numpy(img[y0 : y0 + 8])
@@ -176,16 +187,19 @@ def _check_backend(backend: str) -> None:
 
 
 def _resolve_backend(backend: str, device, single: bool = False,
-                     lanes: int | None = None
+                     lanes: int | None = None, cfg: CodecConfig = REV2
                      ) -> tuple[str, torch.device | None]:
     """-> ('native', None) or ('torch', the resolved device).
 
-    'auto' looks only at the work's shape, never at whether a GPU is
-    present: a device engine asked for on a host without CUDA raises."""
+    'auto' looks only at the work's shape and the cfg (a cfg other than
+    REV2 takes the device engine, as the JAX package's 'auto' takes 'jax'),
+    never at whether a GPU is present: a device engine asked for on a host
+    without CUDA raises.  'native' raises for a cfg other than REV2."""
     _check_backend(backend)
+    _check_cfg(cfg, backend)
     if backend == "auto":
         few = single or (lanes is not None and lanes < MIN_DEVICE_LANES)
-        backend = "native" if few else "torch"
+        backend = "native" if few and cfg == REV2 else "torch"
     if backend == "native":
         return "native", None
     if backend == "oracle":
@@ -202,9 +216,10 @@ def compress(img, slices: int | str | None = None, cfg: CodecConfig = REV2,
     slices=None/1 -> reference-compatible single stream.  slices='auto' or
     an int n -> sliced container of independent stripes.  primed, seeded,
     tile_w (sliced mode only): as in the JAX package's ``compress``; None =
-    the same automatic policy.  device: 'cuda' or 'cpu'.  backend: see the
-    module's docstring.  revision=0 -> the legacy llcomp.js bitstream
-    (magic 0x77, ``rev0``, NumPy on the host).
+    the same automatic policy (never primed nor seeded at substates other
+    than 8).  cfg: any that ``config.check`` passes.  device: 'cuda' or
+    'cpu'.  backend: see the module's docstring.  revision=0 -> the legacy
+    llcomp.js bitstream (magic 0x77, ``rev0``, NumPy on the host).
     """
     img = _as_image(img)
     _check_backend(backend)
@@ -217,7 +232,7 @@ def compress(img, slices: int | str | None = None, cfg: CodecConfig = REV2,
     _check_cfg(cfg)
     H, W, C = img.shape
     if slices in (None, 1):
-        engine, dev = _resolve_backend(backend, device, single=True)
+        engine, dev = _resolve_backend(backend, device, single=True, cfg=cfg)
         if primed or seeded or tile_w:
             raise ValueError(
                 "primed/seeded/tile_w apply to sliced mode only; "
@@ -249,12 +264,14 @@ def compress(img, slices: int | str | None = None, cfg: CodecConfig = REV2,
     if tw and not 0 < tw < W:
         raise ValueError(f"tile_w {tw} outside (0, width={W})")
     regions = container.tile_regions(W, H, slice_h, tw)
-    engine, dev = _resolve_backend(backend, device, lanes=len(regions))
+    engine, dev = _resolve_backend(backend, device, lanes=len(regions),
+                                   cfg=cfg)
     policy_dev = dev or torch.device("cpu")   # the native runtime's host
     if primed is None:
         primed = len(regions) > 1 and _pick_primed(img, policy_dev, cfg)
     if seeded is None:
         seeded = primed and H * W * C >= 120_000
+    config.check_start(cfg, primed or seeded)
     if seeded:
         from . import seed as seedmod
 
@@ -277,7 +294,8 @@ def encode_stripes(img: np.ndarray, bounds, cfg: CodecConfig = REV2,
                    seed=None, backend: str = "torch") -> list[bytes]:
     """Encode full-width stripes ``(y0, y1)`` as independent streams."""
     W = img.shape[1]
-    engine, dev = _resolve_backend(backend, device, lanes=len(bounds))
+    engine, dev = _resolve_backend(backend, device, lanes=len(bounds),
+                                   cfg=cfg)
     return _encode_regions(img, [(y0, y1, 0, W) for y0, y1 in bounds], cfg,
                            primed, dev, seed=seed, backend=engine)
 
@@ -318,16 +336,17 @@ def decompress(data: bytes, cfg: CodecConfig = REV2, device="cuda",
     (single-stream containers, revision 0 included, report ``[0]``).  A
     header that cannot be read raises ValueError in either mode.  A stream
     with the 0x77 magic decodes as revision 0 (``rev0``, NumPy on the
-    host).  device, backend: as in ``compress``.
+    host).  device, backend, cfg: as in ``compress``.
     """
-    _check_cfg(cfg)
     _check_backend(backend)
+    _check_cfg(cfg, backend)
     data = bytes(data)
     if container.is_sliced(data):
         (streams, W, H, C, slice_h, flags, seed_blob,
          tile_w) = container.unpack_sliced(data, cfg)
         regions = container.tile_regions(W, H, slice_h, tile_w)
-        engine, dev = _resolve_backend(backend, device, lanes=len(regions))
+        engine, dev = _resolve_backend(backend, device, lanes=len(regions),
+                                       cfg=cfg)
         tab = None
         if flags & container.FLAG_SEEDED:
             from . import seed as seedmod
@@ -352,7 +371,7 @@ def decompress(data: bytes, cfg: CodecConfig = REV2, device="cuda",
         C, W, H = rev0.header(data)
     else:
         payload, W, H, C = container.unpack_single(data, cfg)
-        engine, dev = _resolve_backend(backend, device, single=True)
+        engine, dev = _resolve_backend(backend, device, single=True, cfg=cfg)
 
         def single():
             if engine == "native":
@@ -376,7 +395,8 @@ def decode_stripes(streams, bounds, W: int, C: int, cfg: CodecConfig = REV2,
                    seed=None, skip=(), backend: str = "torch"):
     """Decode a sliced container's full-width stripes into one image."""
     H = bounds[-1][1]
-    engine, dev = _resolve_backend(backend, device, lanes=len(bounds))
+    engine, dev = _resolve_backend(backend, device, lanes=len(bounds),
+                                   cfg=cfg)
     return _decode_regions(streams, [(y0, y1, 0, W) for y0, y1 in bounds],
                            (H, W, C), cfg, primed=primed, dev=dev,
                            strict=strict, seed=seed, skip=skip,

@@ -15,6 +15,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from . import config
 from .config import REV2, CodecConfig
 
 
@@ -113,7 +114,20 @@ def ilog2(uv: torch.Tensor, max_bits: int = 16) -> torch.Tensor:
     return e
 
 
-def decision(k: int, d: torch.Tensor, ad: torch.Tensor, e: torch.Tensor):
+def context_tables(cfg: CodecConfig, n: int, device
+                   ) -> tuple[torch.Tensor, torch.Tensor]:
+    """int64 [n] tables of ``config.exp_ctx(cfg, k)`` and
+    ``config.mant_ctx(cfg, j)`` for k, j = 0 .. n-1: the contexts of a
+    symbol's exponent decision k and mantissa decision j, which the plain
+    versions index and the kernels' builds compute from the same cfg."""
+    exp = [config.exp_ctx(cfg, k) for k in range(n)]
+    mant = [config.mant_ctx(cfg, j) for j in range(n)]
+    return (torch.tensor(exp, dtype=torch.int64, device=device),
+            torch.tensor(mant, dtype=torch.int64, device=device))
+
+
+def decision(k: int, d: torch.Tensor, ad: torch.Tensor, e: torch.Tensor,
+             cfg: CodecConfig = REV2):
     """(ctx, bit) of decision ``k`` of symbols with residual ``d``, ``ad`` =
     |d| and ``e`` = floor(log2 ad): one slot of ``binarize``, for k below
     the symbol's decision count (1 if d == 0, else 2e+3)."""
@@ -122,9 +136,10 @@ def decision(k: int, d: torch.Tensor, ad: torch.Tensor, e: torch.Tensor):
     in_exp = e >= k
     is_stop = e + 1 == k
     in_mant = (e + 2 <= k) & (2 * e + 1 >= k)
-    ctx = torch.where(in_exp, min(k, 4), 7)            # else: the sign slot
-    ctx = torch.where(is_stop, (e + 1).clamp(max=4), ctx)
-    ctx = torch.where(in_mant, (k - e + 3).clamp(max=6), ctx)
+    exp_ctx, mant_ctx = context_tables(cfg, k + 1, d.device)
+    ctx = torch.where(in_exp, config.exp_ctx(cfg, k), cfg.sign_ctx)  # or sign
+    ctx = torch.where(is_stop, exp_ctx[(e + 1).clamp(0, k)], ctx)
+    ctx = torch.where(in_mant, mant_ctx[(k - e - 2).clamp(0, k)], ctx)
     bit = torch.where(in_exp, 1, (d < 0).to(d.dtype))
     bit = torch.where(is_stop, 0, bit)
     bit = torch.where(in_mant, (ad >> (2 * e + 1 - k).clamp(0, 30)) & 1, bit)
@@ -132,32 +147,35 @@ def decision(k: int, d: torch.Tensor, ad: torch.Tensor, e: torch.Tensor):
 
 
 def binarize(diff: torch.Tensor, cfg: CodecConfig = REV2):
-    """Residuals (any shape, flattened to N) -> (ctx [N, 24], bit [N, 24],
-    valid [N, 24] bool), the slot layout of ``putSymbol`` (`llcomp.hpp:166-206`):
+    """Residuals (any shape, flattened to N) -> (ctx [N, K], bit [N, K],
+    valid [N, K] bool), K = ``cfg.max_bins_per_symbol``, the slot layout of
+    ``putSymbol`` (`llcomp.hpp:166-206`; rev 2's contexts in brackets):
 
-      slot 0                 zero flag     ctx 0,            bit v == 0
-      slots 1 .. e           unary exp     ctx min(slot, 4), bit 1
-      slot  e+1              exp stop      ctx min(e+1, 4),  bit 0
-      slots e+2 .. 2e+1      mantissa MSB> ctx min(5+j, 6),  bit (|v|>>i)&1
-      slot  2e+2             sign          ctx 7,            bit v<0
+      slot 0             zero flag  ctx 0,                      bit v == 0
+      slots 1 .. e       unary exp  exp_ctx(slot) (min(slot, 4)), bit 1
+      slot  e+1          exp stop   exp_ctx(e+1) (min(e+1, 4)),  bit 0
+      slots e+2 .. 2e+1  mantissa   mant_ctx(j) (min(5+j, 6)),   bit (|v|>>i)&1
+      slot  2e+2         sign       sign_ctx (7),                bit v<0
+
+    (the mantissa MSB first, j = slot - e - 2, i = 2e+1 - slot)
     """
     v = diff.reshape(-1, 1).to(torch.int64)
     uv = v.abs()
     nz = uv != 0
     e = ilog2(torch.clamp(uv, min=1), max_bits=21)
-    s = torch.arange(cfg.max_bins_per_symbol, device=v.device).view(1, -1)
+    K = cfg.max_bins_per_symbol
+    s = torch.arange(K, device=v.device).view(1, -1)
+    exp_ctx, mant_ctx = context_tables(cfg, K + 2, v.device)
     in_exp = (s >= 1) & (s <= e)
     is_stop = s == e + 1
     in_mant = (s >= e + 2) & (s <= 2 * e + 1)
     is_sign = s == 2 * e + 2
     ctx = torch.zeros_like(s.expand(v.shape[0], -1))
     bit = torch.zeros_like(ctx)
-    ctx = torch.where(in_exp, torch.clamp(s, max=cfg.e_lim), ctx)
+    ctx = torch.where(in_exp, exp_ctx[s], ctx)
     bit = torch.where(in_exp, 1, bit)
-    ctx = torch.where(is_stop, torch.clamp(e + 1, max=cfg.e_lim), ctx)
-    ctx = torch.where(in_mant,
-                      torch.clamp(cfg.e_lim + 1 + (s - e - 2), max=cfg.r_lim),
-                      ctx)
+    ctx = torch.where(is_stop, exp_ctx[(e + 1).clamp(max=K + 1)], ctx)
+    ctx = torch.where(in_mant, mant_ctx[(s - e - 2).clamp(0, K + 1)], ctx)
     bit = torch.where(in_mant, (uv >> torch.clamp(2 * e + 1 - s, min=0)) & 1,
                       bit)
     ctx = torch.where(is_sign, cfg.sign_ctx, ctx)

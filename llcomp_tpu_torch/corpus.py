@@ -18,6 +18,7 @@ import numpy as np
 import torch
 
 from . import api, container
+from .core import config
 from .core.config import REV2, CodecConfig
 
 
@@ -95,12 +96,13 @@ def _region_plan(shapes, slice_h: int, tile_w="auto"):
     return eff, regions_per, groups
 
 
-def _resolve(backend: str, device, mesh, lanes: int):
+def _resolve(backend: str, device, mesh, lanes: int,
+             cfg: CodecConfig = REV2):
     """-> (engine, device) as ``api._resolve_backend`` gives them, or, with
     a mesh (which wins over ``backend``, as in the JAX package), ('torch',
     the mesh's first device) for the policy's sampling."""
     if mesh is None:
-        return api._resolve_backend(backend, device, lanes=lanes)
+        return api._resolve_backend(backend, device, lanes=lanes, cfg=cfg)
     from . import parallel
 
     api._check_backend(backend)
@@ -156,7 +158,7 @@ def compress_corpus(images: list[np.ndarray], slice_h: int = 16,
     shapes = [im.shape for im in images]
     eff, regions_per, groups = _region_plan(shapes, slice_h, tile_w)
     engine, dev = _resolve(backend, device, mesh,
-                           lanes=sum(len(r) for r in regions_per))
+                           lanes=sum(len(r) for r in regions_per), cfg=cfg)
     policy_dev = dev or torch.device("cpu")   # the native runtime's host
     if primed is None:
         votes = [api._pick_primed(im, policy_dev, cfg) for im in images[:8]]
@@ -164,6 +166,7 @@ def compress_corpus(images: list[np.ndarray], slice_h: int = 16,
     if seeded is None:
         mean_raw = sum(im.nbytes for im in images) / max(len(images), 1)
         seeded = primed and mesh is None and mean_raw >= 120_000
+    config.check_start(cfg, primed or seeded)
     seed_tab = seed_blob = None
     if seeded:
         seed_tab = seedmod.derive_pooled(images[:16], cfg, device=policy_dev)
@@ -227,7 +230,8 @@ def decompress_corpus(blobs: list[bytes], cfg: CodecConfig = REV2,
             groups.setdefault((y1 - y0, x1 - x0, C, primed, seed_blob),
                               []).append((idx, (y0, y1, x0, x1), streams[j]))
     engine, dev = _resolve(backend, device, mesh,
-                           lanes=sum(len(m) for m in groups.values()))
+                           lanes=sum(len(m) for m in groups.values()),
+                           cfg=cfg)
     outs = [np.empty((H, W, C), dtype=np.uint8)
             for (_, W, H, C, _, _, _, _) in metas]
     for (rows, cols, C, primed, seed_blob), group in groups.items():

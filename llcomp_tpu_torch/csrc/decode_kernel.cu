@@ -1,5 +1,6 @@
 // Kernel 2 of llcomp_tpu_torch: the decoder, one thread per lane, for every
-// stripe geometry (any W * C, any C).
+// stripe geometry (any W * C, any C), built once a codec configuration
+// (codec_cfg.cuh; rev 2 without defines).
 //
 // Replaces: llcomp_tpu/pallas/decode_kernel.py::_make_kernel_blocked and its
 // per-symbol twin ::_make_kernel (both launched by _decode_groups_impl; they
@@ -53,16 +54,30 @@
 // Registers a thread (nvcc -Xptxas -v, sm_90a): 52 at C = 1, 88 at C = 2,
 // 107 at C = 3, 123 at C = 4, 94 generic; no spills.
 // Left for later: the decisions themselves, and C = 1's exposed load.
+//
+// Other codec configurations (codec_cfg.cuh): the small model's hash drops
+// the two quant5 terms (kLargeModel), the error cap is kMaxBins, and the
+// model row is a Row of ceil(substates / 8) words, loaded, forwarded and
+// stored whole.  A cfg with rev 2's contexts (kRev2Layout) decodes with the
+// Substates path; any other decodes each decision on its context's state
+// read afresh from the row in registers (symbol_generic), since its
+// contexts can repeat and alias.  There a decision whose context lies at or
+// past kSub (only a corrupt stream reaches one: config.check keeps every
+// context of a valid symbol inside) flags the lane and ends the symbol.
+// Registers at C = 1, 2, 3, 4 and generic (sm_90a): 50, 69, 96, 116, 89 for
+// the small model; 56, 77, 96, 115-116, 80 at e_lim 3 and at substates 4;
+// 58, 87, 116, 128 (20 bytes spilled), 90 at substates 16.  At 1,024 lanes
+// of 8x512x3 those builds ran 9.21, 10.72, 10.19 and 13.12 ms against rev
+// 2's 10.18 (chip_smoke.py phase 12).
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "codec_cfg.cuh"
+
 namespace {
 
-constexpr int kNumHashes = 7926;
-constexpr int kBuckets = 121;
 constexpr int kMaxBlock = 32;      // lanes (threads) a block, at most
 constexpr int kWarpsPerSm = 8;     // one-warp blocks a SM, at most, past one lane
-constexpr int kMaxBins = 24;       // decisions a valid symbol can need
 
 // int32 arithmetic that wraps like the reference's (and XLA's) on overflow
 __device__ __forceinline__ int32_t add32(int32_t a, int32_t b) {
@@ -157,10 +172,11 @@ struct Substates {
   }
 };
 
-// getSymbol (llcomp.hpp:219-247) capped at 24 decisions; `bad` is set on an
-// exponent above 31 or an unfinished symbol.  The value returned on a bad
-// symbol is the partial one, as in the JAX kernels' phase machine.  The
-// exponent's contexts 1-3 are written out, so every context is a constant.
+// getSymbol (llcomp.hpp:219-247) capped at kMaxBins decisions (24 for rev
+// 2); `bad` is set on an exponent above 31 or an unfinished symbol.  The
+// value returned on a bad symbol is the partial one, as in the JAX kernels'
+// phase machine.  The exponent's contexts 1-3 are written out, so every
+// context is a constant.
 __device__ __forceinline__ int32_t symbol(RangeDecoder& dec, Substates& m,
                                           const int32_t* fused, int& bad) {
   if (m.get<0>(dec, fused)) return 0;
@@ -193,9 +209,58 @@ __device__ __forceinline__ int32_t symbol(RangeDecoder& dec, Substates& m,
   return m.get<7>(dec, fused) ? -value : value;
 }
 
-__device__ __forceinline__ int32_t get_symbol(RangeDecoder& dec, uint64_t& w,
+// One decision of any cfg on context ctx of row w.
+__device__ __forceinline__ int get_generic(RangeDecoder& dec, Row& w, int ctx,
+                                           const int32_t* fused) {
+  const uint32_t f = static_cast<uint32_t>(fused[row_state(w, ctx)]);
+  const int bit = dec.get(static_cast<int32_t>(f & 0xFF));
+  set_row_state(w, ctx, (f >> (bit ? 16 : 8)) & 0xFF);
+  return bit;
+}
+
+// getSymbol under any cfg, capped at kMaxBins decisions: contexts exp_ctx(k)
+// and mant_ctx(j).  `bad` is set on an exponent above 31, an unfinished
+// symbol, or a decision whose context lies past the row; the value returned
+// on a bad symbol is the partial one (decode_plain's phase machine).  The
+// value wraps as the reference's int32 arithmetic does.
+__device__ __forceinline__ int32_t symbol_generic(RangeDecoder& dec, Row& w,
+                                                  const int32_t* fused,
+                                                  int& bad) {
+  int steps = 0;
+  // the next decision on context ctx into *bit, false where the symbol
+  // stops short: its cap is spent or the context is past the row
+  auto next = [&](int ctx, int* bit) {
+    if (steps == kMaxBins || ctx >= kSub) {
+      bad = 1;
+      return false;
+    }
+    ++steps;
+    *bit = get_generic(dec, w, ctx, fused);
+    return true;
+  };
+  int bit;
+  next(0, &bit);                         // kMaxBins >= 23, kSub >= 1
+  if (bit) return 0;
+  uint32_t value = 1;
+  int e = 0;
+  for (;;) {
+    if (!next(exp_ctx(e + 1), &bit)) return static_cast<int32_t>(value);
+    if (!bit) break;
+    if (++e > 31) bad = 1;
+  }
+  for (int j = 0; j < e; ++j) {
+    if (!next(mant_ctx(j), &bit)) return static_cast<int32_t>(value);
+    value = 2 * value + bit;
+  }
+  if (!next(kSignCtx, &bit)) return static_cast<int32_t>(value);
+  return static_cast<int32_t>(bit ? 0u - value : value);
+}
+
+__device__ __forceinline__ int32_t get_symbol(RangeDecoder& dec, Row& row,
                                               const int32_t* fused,
                                               int& bad) {
+  if constexpr (!kRev2Layout) return symbol_generic(dec, row, fused, bad);
+  uint64_t& w = row.w[0];
   Substates m(w, fused);
   const int32_t value = symbol(dec, m, fused, bad);
   w = m.word();
@@ -260,9 +325,9 @@ struct Decoder {
     const int32_t tr = (at.y > 0 && at.x < W - 1) ? nb.tr : t;
     const int32_t T = at.y > 1 ? nb.T : t;
     int32_t h = quant(q11, sub32(l, tl)) + quant(q11, sub32(tl, t)) * 11
-                + quant(q11, sub32(t, tr)) * 121
-                + quant(q5, sub32(L, l)) * 605
-                + quant(q5, sub32(T, t)) * 3025;
+                + quant(q11, sub32(t, tr)) * 121;
+    if (kLargeModel)         // summed in rev 2's order
+      h = h + quant(q5, sub32(L, l)) * 605 + quant(q5, sub32(T, t)) * 3025;
     const int32_t grad = sub32(add32(l, t), tl);
     pred = max(min(l, t), min(max(l, t), grad));
     neg = h < 0;
@@ -278,7 +343,7 @@ decode_kernel(const uint8_t* __restrict__ data,     // [S, cap]
               const int32_t* __restrict__ q11,      // [256]
               const int32_t* __restrict__ q5,       // [256]
               const uint64_t* __restrict__ init,    // [121] or null
-              uint64_t* __restrict__ model,         // [S, kNumHashes]
+              uint64_t* __restrict__ model,         // [S, kRowWords]
               int32_t* __restrict__ planes,         // [n_sym, S]
               int32_t* __restrict__ err,            // [S]
               int S, int cap, int H, int W, int C_rt) {
@@ -293,23 +358,17 @@ decode_kernel(const uint8_t* __restrict__ data,     // [S, cap]
     s_q5[i] = q5[i];
   }
   for (int i = threadIdx.x; i < kBuckets; i += blockDim.x)
-    s_init[i] = init ? init[i] : 0ull;
+    s_init[i] = kTableStart && init ? init[i] : 0ull;
   __syncthreads();
 
   const int lane0 = blockIdx.x * blockDim.x;
   const int n_lanes = min(static_cast<int>(blockDim.x), S - lane0);
-  for (int l = 0; l < n_lanes; ++l) {     // rows are 16-byte aligned
-    ulonglong2* row2 = reinterpret_cast<ulonglong2*>(
-        model + static_cast<size_t>(lane0 + l) * kNumHashes);
-    for (int h = threadIdx.x; h < kNumHashes / 2; h += blockDim.x)
-      row2[h] = make_ulonglong2(s_init[(2 * h) % kBuckets],
-                                s_init[(2 * h + 1) % kBuckets]);
-  }
+  fill_models(model, s_init, lane0, n_lanes, threadIdx.x, blockDim.x);
   __syncthreads();
 
   const int lane = lane0 + threadIdx.x;
   if (lane >= S) return;
-  uint64_t* row = model + static_cast<size_t>(lane) * kNumHashes;
+  uint64_t* row = model + static_cast<size_t>(lane) * kRowWords;
   const int C = CT > 0 ? CT : C_rt;
   Decoder<CT> g{s_q11, s_q5, planes + lane, static_cast<size_t>(S), C, W,
                 W * C};
@@ -332,7 +391,7 @@ decode_kernel(const uint8_t* __restrict__ data,     // [S, cap]
   int hs[U];
   int32_t pred[U], own[U];
   bool neg[U], fv[U];
-  uint64_t wl[U], fw[U];
+  Row wl[U], fw[U];
   Nb nb[U];
   Pos q_at, r_at;                  // positions of symbols s + U, s + 2U
 #pragma unroll
@@ -341,10 +400,10 @@ decode_kernel(const uint8_t* __restrict__ data,     // [S, cap]
     if (static_cast<size_t>(k) < n_sym) {
       g.load(nb[k], k, at);
       hs[k] = g.hash(nb[k], nb[k].l, nb[k].L, at, pred[k], neg[k]);
-      wl[k] = row[hs[k]];
+      wl[k] = load_row(row, hs[k]);
     }
     fv[k] = false;
-    fw[k] = 0ull;
+    fw[k] = zero_row();
     own[k] = 0;
     q_at.advance(C, W);
   }
@@ -366,9 +425,9 @@ decode_kernel(const uint8_t* __restrict__ data,     // [S, cap]
       const size_t s = s0 + k;
       if (s >= n_sym) break;
       const int h = hs[k];
-      uint64_t w = fv[k] ? fw[k] : wl[k];
+      Row w = fv[k] ? fw[k] : wl[k];
       const int32_t value = get_symbol(dec, w, s_fused, bad);
-      row[h] = w;
+      store_row(row, h, w);
 #pragma unroll
       for (int j = 0; j < U; ++j) {       // forward to pending symbols
         if (j != k && hs[j] == h) {
@@ -387,7 +446,7 @@ decode_kernel(const uint8_t* __restrict__ data,     // [S, cap]
         const int32_t L_raw = CT > 0 ? own[k] : nb[k].L;
         hs[k] = g.hash(nb[k], l_raw, L_raw, q_at, pred[k], neg[k]);
         fv[k] = false;
-        wl[k] = row[hs[k]];
+        wl[k] = load_row(row, hs[k]);
         if (early && q + U < n_sym) g.load(nb[k], q + U, r_at);
       }
       own[k] = sample;

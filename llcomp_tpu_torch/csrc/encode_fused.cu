@@ -1,5 +1,6 @@
 // Kernel 1 of llcomp_tpu_torch: the fused stream-order encoder, one thread
-// per lane (one lane = one independent rev-2 stream).
+// per lane (one lane = one independent stream), built once a codec
+// configuration (codec_cfg.cuh; rev 2 without defines).
 //
 // Replaces: llcomp_tpu/pallas/encode_fused.py::_make_fused_kernel (launched
 // by _encode_fused_groups).  Computes, per lane and in stream order, what
@@ -53,13 +54,25 @@
 // 1,024 lanes (chip_smoke.py phase 5 times this kernel with each symbol's
 // decisions cut out), e.g. by splitting the model walk and the range coder
 // into two warps.
+//
+// Other codec configurations (codec_cfg.cuh): the model row is a Row of
+// ceil(substates / 8) words, each loaded, forwarded and stored whole, and
+// the small model's 666 hashes shrink it.  A cfg with rev 2's contexts
+// (kRev2Layout) codes with the Substates path above.  Any other codes each
+// decision on its context's state read afresh from the row in registers
+// (code_generic): its contexts can repeat and alias (the mantissa and the
+// sign share one at substates 4), so no state-table entry is looked up
+// ahead.  Registers (sm_90a): 54 for the small model, 44 at e_lim 3 and at
+// substates 4, 52 at substates 16; at 1,024 lanes of 8x512x3 those builds
+// ran 8.76, 9.58, 9.30 and 12.49 ms against rev 2's 9.52 (chip_smoke.py
+// phase 12).
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "codec_cfg.cuh"
+
 namespace {
 
-constexpr int kNumHashes = 7926;   // reachable folded hashes (REV2)
-constexpr int kBuckets = 121;      // prior/seed table rows
 constexpr int kBlock = 1;          // lanes (threads) a block
 constexpr int kDepth = 2;          // model words in flight a lane
 
@@ -155,13 +168,37 @@ struct Substates {
   }
 };
 
-// A live symbol's decisions (packed word x) on its model word `w`: zero
-// flag (ctx 0); e exponent ones and a stop (ctx min(k, 4) for k = 1..e+1);
-// e mantissa bits MSB first (ctx 5, then 6); sign (ctx 7).
-__device__ __forceinline__ void code_symbol(Coder& c, uint64_t& w, int32_t x,
+// One decision of any cfg: `bit` on context ctx of row w.
+__device__ __forceinline__ void code_generic(Coder& c, Row& w, int ctx,
+                                             uint32_t bit,
+                                             const int32_t* fused) {
+  const uint32_t f = static_cast<uint32_t>(fused[row_state(w, ctx)]);
+  c.put(bit, f & 0xFF);
+  set_row_state(w, ctx, (f >> (bit ? 16 : 8)) & 0xFF);
+}
+
+// A live symbol's decisions (packed word x) on its model row `w`: zero
+// flag (ctx 0); e exponent ones and a stop (ctx exp_ctx(k) for k =
+// 1..e+1); e mantissa bits MSB first (ctx mant_ctx(j)); sign (kSignCtx).
+// Rev 2's contexts: min(k, 4), then 5 and 6, and 7.
+__device__ __forceinline__ void code_symbol(Coder& c, Row& row, int32_t x,
                                             const int32_t* fused) {
-  Substates m(w, fused);
   const int d = (x & 0xFFF) - 1274;      // folded residual
+  if constexpr (!kRev2Layout) {
+    code_generic(c, row, 0, d == 0, fused);
+    if (d != 0) {
+      const uint32_t ad = static_cast<uint32_t>(d < 0 ? -d : d);
+      const int e = 31 - __clz(ad);
+      for (int k = 1; k <= e + 1; ++k)
+        code_generic(c, row, exp_ctx(k), k <= e, fused);
+      for (int j = 0; j < e; ++j)
+        code_generic(c, row, mant_ctx(j), (ad >> (e - 1 - j)) & 1, fused);
+      code_generic(c, row, kSignCtx, d < 0, fused);
+    }
+    return;
+  }
+  uint64_t& w = row.w[0];
+  Substates m(w, fused);
   m.code<0>(c, d == 0, fused);
   if (d != 0) {
     const uint32_t ad = static_cast<uint32_t>(d < 0 ? -d : d);
@@ -186,7 +223,7 @@ __global__ void __launch_bounds__(kBlock)
 encode_fused_kernel(const int32_t* __restrict__ xs,       // [n_sym, S]
                     const int32_t* __restrict__ fused,    // [128]
                     const uint64_t* __restrict__ init,    // [121] or null
-                    uint64_t* __restrict__ model,         // [S, kNumHashes]
+                    uint64_t* __restrict__ model,         // [S, kRowWords]
                     uint8_t* __restrict__ out,            // [S, outcap]
                     int32_t* __restrict__ lens,           // [S]
                     int32_t* __restrict__ ovf,            // [S]
@@ -195,24 +232,18 @@ encode_fused_kernel(const int32_t* __restrict__ xs,       // [n_sym, S]
   __shared__ uint64_t s_init[kBuckets];
   for (int i = threadIdx.x; i < 128; i += kBlock) s_fused[i] = fused[i];
   for (int i = threadIdx.x; i < kBuckets; i += kBlock)
-    s_init[i] = init ? init[i] : 0ull;
+    s_init[i] = kTableStart && init ? init[i] : 0ull;
   __syncthreads();
 
   constexpr int D = kDepth;
   const int lane0 = blockIdx.x * kBlock;
   const int n_lanes = min(kBlock, S - lane0);
-  for (int l = 0; l < n_lanes; ++l) {     // rows are 16-byte aligned
-    ulonglong2* row2 = reinterpret_cast<ulonglong2*>(
-        model + static_cast<size_t>(lane0 + l) * kNumHashes);
-    for (int h = threadIdx.x; h < kNumHashes / 2; h += kBlock)
-      row2[h] = make_ulonglong2(s_init[(2 * h) % kBuckets],
-                                s_init[(2 * h + 1) % kBuckets]);
-  }
+  fill_models(model, s_init, lane0, n_lanes, threadIdx.x, kBlock);
   __syncthreads();
 
   const int lane = lane0 + threadIdx.x;
   if (lane >= S) return;
-  uint64_t* row = model + static_cast<size_t>(lane) * kNumHashes;
+  uint64_t* row = model + static_cast<size_t>(lane) * kRowWords;
   const int32_t* xl = xs + lane;          // symbol i at xl[i * S]
   auto load_x = [&](int i) -> int32_t {
     return i < n_sym ? xl[static_cast<size_t>(i) * S] : 0;
@@ -226,15 +257,15 @@ encode_fused_kernel(const int32_t* __restrict__ xs,       // [n_sym, S]
   // packed word of symbol i + D, in flight
   int32_t xv[D], xa[D];
   int hs[D];
-  uint64_t wl[D], fw[D];
+  Row wl[D], fw[D];
   bool fv[D];
 #pragma unroll
   for (int k = 0; k < D; ++k) {
     xv[k] = load_x(k);
     hs[k] = hash_of(xv[k]);
-    wl[k] = hs[k] >= 0 ? row[hs[k]] : 0ull;
+    wl[k] = hs[k] >= 0 ? load_row(row, hs[k]) : zero_row();
     fv[k] = false;
-    fw[k] = 0ull;
+    fw[k] = zero_row();
     xa[k] = load_x(D + k);
   }
 
@@ -243,9 +274,9 @@ encode_fused_kernel(const int32_t* __restrict__ xs,       // [n_sym, S]
     for (int k = 0; k < D; ++k) {
       const int h = hs[k];
       if (h >= 0) {
-        uint64_t w = fv[k] ? fw[k] : wl[k];
+        Row w = fv[k] ? fw[k] : wl[k];
         code_symbol(c, w, xv[k], s_fused);
-        row[h] = w;
+        store_row(row, h, w);
 #pragma unroll
         for (int j = 0; j < D; ++j) {      // forward to pending symbols
           if (j != k && hs[j] == h) {
@@ -258,7 +289,7 @@ encode_fused_kernel(const int32_t* __restrict__ xs,       // [n_sym, S]
       xv[k] = xa[k];
       hs[k] = hash_of(xv[k]);
       fv[k] = false;
-      if (hs[k] >= 0) wl[k] = row[hs[k]];
+      if (hs[k] >= 0) wl[k] = load_row(row, hs[k]);
       xa[k] = load_x(i0 + k + 2 * D);
     }
   }

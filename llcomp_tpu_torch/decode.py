@@ -1,4 +1,4 @@
-"""Lane decoding: per-lane rev-2 streams -> ``[S, H, W, C]`` u8 stripes.
+"""Lane decoding: per-lane streams -> ``[S, H, W, C]`` u8 stripes.
 
 Port of ``decode_lanes`` in ``llcomp_tpu/decode.py`` with ``_decode_lanes_pallas``
 (`decode.py:627-761`): streams are packed zero-padded to the bucketed cap,
@@ -16,10 +16,11 @@ import torch
 
 from . import device as devmod
 from . import profiling
-from .core import geometry, transform
+from .core import config, geometry, transform
 from .core.config import REV2, CodecConfig
 from .encode import _start_table, _to_host
 from .kernels.decode_kernel import decode
+from .kernels.encode_fused import model_bytes
 
 # Device bytes one chunk of lanes may hold: model rows, stream bytes, planes
 # in two layouts and the decoded pixels.
@@ -36,19 +37,21 @@ def _pack(streams: list[bytes]) -> tuple[np.ndarray, np.ndarray]:
     return data, lens
 
 
-def lanes_per_chunk(streams: list[bytes], n_sym: int) -> int:
+def lanes_per_chunk(streams: list[bytes], n_sym: int,
+                    cfg: CodecConfig = REV2) -> int:
     """Lanes of ``n_sym`` samples that one chunk decodes at once: as many
-    as ``LANE_BUDGET_BYTES`` holds at the longest stream, at least one."""
+    as ``LANE_BUDGET_BYTES`` holds at the longest stream (with ``cfg``'s
+    model), at least one."""
     max_len = max((len(s) for s in streams), default=0)
-    per_lane = REV2.num_states + geometry.bucket_cap(max_len) + 13 * n_sym
+    per_lane = model_bytes(cfg) + geometry.bucket_cap(max_len) + 13 * n_sym
     return max(1, LANE_BUDGET_BYTES // per_lane)
 
 
-def _kernel(data: torch.Tensor, lens: torch.Tensor, shape, init
-            ) -> tuple[torch.Tensor, torch.Tensor]:
+def _kernel(data: torch.Tensor, lens: torch.Tensor, shape, init,
+            cfg: CodecConfig = REV2) -> tuple[torch.Tensor, torch.Tensor]:
     """Kernel 2 and the inverse RCT -> (images [S, H, W, C] u8, err [S])."""
     H, W, C = shape
-    planes, err = decode(data, lens, H, W, C, init)
+    planes, err = decode(data, lens, H, W, C, init, cfg)
     return transform.rct_inverse(planes.t().reshape(-1, H, W, C)), err
 
 
@@ -57,8 +60,8 @@ def _upload(data: np.ndarray, lens: np.ndarray, dev: torch.device
     return torch.from_numpy(data).to(dev), torch.from_numpy(lens).to(dev)
 
 
-def _launch_chunk(streams: list[bytes], shape, init, dev: torch.device,
-                  stream):
+def _launch_chunk(streams: list[bytes], shape, init, cfg: CodecConfig,
+                  dev: torch.device, stream):
     """Start decoding one chunk of ``streams`` on ``dev`` and ``stream``
     (None: the current stream), both made current: the H2D copies
     (pageable: the host waits for the copies, not for the kernels before
@@ -69,7 +72,8 @@ def _launch_chunk(streams: list[bytes], shape, init, dev: torch.device,
     stage = profiling.timed if stream is None else profiling.marked
     with devmod.guard(dev, stream):
         data, lens = stage("decode/upload", _upload, *_pack(streams), dev)
-        imgs, err = stage("decode/kernel", _kernel, data, lens, shape, init)
+        imgs, err = stage("decode/kernel", _kernel, data, lens, shape, init,
+                          cfg)
     return imgs, err, stream
 
 
@@ -84,7 +88,8 @@ def _collect_chunk(imgs: torch.Tensor, err: torch.Tensor, stream
 
 
 def _decode(streams: list[bytes], shape: tuple[int, int, int], init,
-            devs: list) -> tuple[np.ndarray, list[int]]:
+            devs: list, cfg: CodecConfig = REV2
+            ) -> tuple[np.ndarray, list[int]]:
     """The decode's loop: ``streams`` split over ``devs``
     (``device.shard_plan``) and cut into chunks of ``lanes_per_chunk``
     lanes, run through ``device.overlapped`` with one chunk of each shard
@@ -92,9 +97,9 @@ def _decode(streams: list[bytes], shape: tuple[int, int, int], init,
     streams tripped the corruption guards, ascending)."""
     H, W, C = shape
     cut = devmod.pieces(len(streams), devs,
-                        lanes_per_chunk(streams, H * W * C))
+                        lanes_per_chunk(streams, H * W * C, cfg))
     done = devmod.overlapped(
-        [(dev, (streams[lo:hi], shape, init)) for dev, lo, hi in cut],
+        [(dev, (streams[lo:hi], shape, init, cfg)) for dev, lo, hi in cut],
         _launch_chunk, _collect_chunk, devmod.most_shards(devs))
     order = sorted(range(len(cut)), key=lambda i: cut[i][1])
     bad = sorted(cut[i][1] + k for i in order for k in done[i][1])
@@ -111,15 +116,15 @@ def decode_lanes(streams: list[bytes], shape: tuple[int, int, int],
     primed / seed: the model start, as in ``encode.encode_lanes`` (a seed
     promotes ``primed``).  errors: 'raise' raises ValueError naming the
     corrupt lanes; 'report' returns ``(images, bad_lanes)`` instead, with
-    every lane not in ``bad_lanes`` exact.  The loop of
-    ``parallel.decode_lanes_sharded`` on a list of one device.
+    every lane not in ``bad_lanes`` exact.  cfg: any that ``config.check``
+    passes.  The loop of ``parallel.decode_lanes_sharded`` on a list of one
+    device.
     """
-    if cfg != REV2:
-        raise ValueError("llcomp_tpu_torch supports the rev-2 cfg only")
+    config.check(cfg)
     if errors not in ("raise", "report"):
         raise ValueError(f"errors must be 'raise' or 'report', got {errors!r}")
-    out, bad = _decode(streams, shape, _start_table(primed, seed),
-                       [devmod.resolve(device)])
+    out, bad = _decode(streams, shape, _start_table(primed, seed, cfg),
+                       [devmod.resolve(device)], cfg)
     if errors == "report":
         return out, bad
     if bad:

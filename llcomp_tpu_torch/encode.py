@@ -1,4 +1,4 @@
-"""Lane encoding: ``[S, H, W, C]`` u8 stripes -> one rev-2 stream per lane.
+"""Lane encoding: ``[S, H, W, C]`` u8 stripes -> one stream per lane.
 
 Two engines give the same bytes:
 
@@ -43,9 +43,9 @@ import torch
 from . import coder
 from . import device as devmod
 from . import profiling
-from .core import tables, transform
+from .core import config, tables, transform
 from .core.config import REV2, CodecConfig
-from .kernels.encode_fused import encode_fused_async
+from .kernels.encode_fused import encode_fused_async, model_bytes
 from .kernels.encode_kernels import (build_stream, coder_scan_off,
                                      coder_scan_off_q, walk_probs,
                                      walk_symbols)
@@ -85,9 +85,9 @@ def outcap(n_sym: int) -> int:
     return -(-(n_sym + n_sym // 2 + 64) // 1024) * 1024
 
 
-def max_stream_bytes(n_sym: int) -> int:
-    """The most bytes a headerless rev-2 stream of ``n_sym`` symbols can
-    take: ``max_bins_per_symbol * n_sym + 1``.
+def max_stream_bytes(n_sym: int, cfg: CodecConfig = REV2) -> int:
+    """The most bytes a headerless stream of ``n_sym`` symbols can take
+    under ``cfg``: ``max_bins_per_symbol * n_sym + 1``.
 
     Derivation (``coder.Encoder``, `llcomp.hpp:38-81`): a decision codes at
     P(1) = p/256 with p in [7, 247] on a range of at least 0x100, so both
@@ -98,27 +98,31 @@ def max_stream_bytes(n_sym: int) -> int:
     bytes written, the pending byte and the run sum to k.  ``finish`` adds
     two shifts and drops the pending byte: a stream of D decisions is at
     most D + 2 - 1 bytes, and a symbol takes at most 2e + 3 = 23 <=
-    ``max_bins_per_symbol`` decisions."""
-    return REV2.max_bins_per_symbol * n_sym + 1
+    ``max_bins_per_symbol`` decisions (``config.check``)."""
+    return cfg.max_bins_per_symbol * n_sym + 1
 
 
-def lane_bytes(n_sym: int, engine: str, variant: str = "symbol") -> int:
+def lane_bytes(n_sym: int, engine: str, variant: str = "symbol",
+               cfg: CodecConfig = REV2) -> int:
     """Device bytes one lane of ``n_sym`` symbols holds at the engine's peak.
-    Fused: model rows, packed symbols (two layouts), output row and
-    precompute temporaries.  Sort: ``SORT_SLOT_BYTES`` (symbol variant) or
-    ``DECISION_SLOT_BYTES`` (decision variant) per slot at the largest K,
-    the per-symbol arrays and the output row."""
+    Fused: model rows (``cfg``'s, ``encode_fused.model_bytes``), packed
+    symbols (two layouts), output row and precompute temporaries.  Sort:
+    ``SORT_SLOT_BYTES`` (symbol variant) or ``DECISION_SLOT_BYTES``
+    (decision variant) per slot at the largest K, the per-symbol arrays and
+    the output row."""
     if engine == "sort":
         per_slot = (DECISION_SLOT_BYTES if variant == "decision"
                     else SORT_SLOT_BYTES)
         return per_slot * MAX_SLOTS * n_sym + 64 * n_sym + outcap(n_sym)
-    return REV2.num_states + 56 * n_sym + outcap(n_sym)
+    return model_bytes(cfg) + 56 * n_sym + outcap(n_sym)
 
 
-def lanes_per_chunk(n_sym: int, engine: str, variant: str = "symbol") -> int:
+def lanes_per_chunk(n_sym: int, engine: str, variant: str = "symbol",
+                    cfg: CodecConfig = REV2) -> int:
     """Lanes of ``n_sym`` symbols that one chunk of ``encode_lanes`` codes
     at once: as many as ``LANE_BUDGET_BYTES`` holds, at least one."""
-    return max(1, LANE_BUDGET_BYTES // lane_bytes(n_sym, engine, variant))
+    return max(1, LANE_BUDGET_BYTES // lane_bytes(n_sym, engine, variant,
+                                                  cfg))
 
 
 def _hash_diff(imgs: torch.Tensor, cfg: CodecConfig
@@ -137,11 +141,13 @@ def precompute(imgs: torch.Tensor, cfg: CodecConfig = REV2) -> torch.Tensor:
     return (1 << 25) | (h << 12) | (diff + 1274)
 
 
-def _start_table(primed: bool, seed):
+def _start_table(primed: bool, seed, cfg: CodecConfig = REV2):
     """[121, 8] u8 model start table: the stored seed, the static prior, or
     None (zeros).  A seed promotes ``primed``.  A seed must hold states of
     the 128-state machine: a larger value would index past every state
-    table."""
+    table.  Both tables hold 8 substates a bucket: under a cfg of other
+    ``substates`` a primed or seeded start raises ValueError."""
+    config.check_start(cfg, primed or seed is not None)
     if seed is not None:
         tab = np.ascontiguousarray(seed, dtype=np.uint8)
         if tab.shape != (tables.PRIOR_BUCKETS, 8):
@@ -410,10 +416,12 @@ def _streams(out: np.ndarray, lens: np.ndarray) -> list[bytes]:
 
 def _check_args(cfg: CodecConfig, engine: str, variant: str, primed: bool,
                 seed) -> None:
-    if cfg != REV2:
-        raise ValueError("llcomp_tpu_torch supports the rev-2 cfg only")
+    config.check(cfg)
     if engine not in ENGINES:
         raise ValueError(f"engine must be one of {ENGINES}, got {engine!r}")
+    if engine == "sort" and cfg != REV2:
+        raise ValueError("engine='sort' codes the rev-2 cfg only (as the JAX "
+                         "package's sort chain does): use engine='fused'")
     if variant not in VARIANTS:
         raise ValueError(f"variant must be one of {VARIANTS}, got {variant!r}")
     if variant == "decision" and engine != "sort":
@@ -434,7 +442,8 @@ def encode_lanes(imgs, cfg: CodecConfig = REV2, primed: bool = False,
                  seed=None, device="cuda", engine: str = "fused",
                  variant: str = "symbol") -> list[bytes]:
     """Encode equal-shaped lanes [S, H, W, C] u8 -> per-lane headerless
-    rev-2 streams.
+    streams under ``cfg`` (any cfg that ``config.check`` passes; engine
+    'sort' rev 2 only).
 
     primed: context row h starts at tables.PRIOR_TAB[h % 121] (sliced
     container flag bit 0).  seed: a [121, 8] u8 stored-seed table (flag
@@ -456,7 +465,7 @@ def encode_lanes(imgs, cfg: CodecConfig = REV2, primed: bool = False,
         return encode_lanes_pipelined([imgs], cfg, primed, seed, dev)[0]
     S = imgs.shape[0]
     n_sym = int(np.prod(imgs.shape[1:]))
-    init = _start_table(primed, seed)
+    init = _start_table(primed, seed, cfg)
     check_sort_bounds(n_sym)
     run = _encode_sort if variant == "symbol" else _encode_decision
     chunk = lanes_per_chunk(n_sym, engine, variant)
@@ -475,12 +484,12 @@ def encode_lanes(imgs, cfg: CodecConfig = REV2, primed: bool = False,
 # --- several batches, overlapped ---------------------------------------------
 
 
-def pipeline_fits(n_sym: int) -> bool:
+def pipeline_fits(n_sym: int, cfg: CodecConfig = REV2) -> bool:
     """True iff a lane of ``n_sym`` symbols fits one chunk of the fused
     engine's budget, so that ``encode_lanes_pipelined`` can hold it in
     flight beside others (`encode.py:788-798` of the JAX package, whose
     limits were the TPU's VMEM and slot budgets)."""
-    return lane_bytes(n_sym, "fused") <= LANE_BUDGET_BYTES
+    return lane_bytes(n_sym, "fused", cfg=cfg) <= LANE_BUDGET_BYTES
 
 
 def _fused_input(lanes: torch.Tensor, cfg: CodecConfig) -> torch.Tensor:
@@ -507,7 +516,7 @@ def _launch_piece(lanes: np.ndarray, cfg: CodecConfig, init,
         x = stage("encode/upload", torch.from_numpy(lanes).to, dev)
         xs = stage("encode/precompute", _fused_input, x, cfg)
         out, lens, ovf = stage("encode/fused_kernel", encode_fused_async, xs,
-                               init, cap)
+                               init, cap, cfg)
         return (out, torch.stack([lens, ovf.to(torch.int32)]), stream,
                 (lanes, cfg, init))
 
@@ -517,7 +526,8 @@ def _recode(x: torch.Tensor, need: int, cfg: CodecConfig, init):
     ``x`` [k, H, W, C] u8 whose streams passed their ``outcap`` row, at a
     row of ``need`` bytes (their longest counted length) rounded up to a
     multiple of 4.  -> (bytes [k, row] u8, lengths [k] int32, flags [k])."""
-    return encode_fused_async(_fused_input(x, cfg), init, -(-need // 4) * 4)
+    return encode_fused_async(_fused_input(x, cfg), init, -(-need // 4) * 4,
+                              cfg)
 
 
 def _check_recoded(lens: torch.Tensor, ovf: torch.Tensor, want) -> np.ndarray:
@@ -565,7 +575,7 @@ def fused_tensors(lanes: torch.Tensor, cfg: CodecConfig = REV2, init=None
     counted length rounded up to a multiple of 4: those lanes are coded
     again (``_recode``) into widened rows.  Syncs once, on the flags."""
     out, lens, ovf = encode_fused_async(_fused_input(lanes, cfg), init,
-                                        outcap(lanes[0].numel()))
+                                        outcap(lanes[0].numel()), cfg)
     redo = torch.nonzero(ovf).flatten()
     if len(redo):
         need = lens[redo]
@@ -589,10 +599,10 @@ def _encode_fused(batches: list[np.ndarray], devs: list, cfg: CodecConfig,
     work, where = [], []
     for bi, b in enumerate(batches):
         n_sym = int(np.prod(b.shape[1:]))
-        if not pipeline_fits(n_sym):
+        if not pipeline_fits(n_sym, cfg):
             max_inflight = 1
-        for dev, lo, hi in devmod.pieces(len(b), devs,
-                                         lanes_per_chunk(n_sym, "fused")):
+        for dev, lo, hi in devmod.pieces(len(b), devs, lanes_per_chunk(
+                n_sym, "fused", cfg=cfg)):
             work.append((dev, (b[lo:hi], cfg, init)))
             where.append((bi, lo))
     done = devmod.overlapped(work, _launch_piece, _collect_piece,
@@ -631,5 +641,5 @@ def encode_lanes_pipelined(batches, cfg: CodecConfig = REV2,
     if engine == "sort":
         return [encode_lanes(b, cfg, primed, seed, dev, engine)
                 for b in batches]
-    return _encode_fused(batches, [dev], cfg, _start_table(primed, seed),
-                         max_inflight)
+    return _encode_fused(batches, [dev], cfg,
+                         _start_table(primed, seed, cfg), max_inflight)

@@ -24,6 +24,14 @@ source note in ``csrc/decode_kernel.cu`` has the details and what is left.
 Output planes are symbol-major ``[n_sym, S]`` int32 post-RCT values (the
 caller applies ``transform.rct_inverse``), and ``err [S]`` int32 is the
 sticky per-lane corruption flag.
+
+``cfg`` is the codec configuration (``core.config``): its hash (the small
+model drops the two quant5 terms), contexts, model size and decision cap
+(``max_bins_per_symbol``, the error cap).  Past the cap, or at a decision
+whose context lies at or past ``substates`` (only a corrupt stream reaches
+one: ``config.check`` keeps every context of a valid symbol inside), the
+lane is flagged and the symbol ends.  The kernel is built once a cfg
+(``config.defines``) and counted by build in ``decode.by_cfg``.
 """
 from __future__ import annotations
 
@@ -33,22 +41,23 @@ import numpy as np
 import torch
 
 from ..coder import Decoder, wrap32
-from ..core import tables
-from ..core.config import REV2
+from ..core import config, tables, transform
+from ..core.config import REV2, CodecConfig
 from . import build
-from .encode_fused import _model_start, _table, _upload
+from .encode_fused import _model_start, _table, _upload, model_bytes
 
-_NS = REV2.num_states
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _ZF, _EXP, _MANT, _SIGN, _DONE = 0, 1, 2, 3, 4
 
 
 def decode_plain(data: torch.Tensor, lens: torch.Tensor, H: int, W: int,
-                 C: int, init) -> tuple[torch.Tensor, torch.Tensor]:
+                 C: int, init, cfg: CodecConfig = REV2
+                 ) -> tuple[torch.Tensor, torch.Tensor]:
     """The kernel's function in plain torch, vectorised over lanes, with
-    Python loops over symbols and decisions (the JAX kernels' 24-step phase
-    machine).  -> (planes [n_sym, S] int32, err [S] int32)."""
+    Python loops over symbols and decisions (the JAX kernels' phase
+    machine, ``cfg.max_bins_per_symbol`` steps a symbol).  -> (planes
+    [n_sym, S] int32, err [S] int32)."""
     S = data.shape[0]
     dev = data.device
     n_sym = H * W * C
@@ -56,7 +65,14 @@ def decode_plain(data: torch.Tensor, lens: torch.Tensor, H: int, W: int,
     fused = torch.from_numpy(tables.FUSED.astype(np.int64)).to(dev)
     q11 = torch.from_numpy(tables.QUANT11.astype(np.int64)).to(dev)
     q5 = torch.from_numpy(tables.QUANT5.astype(np.int64)).to(dev)
-    model = _model_start(init, S, dev)
+    model = _model_start(init, S, dev, cfg)
+    SUB = cfg.substates
+    # a symbol's exponent count and mantissa position stay below its cap
+    n_ctx = cfg.max_bins_per_symbol + 1
+    exp_ctx, mant_ctx = transform.context_tables(cfg, n_ctx, dev)
+    # only a corrupt stream reaches a context past the row, and only where
+    # e_lim or r_lim does (config.check keeps sign_ctx inside)
+    guard = max(cfg.e_lim, cfg.r_lim) >= SUB
     dec = Decoder(data, lens)
     planes = torch.zeros((n_sym, S), dtype=torch.int64, device=dev)
     err = torch.zeros(S, dtype=torch.bool, device=dev)
@@ -75,26 +91,34 @@ def decode_plain(data: torch.Tensor, lens: torch.Tensor, H: int, W: int,
         tr = planes[s - stride + C] if y > 0 and x < W - 1 else t
         T = planes[s - 2 * stride] if y > 1 else t
         hsh = (quant(q11, wrap32(l - tl)) + quant(q11, wrap32(tl - t)) * 11
-               + quant(q11, wrap32(t - tr)) * 121
-               + quant(q5, wrap32(L - l)) * 605
-               + quant(q5, wrap32(T - t)) * 3025)
+               + quant(q11, wrap32(t - tr)) * 121)
+        if cfg.large_model:
+            hsh = hsh + (quant(q5, wrap32(L - l)) * 605
+                         + quant(q5, wrap32(T - t)) * 3025)
         grad = wrap32(l + t - tl)
         predict = torch.maximum(torch.minimum(l, t),
                                 torch.minimum(torch.maximum(l, t), grad))
         neg = hsh < 0
-        base = torch.where(neg, -hsh, hsh) * 8
+        base = torch.where(neg, -hsh, hsh) * SUB
 
         phase = torch.full((S,), _ZF, dtype=torch.int64, device=dev)
         value = torch.zeros_like(phase)
         e = torch.zeros_like(phase)
         mrem = torch.zeros_like(phase)
-        for _ in range(REV2.max_bins_per_symbol):
+        for _ in range(cfg.max_bins_per_symbol):
             act = phase != _DONE
             if not bool(act.any()):
                 break
-            ctx = torch.where(phase == _EXP, (e + 1).clamp(max=4), 0)
-            ctx = torch.where(phase == _MANT, (5 + e - mrem).clamp(max=6), ctx)
-            ctx = torch.where(phase == _SIGN, 7, ctx)
+            ctx = torch.where(phase == _EXP,
+                              exp_ctx[(e + 1).clamp(max=n_ctx - 1)], 0)
+            ctx = torch.where(phase == _MANT,
+                              mant_ctx[(e - mrem).clamp(0, n_ctx - 1)], ctx)
+            ctx = torch.where(phase == _SIGN, cfg.sign_ctx, ctx)
+            past = act & (ctx >= SUB) if guard else None
+            if guard:
+                err |= past
+                act &= ~past
+                ctx = torch.where(past, 0, ctx)
             idx = (base + ctx)[:, None]
             st = model.gather(1, idx)[:, 0].to(torch.int64)
             f = fused[st]
@@ -120,6 +144,8 @@ def decode_plain(data: torch.Tensor, lens: torch.Tensor, H: int, W: int,
                                  torch.where(e2 > 0, _MANT, _SIGN), nphase)
             nphase = torch.where(last_mant, _SIGN, nphase)
             phase = torch.where(is_sign, _DONE, nphase)
+            if guard:
+                phase = torch.where(past, _DONE, phase)
             e = e2
         err |= phase != _DONE
         planes[s] = wrap32(predict + torch.where(neg, -value, value))
@@ -132,7 +158,8 @@ def instance(C: int) -> str:
 
 
 def decode(data: torch.Tensor, lens: torch.Tensor, H: int, W: int, C: int,
-           init) -> tuple[torch.Tensor, torch.Tensor]:
+           init, cfg: CodecConfig = REV2
+           ) -> tuple[torch.Tensor, torch.Tensor]:
     """Decode ``S`` lanes of ``H x W x C`` samples from zero-padded stream
     bytes ``data`` [S, cap] u8 with lengths ``lens`` [S] int32 ->
     (planes [n_sym, S] int32, err [S] int32).  Bytes at or past
@@ -141,8 +168,9 @@ def decode(data: torch.Tensor, lens: torch.Tensor, H: int, W: int, C: int,
     CUDA tensors launch the kernel on their device, made current for the
     launch, with the constant tables kept on the card and the start table
     through pinned memory (no host wait), counted
-    in ``decode.launches`` and, by instantiation, in ``decode.instances``;
-    CPU tensors run ``decode_plain``.
+    in ``decode.launches`` and, by instantiation, in ``decode.instances``
+    and, by build, in ``decode.by_cfg``; CPU tensors run ``decode_plain``.
+    A cfg whose build fails raises ``build.KernelCompileError``.
     """
     if data.dim() != 2 or data.dtype != torch.uint8:
         raise ValueError(f"data must be [S, cap] uint8, got "
@@ -150,14 +178,18 @@ def decode(data: torch.Tensor, lens: torch.Tensor, H: int, W: int, C: int,
     S, cap = data.shape
     if lens.shape != (S,) or lens.dtype != torch.int32:
         raise ValueError("lens must be [S] int32")
+    config.check(cfg)
+    config.check_start(cfg, init is not None)
     if not data.is_cuda:
-        return decode_plain(data, lens, H, W, C, init)
+        return decode_plain(data, lens, H, W, C, init, cfg)
     if C < 1:
         raise ValueError(f"C must be at least 1, got {C}")
     data = data.contiguous()
     lens = lens.contiguous()
     dev = data.device
-    fn = build.load("decode_kernel", "llct_decode", [_P] * 9 + [_I] * 5 + [_P])
+    defines = config.defines(cfg)
+    fn = build.load("decode_kernel", "llct_decode", [_P] * 9 + [_I] * 5 + [_P],
+                    defines)
     with torch.cuda.device(dev):      # the launch runs on the current device
         if cap % 16 or data.data_ptr() % 16:  # rows of aligned 16-byte words
             wide = torch.zeros((S, -(-cap // 16) * 16), dtype=torch.uint8,
@@ -167,7 +199,8 @@ def decode(data: torch.Tensor, lens: torch.Tensor, H: int, W: int, C: int,
         tabs = [_table(t, dev) for t in ("FUSED", "QUANT11", "QUANT5")]
         init_t = (None if init is None else
                   _upload(tables.pack_u64(init), dev))
-        model = torch.empty((S, _NS), dtype=torch.uint8, device=dev)
+        model = torch.empty((S, model_bytes(cfg)), dtype=torch.uint8,
+                            device=dev)
         planes = torch.empty((H * W * C, S), dtype=torch.int32, device=dev)
         err = torch.empty(S, dtype=torch.int32, device=dev)
         rc = fn(data.data_ptr(), lens.data_ptr(),
@@ -178,8 +211,10 @@ def decode(data: torch.Tensor, lens: torch.Tensor, H: int, W: int, C: int,
     build.check(rc, "decode")
     decode.launches += 1
     decode.instances[instance(C)] += 1
+    decode.by_cfg[defines] = decode.by_cfg.get(defines, 0) + 1
     return planes, err
 
 
 decode.launches = 0
+decode.by_cfg = {}      # config.defines(cfg) -> launches of that build
 decode.instances = dict.fromkeys(["C1", "C2", "C3", "C4", "generic"], 0)

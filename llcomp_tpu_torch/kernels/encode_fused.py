@@ -22,7 +22,13 @@ Input ``xs`` is the packed word ``live<<25 | hash<<12 | (diff+1274)`` per
 symbol (``encode.precompute``), symbol-major ``[n_sym, S]``.  ``init`` is the
 model's start: None (zeros) or a ``[121, 8]`` u8 bucket table (the static
 prior for primed containers, or the stored seed): context row h starts at
-``init[h % 121]``.
+``init[h % 121]``; a table needs 8 substates.
+
+``cfg`` is the codec configuration (``core.config``): the plain version
+reads its contexts (``transform.binarize``) and its model of
+``cfg.num_states`` bytes, and the kernel is built once a cfg
+(``config.defines``, ``csrc/codec_cfg.cuh``) and counted by build in
+``encode_fused.by_cfg``.
 """
 from __future__ import annotations
 
@@ -32,21 +38,29 @@ import numpy as np
 import torch
 
 from ..coder import Encoder
-from ..core import tables, transform
-from ..core.config import REV2
+from ..core import config, tables, transform
+from ..core.config import REV2, CodecConfig
 from . import build
 
-_NS = REV2.num_states
 _BLOCK = 64        # symbols whose decisions the plain version lays out at once
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 
 
-def _model_start(init, S: int, device) -> torch.Tensor:
-    """[S, num_states] u8 model: zeros or ``init[h % 121]`` per context row."""
+def model_bytes(cfg: CodecConfig = REV2) -> int:
+    """Device bytes of one lane's model in kernels 1 and 2."""
+    return 8 * config.model_words(cfg)
+
+
+def _model_start(init, S: int, device, cfg: CodecConfig = REV2
+                 ) -> torch.Tensor:
+    """[S, cfg.num_states] u8 model: zeros or ``init[h % 121]`` per context
+    row (8 substates)."""
     if init is None:
-        return torch.zeros((S, _NS), dtype=torch.uint8, device=device)
-    full = tables.prior_full_from(np.asarray(init), _NS, REV2.substates)
+        return torch.zeros((S, cfg.num_states), dtype=torch.uint8,
+                           device=device)
+    full = tables.prior_full_from(np.asarray(init), cfg.num_states,
+                                  cfg.substates)
     return torch.from_numpy(full).to(device)[None].repeat(S, 1)
 
 
@@ -59,7 +73,8 @@ def _symbol_fields(x: torch.Tensor):
     return live, h, d, ad, transform.ilog2(ad.clamp(min=1), max_bits=12)
 
 
-def encode_fused_plain(xs: torch.Tensor, init, outcap: int):
+def encode_fused_plain(xs: torch.Tensor, init, outcap: int,
+                       cfg: CodecConfig = REV2):
     """The kernel's function in plain torch, vectorised over lanes, with
     Python loops over symbols and decisions (each symbol's decisions laid
     out at once by ``transform.binarize``).  -> (out [S, outcap] u8, lens
@@ -71,14 +86,14 @@ def encode_fused_plain(xs: torch.Tensor, init, outcap: int):
     nbins = torch.where(ad != 0, 2 * e + 3, 1) * live
     steps = nbins.amax(dim=1).tolist() if S else [0] * n_sym
     fused = torch.from_numpy(tables.FUSED.astype(np.int64)).to(dev)
-    model = _model_start(init, S, dev).to(torch.int64)
+    model = _model_start(init, S, dev, cfg).to(torch.int64)
     enc = Encoder(S, outcap, dev)
     for i in range(n_sym):
-        if i % _BLOCK == 0:      # the next block's decisions, [24, S] each
+        if i % _BLOCK == 0:      # the next block's decisions, [K, S] each
             blk = slice(i, i + _BLOCK)
             ctx, bit, valid = (t.view(-1, S, t.shape[1]).transpose(1, 2)
-                               for t in transform.binarize(d[blk]))
-            idx_b = (h[blk, None] * 8 + ctx).unsqueeze(3)
+                               for t in transform.binarize(d[blk], cfg))
+            idx_b = (h[blk, None] * cfg.substates + ctx).unsqueeze(3)
             one_b, valid_b = bit == 1, valid & live[blk, None]
         if not steps[i]:
             continue
@@ -116,7 +131,8 @@ def _table(name: str, dev: torch.device) -> torch.Tensor:
     return _TABLES[name, index]
 
 
-def encode_fused_async(xs: torch.Tensor, init, outcap: int):
+def encode_fused_async(xs: torch.Tensor, init, outcap: int,
+                       cfg: CodecConfig = REV2):
     """``encode_fused`` without its check of the rows: -> (bytes [S,
     outcap] u8, lengths [S] int32, flags [S]).  A lane whose stream passes
     its ``outcap``-byte row has its flag set and its full length counted;
@@ -124,23 +140,29 @@ def encode_fused_async(xs: torch.Tensor, init, outcap: int):
     kernel: it runs on the current stream (``encode_lanes_pipelined``
     overlaps batches this way) and the caller reads the flags once it has
     synced.  The kernel launches on ``xs``'s device, made current for the
-    launch.  Counts the launch in ``encode_fused.launches``."""
+    launch.  Counts the launch in ``encode_fused.launches`` and in
+    ``encode_fused.by_cfg`` under the build's defines.  A cfg whose build
+    fails raises ``build.KernelCompileError``."""
     if xs.dim() != 2 or xs.dtype != torch.int32:
         raise ValueError(f"xs must be [n_sym, S] int32, got {tuple(xs.shape)} "
                          f"{xs.dtype}")
+    config.check(cfg)
+    config.check_start(cfg, init is not None)
     n_sym, S = xs.shape
     if not xs.is_cuda:
-        return encode_fused_plain(xs, init, outcap)
+        return encode_fused_plain(xs, init, outcap, cfg)
     if outcap % 4:
         raise ValueError(f"outcap must be a multiple of 4, got {outcap}")
     xs = xs.contiguous()
     dev = xs.device
+    defines = config.defines(cfg)
     fn = build.load("encode_fused", "llct_encode_fused",
-                    [_P] * 7 + [_I] * 3 + [_P])
+                    [_P] * 7 + [_I] * 3 + [_P], defines)
     with torch.cuda.device(dev):      # the launch runs on the current device
         fused = _table("FUSED", dev)
         init_t = None if init is None else _upload(tables.pack_u64(init), dev)
-        model = torch.empty((S, _NS), dtype=torch.uint8, device=dev)
+        model = torch.empty((S, model_bytes(cfg)), dtype=torch.uint8,
+                            device=dev)
         out = torch.empty((S, outcap), dtype=torch.uint8, device=dev)
         lens = torch.empty(S, dtype=torch.int32, device=dev)
         ovf = torch.empty(S, dtype=torch.int32, device=dev)
@@ -151,10 +173,12 @@ def encode_fused_async(xs: torch.Tensor, init, outcap: int):
                 torch.cuda.current_stream(dev).cuda_stream)
     build.check(rc, "encode_fused")
     encode_fused.launches += 1
+    encode_fused.by_cfg[defines] = encode_fused.by_cfg.get(defines, 0) + 1
     return out, lens, ovf
 
 
-def encode_fused(xs: torch.Tensor, init, outcap: int
+def encode_fused(xs: torch.Tensor, init, outcap: int,
+                 cfg: CodecConfig = REV2
                  ) -> tuple[torch.Tensor, torch.Tensor]:
     """Encode ``S`` lanes: ``xs`` [n_sym, S] int32 -> (bytes [S, outcap] u8,
     lengths [S] int32).
@@ -166,7 +190,7 @@ def encode_fused(xs: torch.Tensor, init, outcap: int
     bound, and the lane loops (``encode``) code such lanes again at their
     counted length.
     """
-    out, lens, ovf = encode_fused_async(xs, init, outcap)
+    out, lens, ovf = encode_fused_async(xs, init, outcap, cfg)
     if bool(ovf.any()):
         raise RuntimeError(f"a stream overflowed its row of outcap={outcap} "
                            "bytes")
@@ -174,3 +198,4 @@ def encode_fused(xs: torch.Tensor, init, outcap: int
 
 
 encode_fused.launches = 0
+encode_fused.by_cfg = {}      # config.defines(cfg) -> launches of that build

@@ -24,6 +24,7 @@ from . import container
 from . import decode as decmod
 from . import device as devmod
 from . import encode as encmod
+from .core import config
 from .core.config import REV2, CodecConfig
 from .device import shard_plan
 
@@ -74,7 +75,7 @@ def encode_lanes_sharded(lanes, mesh, cfg: CodecConfig = REV2,
                 if b > a for s in encmod.encode_lanes(
                     lanes[a:b], cfg, primed, seed, dev, engine)]
     return encmod._encode_fused([lanes], devs, cfg,
-                                encmod._start_table(primed, seed),
+                                encmod._start_table(primed, seed, cfg),
                                 encmod.MAX_INFLIGHT)[0]
 
 
@@ -86,11 +87,10 @@ def decode_lanes_sharded(streams: list[bytes], shape: tuple[int, int, int],
     before any is collected, by the loop of ``decode.decode_lanes``) and
     its plain version on CPU shards.  Raises ValueError naming the global
     lane indices of corrupt streams."""
-    if cfg != REV2:
-        raise ValueError("llcomp_tpu_torch supports the rev-2 cfg only")
+    config.check(cfg)
     out, bad = decmod._decode(streams, shape,
-                              encmod._start_table(primed, seed),
-                              devices(mesh))
+                              encmod._start_table(primed, seed, cfg),
+                              devices(mesh), cfg)
     if bad:
         raise ValueError(f"corrupt stream in lanes {bad}")
     return out

@@ -61,6 +61,9 @@ def derive_pooled(imgs, cfg: CodecConfig = REV2, sample_mp: float = 0.5,
                   device="cuda") -> np.ndarray:
     """One table pooled over several images (a batch of lanes from several
     images shares one table; each image's container stores its copy)."""
+    # a seed has the prior's 8 substates a bucket: callers derive one only
+    # under such a cfg (config.check_start)
+    assert cfg.substates == tables.PRIOR_TAB.shape[1], cfg.substates
     dev = devmod.resolve(device)
     n0 = torch.zeros(BUCKETS * cfg.substates, dtype=torch.int64, device=dev)
     n1 = torch.zeros_like(n0)

@@ -97,8 +97,8 @@ def test_argument_errors():
     img = make_photo(8, 8)
     with pytest.raises(TypeError):
         api.compress(img.astype(np.float32), device="cpu")
-    with pytest.raises(ValueError, match="rev-2"):
-        api.compress(img, slices=2, cfg=CodecConfig(e_lim=3), device="cpu")
+    with pytest.raises(ValueError, match="sign_ctx"):
+        api.compress(img, slices=2, cfg=CodecConfig(sign_ctx=8), device="cpu")
     with pytest.raises(ValueError, match="tile_w"):
         api.compress(img, slices="auto", tile_w=8, device="cpu")
     with pytest.raises(ValueError, match="unsupported revision"):

@@ -24,10 +24,13 @@ from chip_smoke import (CODERS, EDGE_RESIDUALS, P11_TAGS, PG_TAGS, PG_WORDS,
 from chip_smoke import (MIXED, OVERFLOW_SEED, _flip_slice, _malicious_stream,
                         make_image, overflow_batches, sanitize,
                         sanitizer_status)
+from chip_smoke import (CFG_BATCHES, CFG_CASES, _cfg_start, codec_batches,
+                        codec_case)
 from llcomp_tpu_torch import (api, coder, container, corpus, decode, encode,
                               graft_entry, host, parallel, probes, seed)
 from llcomp_tpu_torch import device as devmod
-from llcomp_tpu_torch.core.config import REV2
+from llcomp_tpu_torch.core import config
+from llcomp_tpu_torch.core.config import REV2, CodecConfig
 from llcomp_tpu_torch.kernels import build
 from llcomp_tpu_torch.kernels import decode_kernel as dk
 from llcomp_tpu_torch.kernels import encode_fused as ef
@@ -78,6 +81,49 @@ def test_kernels_equal_plain(dev, shape, primed):
     planes, err = dk.decode(d, ln, *shape, init)
     planes_p, err_p = dk.decode_plain(d, ln, *shape, init)
     assert torch.equal(err, err_p) and torch.equal(planes, planes_p)
+
+
+@pytest.mark.parametrize("name", list(CFG_CASES))
+def test_cfg_builds_equal_plain(dev, name):
+    """Kernels 1 and 2 built for each cfg, held against their plain
+    versions on phase 12's runs of phase 3's batches (dead tails, flipped
+    and cut streams, a stream past the cap, garbage past the lengths)."""
+    cfg = CodecConfig(**CFG_CASES[name])
+    batches = codec_batches()
+    d = config.defines(cfg)
+    before = (ef.encode_fused.by_cfg.get(d, 0), dk.decode.by_cfg.get(d, 0))
+    for batch in CFG_BATCHES:
+        for mode, init in _cfg_start(cfg, batch):
+            r = codec_case(torch, dev, batch, batches[batch], mode, init, cfg)
+            assert r["encode"] == 0 and r["decode"] == 0, (batch, mode)
+    assert ef.encode_fused.by_cfg[d] > before[0]
+    assert dk.decode.by_cfg[d] > before[1]
+
+
+def test_second_cfg_build_keeps_the_first(dev, monkeypatch):
+    """Builds of two cfgs stand side by side in _build/: loading the first
+    again after the second was built runs no compiler."""
+    first = config.defines(CodecConfig(e_lim=3, r_lim=5, sign_ctx=6))
+    second = config.defines(CodecConfig(large_model=False))
+    for name in ("encode_fused", "decode_kernel"):
+        a, b = build.build(name, first), build.build(name, second)
+        assert a != b and a.exists() and b.exists()
+    monkeypatch.setattr(build, "_libs", {})
+
+    def no_compiler(*args, **kwargs):
+        raise AssertionError(f"a build ran again: {args}")
+
+    monkeypatch.setattr(build.subprocess, "run", no_compiler)
+    lanes = _lanes((4, 16, 3))
+    for defines, cfg in ((first, CodecConfig(e_lim=3, r_lim=5, sign_ctx=6)),
+                         (second, CodecConfig(large_model=False))):
+        xs = encode.precompute(torch.from_numpy(lanes).to(dev),
+                               cfg).t().contiguous()
+        out, lens = ef.encode_fused(xs, None, encode.outcap(xs.shape[0]), cfg)
+        want = encode.encode_lanes(lanes, cfg, device="cpu")
+        assert [out[s, : lens[s]].cpu().numpy().tobytes()
+                for s in range(len(lanes))] == want
+        assert (("encode_fused", defines) in build._libs)
 
 
 @pytest.mark.parametrize("shape,S", [((6, 24, 1), 1), ((5, 12, 2), 33),

@@ -17,6 +17,10 @@ run in a fresh process:
 * ``--run pipeline``: phase 9's corpus encode alone,
   ``encode.encode_lanes_pipelined`` (``max_inflight`` 2) of the lane
   batches that ``corpus.compress_corpus`` gives its 24 images, 7 times.
+* ``--run kernels``: kernels 1 and 2 alone (the default, rev-2 build) on
+  phase 5's shape, 7 fresh seeded bench batches, each launch between two
+  CUDA events (seconds), after the registers of each kernel
+  (``-Xptxas -v``).
 
 Usage, from the root of a checkout, on a machine with one CUDA GPU and
 ``nvcc`` (unpack the other commit with ``git archive`` into the ignored
@@ -140,6 +144,40 @@ for rep in range(7):
     pipelined(batches, *a, **k)
     torch.cuda.synchronize()
     ts.append(time.perf_counter() - t0)
+print(f"SECONDS {json.dumps(ts)}", flush=True)
+""", "kernels": BUILD + WARM + """
+from llcomp_tpu_torch.kernels import decode_kernel as dk
+from llcomp_tpu_torch.kernels import encode_fused as ef
+for name in ("encode_fused", "decode_kernel"):
+    print(name, "registers", cs.registers(build.compiler_log(name)),
+          flush=True)
+
+
+def events(fn):
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    a.record()
+    out = fn()
+    b.record()
+    torch.cuda.synchronize()
+    return a.elapsed_time(b) / 1e3, out
+
+
+ts = {"encode_fused": [], "decode_kernel": []}
+for rep in range(7):
+    lanes = fresh(rep)
+    xs = encode.precompute(torch.from_numpy(lanes).to(dev)).t().contiguous()
+    cap = encode.outcap(xs.shape[0])
+    t, (out, lens) = events(lambda: ef.encode_fused(xs, tab, cap))
+    ts["encode_fused"].append(t)
+    out, lens = out.cpu().numpy(), lens.cpu().numpy()
+    data, n = decode._pack([out[s, : lens[s]].tobytes()
+                            for s in range(len(lanes))])
+    d, ln = torch.from_numpy(data).to(dev), torch.from_numpy(n).to(dev)
+    t, (planes, err) = events(lambda: dk.decode(d, ln, H, W, C, tab))
+    assert not err.any()
+    ts["decode_kernel"].append(t)
 print(f"SECONDS {json.dumps(ts)}", flush=True)
 """}
 
