@@ -13,7 +13,8 @@ Phases (each prints one line; any failure exits non-zero without the final
 2. build: compiles the ten kernel sources of ``llcomp_tpu_torch/csrc`` (the
    eight library kernels and the 21 probes), one nvcc each, in parallel,
    beside the copies of kernels 1-8 and probes p7-p11, pF, pG, pH and
-   reduce that phases 5-8 time (``VARIANTS``); prints the registers a
+   reduce that phases 5-8 time (``VARIANTS``) and the cfg builds of
+   kernels 1, 2, 3 and 5 that phases 12 and 13 run; prints the registers a
    thread of
    kernels 1-8, the probes of ``probe_mosaic.cu`` and
    ``probe_mosaic2.cu``, pH and reduce and of the copies (every coder
@@ -111,11 +112,11 @@ Phases (each prints one line; any failure exits non-zero without the final
    within ``encode.lane_bytes``; timed end to end beside the fused engine,
    its device idle share and its ten largest device ops under
    ``torch.profiler``, split by stage; each kernel held exactly against its
-   plain version on the inputs the engine gave it at this shape, and both
-   timed, kernel 3 with its longest piece and thread walk and beside
-   copies of it with other chunk counts and ring depths, kernel 4 beside
-   copies of it with other hand-over batches and stages, each copy's
-   output equal to the shipped kernel's;
+   plain version on the inputs the engine gave it at this shape (kernel
+   4's on CPU copies of them), and both timed, kernel 3 with its longest
+   piece and thread walk and beside copies of it with other chunk counts
+   and ring depths, kernel 4 beside copies of it with other hand-over
+   batches and stages, each copy's output equal to the shipped kernel's;
 7. the decision variant (``encode_lanes(engine="sort",
    variant="decision")``, kernels 5, 6 and 7) on the unprimed bench batch:
    streams equal to the fused engine's and the symbol variant's, also on
@@ -124,7 +125,8 @@ Phases (each prints one line; any failure exits non-zero without the final
    ``encode.lane_bytes``; timed end to end beside both other encodes on the
    same batches, its device idle share and largest ops, split by stage; on
    all 1,024 lanes in one chunk, kernels 5-8 held exactly against their
-   plain versions on the inputs the engine gave them, and timed, kernel 5
+   plain versions on the inputs the engine gave them (kernels 7 and 8's
+   on CPU copies of them), and timed, kernel 5
    beside copies of it (one thread a slot, the design it replaced; other
    tiles; scalar stores), kernel 6
    (with its longest piece and thread walk) beside copies of it with other
@@ -134,7 +136,10 @@ Phases (each prints one line; any failure exits non-zero without the final
    the shipped kernel's; kernel 8
    (``coder_scan``, the slot-record coder) run on its own path on the
    variant's coder records, through ``coder.finish_steps`` and
-   ``coder.expand_slots``, must give the variant's streams;
+   ``coder.expand_slots``, must give the variant's streams; phases 6 and
+   7 print each step's seconds (``Laps``), and phase 7 takes phase 6's
+   symbol-variant streams of the unprimed and worst-case batches (equal to
+   the fused engine's there) rather than coding them again;
 8. the probes (``llcomp_tpu_torch.probes``, the 21 TPU probes of
    ``tools/``): each driven through ``probes.run_probe`` at the TPU probes'
    shape (128 lanes, a 15,872-row model plane), the stepped ones also at
@@ -198,12 +203,13 @@ Phases (each prints one line; any failure exits non-zero without the final
    must launch every kernel its tool covers (``SYNC_ROWS`` for racecheck
    and synccheck); one line a tool; the phase fails past
    ``PHASE11_LIMIT_S`` seconds;
-12. (run after phase 8, before 11) every codec configuration of
+12. (run after phase 8, before 13 and 11) every codec configuration of
    ``CFG_CASES`` (REV2, the small model, e_lim 3 / r_lim 5 / sign_ctx 6, 4
    substates, 16 substates, revision 3): kernels 1 and 2 built for each
-   cfg's ``config.defines`` (one nvcc each, in parallel; seconds and
-   registers printed), each build held exactly against its plain versions
-   on ``CFG_BATCHES`` of phase 3 (``codec_case``: hash repeats, dead
+   cfg's ``config.defines``, with kernels 3 and 5 for phase 13 (one nvcc
+   each, all in parallel in phase 2; seconds and registers printed), each
+   build of kernels 1 and 2 held exactly against its plain versions on
+   ``CFG_BATCHES`` of phase 3 (``codec_case``: hash repeats, dead
    tails, flipped and cut streams, a stream past the cap, garbage past the
    lengths; primed and seeded too at 8 substates); under each cfg the bench
    batch (1,024 lanes of 8x512x3) through ``encode_lanes`` and
@@ -212,17 +218,32 @@ Phases (each prints one line; any failure exits non-zero without the final
    with the cfg build's launches counted from 0 around it and a photo512
    compress/decompress (slices 'auto'), and both kernels timed alone at
    that shape; the phase fails past ``PHASE12_LIMIT_S`` seconds; the
-   sanitizer child's "cfgs" part runs each build on phase 3's RGB batch.
+   sanitizer child's "cfgs" part runs each build of kernels 1, 2, 3 and 5
+   on phase 3's RGB batch;
+13. (run right after phase 12) the sort engine under every cfg of
+   ``CFG_CASES``: each cfg build of kernels 3 and 5 held exactly against
+   its plain version on ``CFG_BATCHES`` (``cfg_sort_case``: the engine's
+   inputs, hash repeats, a dead tail; primed and seeded too at 8
+   substates; kernel 5 unprimed), the sort engine's streams there equal
+   to kernel 1's in both variants; under each cfg the bench batch through
+   ``encode_lanes(engine="sort")`` in the symbol and the decision
+   variant, the first 4 lanes' streams equal to ``CFG_GOLDEN_SHA``, the
+   batch equal to phase 12's fused streams and decoded exactly by kernel
+   2, each build's launches counted from 0 around the two encodes, and at
+   that shape each cfg build of kernels 3 and 5 held exactly against its
+   plain version on the card (on the engine's own inputs) and timed alone
+   with its bound; the phase fails past ``PHASE13_LIMIT_S`` (180) seconds.
 
-Phases 5-8 and 12 compute each kernel's bound (``bound``): the least time the
-card could take for the bytes and integer operations of its work on this
-run's inputs; a one-shot probe's row also carries that bound raised to the
+Phases 5-8, 12 and 13 compute each kernel's bound (``bound``): the least
+time the card could take for the bytes and integer operations of its work
+on this run's inputs; a one-shot probe's row also carries that bound raised to the
 launch floor (``launch_bound_ms``, ``launch_bound_by`` "launch" where the
 floor wins).  The last two lines are the per-kernel JSON record (each
 row with its sanitizer coverage from phase 11: compute-sanitizer's
 state, and each child that covered it with its launches and errors there)
-and ``{"ok": true, "device": {...}}``; each cfg build of kernels 1 and 2
-has a row of its own there ("encode_fused [small model]" ...).  Test images
+and ``{"ok": true, "device": {...}}``; each cfg build of kernels 1, 2, 3
+and 5 has a row of its own there ("encode_fused [small model]",
+"walk_symbols [substates 16]" ...).  Test images
 use integer arithmetic only (a counter-based hash, no libm, no NumPy random
 streams; the overflow inputs excepted), and their own sha256 is pinned so a
 generator drift is told apart from a codec fault.
@@ -639,9 +660,17 @@ def make_image(h: int, w: int, c: int = 3, seed: int = 0) -> np.ndarray:
     return np.clip(img, 0, 255).astype(np.uint8)
 
 
+@functools.lru_cache(maxsize=None)
+def _bench_images(first_seed: int) -> tuple:
+    return tuple(make_image(BENCH_SIZE, BENCH_SIZE, 3, first_seed + i)
+                 for i in range(BENCH_IMAGES))
+
+
 def bench_images(first_seed: int) -> list[np.ndarray]:
-    return [make_image(BENCH_SIZE, BENCH_SIZE, 3, first_seed + i)
-            for i in range(BENCH_IMAGES)]
+    """The bench batch's 16 images from ``first_seed``, made once a seed
+    in a process (phases 5-7, 10, 12 and 13 take the same batches; the
+    arrays are shared, and no caller writes to them)."""
+    return list(_bench_images(first_seed))
 
 
 def bench_lanes(imgs) -> np.ndarray:
@@ -1042,12 +1071,12 @@ def _valid(q, shifts) -> int:
     return sum(int(((q >> (s + 9)) & 1).sum()) for s in shifts)
 
 
-def _stage_run(torch, run, lanes_t, init, keep: bool = False):
+def _stage_run(torch, run, lanes_t, init, keep: bool = False, cfg=None):
     """One encode of device lanes [S, H, W, C] u8 through a sort-engine
     chain ``run`` (``encode._encode_sort`` or ``encode._encode_decision``)
-    in one chunk, with a CUDA event after each stage: (ms per stage, the
-    stages' outputs by stage name if ``keep``, (bytes [S, width] u8,
-    lens [S]))."""
+    in one chunk under ``cfg`` (None: REV2), with a CUDA event after each
+    stage: (ms per stage, the stages' outputs by stage name if ``keep``,
+    (bytes [S, width] u8, lens [S]))."""
     from llcomp_tpu_torch.core.config import REV2
 
     marks, made = [], {}
@@ -1061,7 +1090,7 @@ def _stage_run(torch, run, lanes_t, init, keep: bool = False):
 
     start = torch.cuda.Event(enable_timing=True)
     start.record()
-    res = run(lanes_t, REV2, init, stage_done)
+    res = run(lanes_t, REV2 if cfg is None else cfg, init, stage_done)
     torch.cuda.synchronize()
     ms, prev = {}, start
     for stage, ev in marks:
@@ -1086,9 +1115,12 @@ def _kernel_err(kernel, plain, *args) -> int:
 
 def _sort_kernels_vs_plain(torch, made, init, host: bool = False) -> dict:
     """Kernels 3 and 4, as the engine ran them (``_stage_run(keep=True)``),
-    against their plain versions on the same inputs (on CPU copies of them
-    if ``host``): max_abs_err of the walk's records and of the coder's kp
-    and fin, and the plain versions' milliseconds."""
+    against their plain versions on the same inputs: kernel 4's on CPU
+    copies of them (a loop of small ops a record, each a launch on the
+    card), kernel 3's too if ``host`` (its ops span every chunk of every
+    lane, which the card runs faster at full size): max_abs_err of the
+    walk's records and of the coder's kp and fin, and the plain versions'
+    milliseconds."""
     from llcomp_tpu_torch.kernels import encode_kernels as ek
 
     K, _ = made["precompute and counts"]
@@ -1096,9 +1128,9 @@ def _sort_kernels_vs_plain(torch, made, init, host: bool = False) -> dict:
     lo, hi = made["walk"]
     qlo, qhi = made["compact sort"]
     kp, fin = made["coder"]
+    qlo, qhi, kp, fin = _on_host((qlo, qhi, kp, fin))
     if host:
-        xs, lo, hi, qlo, qhi, kp, fin = _on_host((xs, lo, hi, qlo, qhi, kp,
-                                                   fin))
+        xs, lo, hi = _on_host((xs, lo, hi))
     walk_ms, (lo_p, hi_p) = _time_plain(
         torch, lambda: ek.walk_symbols_plain(xs, K, init))
     coder_ms, (kp_p, fin_p) = _time_plain(
@@ -2376,10 +2408,11 @@ def _idle(name: str, wall: float, busy: float | None) -> str:
         if busy is not None else "device time not measured")
 
 
+@functools.lru_cache(maxsize=None)
 def _worst_lanes(shape) -> np.ndarray:
     """The most decisions a rev-2 symbol can hold: every channel 0 or 255 at
     random gives residuals up to +-510, 19 decisions, and streams near the
-    byte bound."""
+    byte bound.  Made once a shape in a process (phases 6 and 7)."""
     n = int(np.prod(shape))
     return ((_hash64(31, n) >> np.uint64(7)) % np.uint64(2)
             * np.uint64(255)).astype(np.uint8).reshape(shape)
@@ -2409,6 +2442,23 @@ def time_copies(torch, name: str, variants: dict, shipped_ms: float, run,
     return out
 
 
+class Laps:
+    """A phase's steps' seconds: ``lap(name)`` closes step ``name``, which
+    began at the last lap (or at the start)."""
+
+    def __init__(self):
+        self.t, self.steps = time.perf_counter(), {}
+
+    def __call__(self, name: str) -> None:
+        now = time.perf_counter()
+        self.steps[name] = self.steps.get(name, 0.0) + now - self.t
+        self.t = now
+
+    def line(self) -> str:
+        return (", ".join(f"{k} {v:.1f}" for k, v in self.steps.items())
+                + f"; total {sum(self.steps.values()):.1f}")
+
+
 def _copies_line(copies: dict) -> str:
     """``time_copies``'s result as 'tag ms, ms (walk); ...'."""
     return "; ".join(f"{tag} " + ", ".join(f"{t:.3f}" for t in ts)
@@ -2421,13 +2471,16 @@ def phase_sort(torch, log, card: str, variants: dict) -> dict:
     equality with the fused engine (also on a worst-case batch), launches,
     memory against the lane budget, timings, and kernels 3 and 4 against
     their plain versions on the inputs the engine gave them; kernel 3
-    beside its copies ``variants`` ({VARIANTS key: library})."""
+    beside its copies ``variants`` ({VARIANTS key: library}).  Each step's
+    seconds are printed; the unprimed and the worst-case batches' streams
+    are returned for phase 7."""
     from llcomp_tpu_torch import decode, encode, seed
     from llcomp_tpu_torch.kernels import build
     from llcomp_tpu_torch.kernels import decode_kernel as dk
     from llcomp_tpu_torch.kernels import encode_fused as ef
     from llcomp_tpu_torch.kernels import encode_kernels as ek
 
+    lap = Laps()
     dev = torch.device("cuda")
     imgs = bench_images(100)
     lanes = bench_lanes(imgs)
@@ -2469,16 +2522,19 @@ def phase_sort(torch, log, card: str, variants: dict) -> dict:
     log(f"phase 6 sort engine: {S} lanes x {H * W * C} symbols, golden ok, "
         f"exact through kernel 2; first run encode {t1 - t0:.3f} s, decode "
         f"{t2 - t1:.3f} s; launches on this path {counts}")
-    check(encode.encode_lanes(lanes, device=dev, engine="sort")
-          == encode.encode_lanes(lanes, device=dev),
+    lap("seeded main path")
+    unprimed = encode.encode_lanes(lanes, device=dev, engine="sort")
+    check(unprimed == encode.encode_lanes(lanes, device=dev),
           "unprimed batch: sort engine != fused engine")
     log("phase 6 unprimed batch: sort engine bytes == fused engine bytes")
+    lap("unprimed batch")
 
     worst = _worst_lanes(lanes.shape)      # 19 decisions a symbol: K 20
     got, peak_w = peak_per_lane(
         lambda: encode.encode_lanes(worst, device=dev, engine="sort"))
     check(got == encode.encode_lanes(worst, device=dev),
           "worst-case batch: sort engine != fused engine")
+    worst_streams = got
     check(max(peak, peak_w) <= budget, f"sort engine peak {max(peak, peak_w)}"
           f" B a lane, above encode.lane_bytes {budget} B")
     log(f"phase 6 worst-case batch (channels 0/255 at random): sort engine "
@@ -2486,6 +2542,7 @@ def phase_sort(torch, log, card: str, variants: dict) -> dict:
         f"memory a lane in the encode: bench batch {peak / 1e6:.3f} MB, "
         f"worst case {peak_w / 1e6:.3f} MB, budget {budget / 1e6:.3f} MB "
         f"(encode.lane_bytes)")
+    lap("worst-case batch")
 
     times = {"sort": [], "fused": []}
     for rep in range(3):
@@ -2505,6 +2562,7 @@ def phase_sort(torch, log, card: str, variants: dict) -> dict:
         f"seeded batches, same batches, on {card}: sort {med['sort']:.4f} s "
         f"= {mp / med['sort']:.2f} MP/s, fused {med['fused']:.4f} s = "
         f"{mp / med['fused']:.2f} MP/s")
+    lap("end to end, fresh batches")
 
     prof, tops = [], {}
     for eng in ("sort", "fused", "sort", "fused"):
@@ -2517,6 +2575,7 @@ def phase_sort(torch, log, card: str, variants: dict) -> dict:
     log("phase 6 sort engine, ten largest device ops by device time "
         "(torch.profiler key_averages, second profiled encode): "
         + tops["sort"])
+    lap("torch.profiler")
 
     lanes_t = torch.from_numpy(lanes).to(dev)
     splits = [_stage_run(torch, encode._encode_sort, lanes_t, tab)[0]
@@ -2526,6 +2585,7 @@ def phase_sort(torch, log, card: str, variants: dict) -> dict:
         "lanes in, bytes on device out, median of 3 after a warm-up: "
         + ", ".join(f"{n} {ms:.2f} ms" for n, ms in split.items())
         + f"; sum {sum(split.values()):.2f} ms")
+    lap("stage split")
 
     # the engine's own kernel inputs and outputs at the main path's shape
     _, made, (out_b, lens) = _stage_run(torch, encode._encode_sort, lanes_t,
@@ -2548,6 +2608,7 @@ def phase_sort(torch, log, card: str, variants: dict) -> dict:
         f"{Tq} quads): walk_symbols {walk_ms:.3f} ms (longest piece "
         f"{piece} symbols, longest thread walk {walk}), coder_scan_off_q "
         f"{coder_ms:.3f} ms")
+    lap("kernels alone, kernel 4's copies")
     copies = time_copies(torch, "walk_symbols", variants, walk_ms,
                          lambda: ek.walk_symbols(xs, K, tab), made["walk"],
                          ((xs >> 12) & 1).bool())
@@ -2559,13 +2620,16 @@ def phase_sort(torch, log, card: str, variants: dict) -> dict:
         f"quads, same output (shipped {SPLIT_SHIPPED}, timed between the "
         f"copies): "
         + _copies_line(copies4))
+    lap("kernel 3's copies")
     e = _sort_kernels_vs_plain(torch, made, tab)
     check(e["walk"] == 0 and e["coder"] == 0, f"main path: sort kernels != "
           f"plain (walk {e['walk']}, coder {e['coder']})")
     log(f"phase 6 kernels vs plain on the engine's inputs, same shape: walk "
-        f"kernel {walk_ms:.3f} ms vs plain {e['walk_plain_ms']:.1f} ms, "
-        f"coder kernel {coder_ms:.3f} ms vs plain {e['coder_plain_ms']:.1f} "
-        f"ms; lo/hi, kp and fin exact")
+        f"kernel {walk_ms:.3f} ms vs plain {e['walk_plain_ms']:.1f} ms (on "
+        f"the card), coder kernel {coder_ms:.3f} ms vs plain "
+        f"{e['coder_plain_ms']:.1f} ms (on the host, CPU copies); lo/hi, kp "
+        f"and fin exact")
+    lap("kernels 3 and 4 vs plain")
 
     # bounds on the engine's own inputs: the decisions are its valid records
     lo, hi = made["walk"]
@@ -2583,26 +2647,34 @@ def phase_sort(torch, log, card: str, variants: dict) -> dict:
         + ", ".join(f"{k} {b['bound_ms']:.4f} ms by {b['bound_by']} "
                     f"({b['bytes']} B, {b['ops']} ops)"
                     for k, b in bounds.items()))
+    lap("bounds")
+    log("phase 6 step seconds: " + lap.line())
     return {"counts": counts, "walk_ms": walk_ms, "coder_ms": coder_ms,
+            "unprimed": unprimed, "worst": worst_streams, "steps": lap.steps,
             "bounds": bounds, "piece": piece, "thread_walk": walk,
             "walk_copies": {k: min(ts) for k, (ts, _) in copies.items()},
             "coder_copies": {k: min(ts) for k, (ts, _) in copies4.items()},
             **e}
 
 
-def phase_decision(torch, log, card: str, variants: dict) -> dict:
+def phase_decision(torch, log, card: str, variants: dict, sort: dict
+                   ) -> dict:
     """Phase 7: the decision variant on the unprimed bench batch: bytes
-    against both other encodes (also on a worst-case batch), round trip,
-    launches, memory against the lane budget, timings; on one chunk of all
-    lanes, kernels 5-8 against their plain versions on the inputs the engine
-    gave them, kernel 7 beside its copies ``variants`` ({VARIANTS key:
-    library}), and kernel 8's own path to the variant's streams."""
+    against both other encodes (also on a worst-case batch; ``sort``,
+    phase 6's result, holds the unprimed and worst-case batches' streams
+    from the symbol variant, which phase 6 found equal to the fused
+    engine's), round trip, launches, memory against the lane budget,
+    timings; on one chunk of all lanes, kernels 5-8 against their plain
+    versions on the inputs the engine gave them, kernel 7 beside its copies
+    ``variants`` ({VARIANTS key: library}), and kernel 8's own path to the
+    variant's streams.  Each step's seconds are printed."""
     from llcomp_tpu_torch import coder, decode, encode
     from llcomp_tpu_torch.kernels import build
     from llcomp_tpu_torch.kernels import decode_kernel as dk
     from llcomp_tpu_torch.kernels import encode_fused as ef
     from llcomp_tpu_torch.kernels import encode_kernels as ek
 
+    lap = Laps()
     dev = torch.device("cuda")
     lanes = bench_lanes(bench_images(100))
     check(sha(lanes) == IMAGE_SHA["batch"], "bench images drifted")
@@ -2640,22 +2712,19 @@ def phase_decision(torch, log, card: str, variants: dict) -> dict:
           and not any(counts[k] for k in counts if k not in on),
           f"decision path launches wrong: {counts}")
     check(np.array_equal(out, lanes), "decision variant: round trip not exact")
-    check(streams == encode.encode_lanes(lanes, device=dev),
-          "unprimed batch: decision variant != fused engine")
-    check(streams == encode.encode_lanes(lanes, device=dev, engine="sort"),
-          "unprimed batch: decision variant != symbol variant")
+    check(streams == sort["unprimed"], "unprimed batch: decision variant != "
+          "symbol variant (== fused engine, phase 6)")
     log(f"phase 7 decision variant: {S} lanes x {n} symbols unprimed, "
         f"{-(-S // chunk)} chunk(s) of {chunk} lanes, bytes == fused engine "
         f"== symbol variant, exact through kernel 2; first run encode "
         f"{t1 - t0:.3f} s, decode {t2 - t1:.3f} s; launches on this path "
         f"{counts}")
+    lap("main path")
 
     worst = _worst_lanes(lanes.shape)
     got, peak_w = peak_per_lane(lambda: encode.encode_lanes(worst, **kw))
-    check(got == encode.encode_lanes(worst, device=dev),
-          "worst-case batch: decision variant != fused engine")
-    check(got == encode.encode_lanes(worst, device=dev, engine="sort"),
-          "worst-case batch: decision variant != symbol variant")
+    check(got == sort["worst"], "worst-case batch: decision variant != "
+          "symbol variant (== fused engine, phase 6)")
     check(max(peak, peak_w) <= budget, f"decision variant peak "
           f"{max(peak, peak_w)} B a lane, above encode.lane_bytes {budget} B")
     log(f"phase 7 worst-case batch (channels 0/255 at random): decision "
@@ -2663,6 +2732,7 @@ def phase_decision(torch, log, card: str, variants: dict) -> dict:
         f"{sum(map(len, got))} B; peak device memory a lane of a chunk: "
         f"bench batch {peak / 1e6:.3f} MB, worst case {peak_w / 1e6:.3f} MB, "
         f"budget {budget / 1e6:.3f} MB (encode.lane_bytes)")
+    lap("worst-case batch")
 
     runs = {"decision": kw, "symbol": {"device": dev, "engine": "sort"},
             "fused": {"device": dev}}
@@ -2684,12 +2754,14 @@ def phase_decision(torch, log, card: str, variants: dict) -> dict:
         f"unprimed batches, same batches, on {card}: " + ", ".join(
             f"{name} {med[name]:.4f} s = {mp / med[name]:.2f} MP/s"
             for name in runs))
+    lap("end to end, fresh batches")
 
     wall, busy, top = _device_busy(
         torch, lambda: encode.encode_lanes(lanes, **kw))
     log("phase 7 decision variant under torch.profiler (one unprimed batch "
         "encode, host numpy in, bytes out): " + _idle("decision", wall, busy)
         + "; ten largest device ops: " + top)
+    lap("torch.profiler")
 
     lanes_t = torch.from_numpy(lanes).to(dev)
     splits = [_stage_run(torch, encode._encode_decision, lanes_t, None)[0]
@@ -2701,6 +2773,7 @@ def phase_decision(torch, log, card: str, variants: dict) -> dict:
         f"median of 3 after a warm-up: "
         + ", ".join(f"{name} {ms:.2f} ms" for name, ms in split.items())
         + f"; sum {sum(split.values()):.2f} ms")
+    lap("stage split")
 
     # the engine's own kernel inputs and outputs at the full shape
     _, made, (out_b, lens) = _stage_run(torch, encode._encode_decision,
@@ -2712,6 +2785,15 @@ def phase_decision(torch, log, card: str, variants: dict) -> dict:
     K, Tc, h, diff = made["precompute and counts"]
     (stream,), (xs,), (probs,) = made["build"], made["walk xs"], made["walk"]
     (cx,), (kp, fin) = made["back sort"], made["coder"]
+    lap("the engine's kernel inputs")
+    # kernel 8's own path: the slot-record coder on the variant's records;
+    # its outputs are also what its plain version is held against below
+    ek.coder_scan.launches = 0
+    own8 = ek.coder_scan(cx)
+    launches8 = ek.coder_scan.launches
+    # the coders' plain versions run on CPU copies of the records (a loop
+    # of small ops a record, each a launch on the card), the others on it
+    cxh = cx.cpu()
     res, outs = {}, {}
     cases = {
         "build_stream": (lambda: ek.build_stream(h, diff, n, K),
@@ -2720,25 +2802,25 @@ def phase_decision(torch, log, card: str, variants: dict) -> dict:
         "walk_probs": (lambda: ek.walk_probs(xs),
                        lambda: ek.walk_probs_plain(xs), (probs,)),
         "coder_scan_off": (lambda: ek.coder_scan_off(cx),
-                           lambda: ek.coder_scan_off_plain(cx), (kp, fin)),
+                           lambda: ek.coder_scan_off_plain(cxh), (kp, fin)),
         "coder_scan": (lambda: ek.coder_scan(cx),
-                       lambda: ek.coder_scan_plain(cx), None),
+                       lambda: ek.coder_scan_plain(cxh), own8),
     }
     for name, (kernel, plain, want) in cases.items():
         ms = _time_cuda(torch, kernel)
-        if want is None:          # kernel 8 is off the path: its own output
-            want = kernel()
         plain_ms, got = _time_plain(torch, plain)
         got = got if isinstance(got, tuple) else (got,)
-        err = max(_max_err(a, b) for a, b in zip(want, got))
+        err = max(_max_err(a.cpu(), b.cpu()) for a, b in zip(want, got))
         check(err == 0, f"{name}: kernel != plain on the engine's inputs "
               f"({err})")
         res[name] = {"ms": ms, "plain_ms": plain_ms, "err": err}
         outs[name] = want
+        lap(f"{name} timed and vs plain")
     log(f"phase 7 kernels vs plain on the engine's inputs, {S} lanes x {n} "
-        f"symbols (K {K}, Tc {Tc} decisions), exact: " + ", ".join(
-            f"{name} kernel {r['ms']:.3f} ms vs plain {r['plain_ms']:.1f} ms"
-            for name, r in res.items()))
+        f"symbols (K {K}, Tc {Tc} decisions), exact (plain versions of "
+        f"the coders on the host, CPU copies; the others on the card): "
+        + ", ".join(f"{name} kernel {r['ms']:.3f} ms vs plain "
+                    f"{r['plain_ms']:.1f} ms" for name, r in res.items()))
 
     # kernel 6 beside its copies (other chunk counts and ring depths), with
     # the critical path of its partition
@@ -2757,6 +2839,7 @@ def phase_decision(torch, log, card: str, variants: dict) -> dict:
     res["walk_probs"].update(
         piece=piece, thread_walk=walk,
         copies={k: min(ts) for k, (ts, _) in copies6.items()})
+    lap("kernel 6's copies")
 
     # kernel 5 beside its copies (one thread a slot, other tiles, scalar
     # stores)
@@ -2769,6 +2852,7 @@ def phase_decision(torch, log, card: str, variants: dict) -> dict:
         f"stores; timed between the copies): " + _copies_line(copies5))
     res["build_stream"]["copies"] = {k: min(ts)
                                      for k, (ts, _) in copies5.items()}
+    lap("kernel 5's copies")
 
     # kernel 7 beside its copies (other lanes a block and ring depths),
     # kernel 8 beside its (other hand-over batches and stages)
@@ -2782,14 +2866,14 @@ def phase_decision(torch, log, card: str, variants: dict) -> dict:
             f"records, same output (shipped {what}, timed between the "
             f"copies): " + _copies_line(copies))
         res[name]["copies"] = {k: min(ts) for k, (ts, _) in copies.items()}
+    lap("kernels 7 and 8's copies")
 
-    # kernel 8's own path: the slot-record coder on the variant's records
-    ek.coder_scan.launches = 0
-    meta, runs_, fin4 = ek.coder_scan(cx)
+    # kernel 8's own path, run above: to the variant's streams
+    meta, runs_, fin4 = own8
     meta_f, runs_f = coder.finish_steps(fin4)
     by, ln = coder.expand_slots(torch.cat([meta, meta_f]),
                                 torch.cat([runs_, runs_f]), encode.outcap(n))
-    res["coder_scan"]["launches"] = ek.coder_scan.launches
+    res["coder_scan"]["launches"] = launches8
     ln_h, by_h = ln.cpu().numpy(), by.cpu().numpy()
     check(res["coder_scan"]["launches"] == 1 and np.array_equal(ln_h, lens_h)
           and [by_h[s, : ln_h[s]].tobytes() for s in range(S)] == streams,
@@ -2818,6 +2902,9 @@ def phase_decision(torch, log, card: str, variants: dict) -> dict:
         + ", ".join(f"{k} {b['bound_ms']:.4f} ms by {b['bound_by']} "
                     f"({b['bytes']} B, {b['ops']} ops)"
                     for k, b in ((k, res[k]["bound"]) for k in cases)))
+    lap("kernel 8's path, bounds")
+    log("phase 7 step seconds: " + lap.line())
+    res["steps"] = lap.steps
     return res
 
 
@@ -4118,6 +4205,9 @@ def phase_multi(torch, log, card: str, bench: dict) -> dict:
 # --- phase 12: every codec configuration -----------------------------------
 
 PHASE12_LIMIT_S = 60    # phase 12 fails past this many seconds
+# the sources built once a cfg: kernels 1 and 2 (phase 12), 3 and 5 (phase 13)
+CFG_SOURCES = ("encode_fused", "decode_kernel", "walk_symbols",
+               "build_stream")
 # phase 3's batches that phase 12 runs on each cfg build: C = 3, 1, 4, 2
 # and 5 (every instantiation of kernel 2), hash repeats at short periods,
 # 1 to 130 lanes
@@ -4160,9 +4250,82 @@ def _cfg_start(cfg, batch: str) -> tuple:
     return (("unprimed", None),)
 
 
+def _cut_streams(out, lens) -> list[bytes]:
+    """Rows of a device ``out`` [S, width] u8 cut at ``lens`` [S]."""
+    out, lens = out.cpu().numpy(), lens.cpu().numpy()
+    return [out[s, : lens[s]].tobytes() for s in range(len(lens))]
+
+
+def cfg_sort_case(torch, dev, name: str, lanes, mode: str, init,
+                  cfg) -> dict:
+    """Kernels 3 and 5 built for ``cfg`` on a batch of lanes [S, H, W, C]
+    u8 (``mode`` from ``init``; kernel 5 unprimed only), each against its
+    plain version on CPU copies of its inputs (``_kernel_err``): on the
+    engine's inputs (context hash repeats at the batch's periods) and with
+    a dead tail (every lane's last 3 symbols padding: dead symbols sorted
+    last for kernel 3, -1 slots for kernel 5); then the sort engine's
+    streams on the batch, in each variant it takes, equal to kernel 1's
+    (``encode.fused_tensors``).  Fails on any difference -> {"walk",
+    "build"}: the largest differences."""
+    from llcomp_tpu_torch import encode
+    from llcomp_tpu_torch.kernels import encode_kernels as ek
+
+    lanes_t = torch.from_numpy(lanes).to(dev)
+    h, diff = encode._hash_diff(lanes_t, cfg)
+    n = h.shape[1]
+    _, sym_max, _ = encode.stage_count(diff)
+    K, Kd = encode.slots_per_symbol(sym_max), encode.decision_slots(sym_max)
+    r = {"walk": 0, "build": 0}
+    for live in (n, n - 3):
+        xs, _ = encode.stage_sym_sort(h, diff, live)
+        e = _kernel_err(lambda x: ek.walk_symbols(x, K, init, cfg),
+                        lambda x: ek.walk_symbols_plain(x, K, init, cfg=cfg),
+                        xs)
+        check(e == 0, f"{name} {mode}, {live} of {n} symbols live: "
+              f"walk_symbols != plain ({e})")
+        r["walk"] = max(r["walk"], e)
+        if init is None:
+            e = _kernel_err(
+                lambda a, b: (ek.build_stream(a, b, live, Kd, cfg),),
+                lambda a, b: (ek.build_stream_plain(a, b, live, Kd, cfg),),
+                h, diff)
+            check(e == 0, f"{name}, {live} of {n} symbols live: "
+                  f"build_stream != plain ({e})")
+            r["build"] = max(r["build"], e)
+    want = _cut_streams(*encode.fused_tensors(lanes_t, cfg, init))
+    check(_cut_streams(*encode._encode_sort(lanes_t, cfg, init)) == want,
+          f"{name} {mode}: the sort engine's streams != kernel 1's")
+    if init is None:
+        check(_cut_streams(*encode._encode_decision(lanes_t, cfg, None))
+              == want, f"{name}: the decision variant's streams != kernel "
+              "1's")
+    return r
+
+
+def cfg_build_jobs(pool) -> dict:
+    """Every cfg build, ``CFG_SOURCES`` for the defines of each of
+    ``CFG_CASES`` but REV2's, submitted to ``pool``: {(source, defines):
+    future of ``cfg_build``}."""
+    return {(src, d): pool.submit(cfg_build, src, d)
+            for d in cfg_groups() if d for src in CFG_SOURCES}
+
+
+def cfg_build_line(builds: dict) -> str:
+    """``builds`` ({(source, defines): (seconds, registers)}) as a log
+    line's part: each build's cfg, seconds and registers."""
+    groups = cfg_groups()
+    return "; ".join(
+        f"{groups[d][0]} ({' '.join(d)}) {src} {sec:.1f} s, registers "
+        + ", ".join(f"{k} {v[0]}" + (f" ({v[1]} B spilled)" if v[1] else "")
+                    for k, v in regs.items())
+        for (src, d), (sec, regs) in builds.items())
+
+
 def phase_cfgs(torch, log, card: str) -> dict:
     """Phase 12: every cfg of ``CFG_CASES``.  Kernels 1 and 2 built for
-    each cfg's defines (one nvcc each, in parallel; seconds and registers);
+    each cfg's defines, kernels 3 and 5 beside them for phase 13
+    (``cfg_build_jobs``: one nvcc each, all in parallel; phase 2 built
+    them beside its other builds, so here they return at once);
     each build against its plain versions on ``CFG_BATCHES`` (phase 3's
     ``codec_case``: dead tails, flipped and cut streams, a stream past the
     cap, garbage past the lengths), exact; then under each cfg the bench
@@ -4172,7 +4335,9 @@ def phase_cfgs(torch, log, card: str) -> dict:
     launches counted from 0 around it and a photo512 compress/decompress
     (slices 'auto'); both kernels alone timed at that shape (CUDA events).
     Fails past ``PHASE12_LIMIT_S`` seconds.  -> {"rows": the kernels
-    line's rows of each cfg build, "seconds"}"""
+    line's rows of each cfg build, "per": each cfg's numbers (its bench
+    batch streams' sha256 among them), "builds": every cfg build's
+    registers by (source, defines), "seconds"}"""
     from llcomp_tpu_torch import api, decode, encode
     from llcomp_tpu_torch.core import config
     from llcomp_tpu_torch.core.config import CodecConfig
@@ -4183,18 +4348,11 @@ def phase_cfgs(torch, log, card: str) -> dict:
     dev = torch.device("cuda")
     groups = cfg_groups()
     new = [d for d in groups if d]
-    with ThreadPoolExecutor(2 * len(new)) as pool:
-        futures = {(src, d): pool.submit(cfg_build, src, d) for d in new
-                   for src in ("encode_fused", "decode_kernel")}
-        builds = {key: f.result() for key, f in futures.items()}
+    with ThreadPoolExecutor(len(CFG_SOURCES) * len(new)) as pool:
+        builds = {k: f.result() for k, f in cfg_build_jobs(pool).items()}
     t_build = time.perf_counter() - t0
-    log(f"phase 12 builds: kernels 1 and 2 for {len(new)} cfgs, one nvcc "
-        f"each, {2 * len(new)} in parallel, in {t_build:.1f} s: " + "; ".join(
-            f"{groups[d][0]} ({' '.join(d)}) {src} {sec:.1f} s, registers "
-            + ", ".join(f"{k} {v[0]}" + (f" ({v[1]} B spilled)"
-                                          if v[1] else "")
-                        for k, v in regs.items())
-            for (src, d), (sec, regs) in builds.items()))
+    log(f"phase 12 builds: kernels 1, 2, 3 and 5 for {len(new)} cfgs, "
+        f"{t_build:.1f} s in this phase ({cfg_build_line(builds)})")
 
     batches = codec_batches()
     held: dict = {}
@@ -4263,6 +4421,7 @@ def phase_cfgs(torch, log, card: str) -> dict:
         per_dec = OPS_DECISION + OPS_STATE + OPS_CODER
         per[name] = {
             "defines": d, "launches": launches, "enc_ms": enc_ms,
+            "batch_sha": sha(b"".join(streams)),
             "dec_ms": dec_ms, "enc_s": tm - ts, "dec_s": te - tm,
             "bytes": n_bytes, "model_bytes": ef.model_bytes(cfg),
             "photo_bytes": len(blob),
@@ -4300,7 +4459,7 @@ def phase_cfgs(torch, log, card: str) -> dict:
                 ("decode_kernel", "llcomp_tpu/pallas/decode_kernel.py:444",
                  1, r["dec_ms"], h["dec_plain_s"], h["dec_kernel_s"],
                  h["decode"])):
-            sec, regs = builds[src, d]
+            _, regs = builds[src, d]
             rows.append({
                 "name": f"{src} [{name}]", "route": "cuda",
                 "source": f"llcomp_tpu_torch/csrc/{src}.cu",
@@ -4314,7 +4473,183 @@ def phase_cfgs(torch, log, card: str) -> dict:
                         f"summed over phase 12's {h['cases']} runs of "
                         f"{CFG_BATCHES}",
                 "defines": list(d), "model_bytes": r["model_bytes"],
-                "build_s": sec,
+                "registers": {kn: v[0] for kn, v in regs.items()}})
+    return {"rows": rows, "per": per, "builds": builds, "seconds": total}
+
+
+# --- phase 13: the sort engine under every codec configuration --------------
+
+PHASE13_LIMIT_S = 180   # phase 13 fails past this many seconds
+
+
+def phase_sort_cfgs(torch, log, card: str, cfgs: dict) -> dict:
+    """Phase 13: the sort engine under every cfg of ``CFG_CASES``, on the
+    builds of kernels 3 and 5 that phase 12 made (``cfgs``, its result).
+    Each build against its plain version on ``CFG_BATCHES``
+    (``cfg_sort_case``: the engine's inputs and a dead tail; the RGB batch
+    primed and seeded too at 8 substates), the sort engine's streams there
+    equal to kernel 1's; then under each cfg the bench batch (1,024 lanes
+    of 8x512x3) through ``encode_lanes(engine="sort")`` in both variants:
+    the first 4 lanes' streams equal to ``CFG_GOLDEN_SHA``, the batch's to
+    phase 12's fused streams and the decision variant's to the symbol
+    variant's, decoded exactly by kernel 2, with each build's launches
+    counted from 0 around the two encodes; at that shape each cfg build of
+    kernels 3 and 5 (REV2's is phases 6 and 7's) held exactly against its
+    plain version on the card, on the engine's own inputs, and timed alone
+    (CUDA events) with its bound.  Fails past ``PHASE13_LIMIT_S`` seconds.
+    -> {"rows": the kernels line's rows of each cfg build of kernels 3 and
+    5, "per", "seconds"}"""
+    from llcomp_tpu_torch import decode, encode
+    from llcomp_tpu_torch.core import config
+    from llcomp_tpu_torch.core.config import CodecConfig
+    from llcomp_tpu_torch.kernels import encode_kernels as ek
+
+    t0 = time.perf_counter()
+    dev = torch.device("cuda")
+    groups = cfg_groups()
+    new = [d for d in groups if d]
+    batches = codec_batches()
+    held: dict = {}
+    for d in new:
+        cfg = CodecConfig(**CFG_CASES[groups[d][0]])
+        h = held[d] = {"walk": 0, "build": 0, "cases": 0}
+        for bname in CFG_BATCHES:
+            for mode, init in _cfg_start(cfg, bname):
+                r = cfg_sort_case(torch, dev, bname, batches[bname], mode,
+                                  init, cfg)
+                for k in ("walk", "build"):
+                    h[k] = max(h[k], r[k])
+                h["cases"] += 1
+    t_held = time.perf_counter() - t0
+    log(f"phase 13 kernels 3 and 5 vs plain: each cfg build on phase 3's "
+        f"batches {CFG_BATCHES} and with a dead tail (the RGB one primed and "
+        f"seeded too at 8 substates, kernel 5 unprimed), the sort engine's "
+        f"streams == kernel 1's in both variants: " + "; ".join(
+            f"{groups[d][0]} {h['cases']} runs exact (max_abs_err walk "
+            f"{h['walk']}, build {h['build']})" for d, h in held.items())
+        + f" ({t_held:.1f} s, the REV2 build's in phase 3)")
+
+    imgs = bench_images(100)
+    lanes = bench_lanes(imgs)
+    check(sha(lanes) == IMAGE_SHA["batch"], "bench images drifted")
+    S, H, W, C = lanes.shape
+    n = H * W * C
+    lanes_t = torch.from_numpy(lanes).to(dev)
+    per = {}
+    for name, kw in CFG_CASES.items():
+        cfg = CodecConfig(**kw)
+        d = config.defines(cfg)
+        ek.walk_symbols.by_cfg[d] = ek.build_stream.by_cfg[d] = 0
+        ts = time.perf_counter()
+        sym = encode.encode_lanes(lanes, cfg, device=dev, engine="sort")
+        tm = time.perf_counter()
+        dec = encode.encode_lanes(lanes, cfg, device=dev, engine="sort",
+                                  variant="decision")
+        te = time.perf_counter()
+        launches = (ek.walk_symbols.by_cfg[d], ek.build_stream.by_cfg[d])
+        for variant, streams in (("symbol", sym), ("decision", dec)):
+            check(sha(b"".join(streams[:4])) == CFG_GOLDEN_SHA[name],
+                  f"{name}: the sort engine's {variant} variant: the first "
+                  f"4 lanes' streams != CFG_GOLDEN_SHA")
+        check(dec == sym, f"{name}: decision variant != symbol variant")
+        check(sha(b"".join(sym)) == cfgs["per"][name]["batch_sha"],
+              f"{name}: the sort engine's streams != phase 12's fused ones")
+        back = decode.decode_lanes(sym, (H, W, C), cfg, device=dev)
+        check(np.array_equal(back, lanes), f"{name}: the sort engine's "
+              "streams did not round-trip exactly")
+        check(all(launches), f"{name}: a kernel of its build never launched "
+              f"on the sort engine's path: {launches}")
+        h, diff = encode._hash_diff(lanes_t, cfg)
+        _, sym_max, _ = encode.stage_count(diff)
+        K, Kd = encode.slots_per_symbol(sym_max), encode.decision_slots(
+            sym_max)
+        xs, _ = encode.stage_sym_sort(h, diff, n)
+        full = {}
+        if d:             # REV2's build: phases 6 and 7 at this shape
+            t_full = time.perf_counter()
+            got = ek.build_stream(h, diff, n, Kd, cfg)
+            b_plain_ms, want = _time_plain(
+                torch, lambda: ek.build_stream_plain(h, diff, n, Kd, cfg))
+            b_err = _max_err(got, want)
+            del got, want
+            got = ek.walk_symbols(xs, K, None, cfg)
+            w_plain_ms, want = _time_plain(
+                torch, lambda: ek.walk_symbols_plain(xs, K, None, cfg=cfg))
+            w_err = max(_max_err(a, b) for a, b in zip(got, want))
+            del got, want
+            check(w_err == 0 and b_err == 0, f"{name}: at {S} lanes x {n} "
+                  f"symbols, walk_symbols != plain ({w_err}) or "
+                  f"build_stream != plain ({b_err})")
+            full = {"walk": (w_err, w_plain_ms), "build": (b_err, b_plain_ms),
+                    "s": time.perf_counter() - t_full}
+        walk_ms = _time_cuda(torch, lambda: ek.walk_symbols(xs, K, None,
+                                                            cfg))
+        build_ms = _time_cuda(torch, lambda: ek.build_stream(h, diff, n, Kd,
+                                                             cfg))
+        n_dec = _decisions(torch, diff)
+        per[name] = {
+            "defines": d, "launches": launches, "walk_ms": walk_ms,
+            "build_ms": build_ms, "sym_s": tm - ts, "dec_s": te - tm,
+            "K": K, "Kd": Kd, "full": full,
+            "bounds": {
+                "walk_symbols": bound(
+                    4 * (xs.numel() + 2 * (n * K // 4) * S),
+                    n_dec * (OPS_DECISION + OPS_STATE + OPS_RECORD)
+                    + xs.numel() * OPS_SYMBOL_ENC),
+                "build_stream": bound(4 * (h.numel() + diff.numel()
+                                           + S * n * Kd),
+                                      S * n * Kd * (OPS_DECISION
+                                                    + OPS_RECORD))}}
+        del xs, h, diff
+        b = per[name]["bounds"]
+        held_full = (f"; at this shape exact against the plain versions on "
+                     f"the card (walk_symbols_plain {full['walk'][1]:.1f} "
+                     f"ms, build_stream_plain {full['build'][1]:.1f} ms, "
+                     f"{full['s']:.1f} s)" if full else "")
+        log(f"phase 13 {name} ({' '.join(d) or 'no defines'}): {S} lanes x "
+            f"{n} symbols, both variants golden, == phase 12's fused "
+            f"streams, exact through kernel 2; end to end symbol "
+            f"{tm - ts:.3f} s, decision {te - tm:.3f} s; kernels alone (CUDA "
+            f"events, median of 3) walk_symbols {walk_ms:.3f} ms (K {K}), "
+            f"build_stream {build_ms:.3f} ms (K {Kd}) on {card}; bounds "
+            f"{b['walk_symbols']['bound_ms']:.4f} and "
+            f"{b['build_stream']['bound_ms']:.4f} ms; launches {launches}"
+            + held_full)
+    total = time.perf_counter() - t0
+    t_full = sum(r["full"]["s"] for r in per.values() if r["full"])
+    log(f"phase 13 seconds: kernels vs plain {t_held:.1f}, full width "
+        f"{total - t_held:.1f} (of it the plain versions at that shape "
+        f"{t_full:.1f}); total {total:.1f} of the {PHASE13_LIMIT_S} s limit")
+    check(total < PHASE13_LIMIT_S,
+          f"phase 13 took {total:.1f} s, over its {PHASE13_LIMIT_S} s limit")
+
+    rows = []
+    for d in new:
+        name = groups[d][0]
+        r, h = per[name], held[d]
+        for src, key, line, k, ms in (
+                ("walk_symbols", "walk",
+                 "llcomp_tpu/pallas/encode_kernels.py:175", 0, r["walk_ms"]),
+                ("build_stream", "build",
+                 "llcomp_tpu/pallas/encode_kernels.py:74", 1,
+                 r["build_ms"])):
+            err, plain_ms = r["full"][key]
+            _, regs = cfgs["builds"][src, d]
+            rows.append({
+                "name": f"{src} [{name}]", "route": "cuda",
+                "source": f"llcomp_tpu_torch/csrc/{src}.cu",
+                "replaces": line, "launches": r["launches"][k],
+                "max_abs_err": max(err, h[key]), "ms": ms,
+                "plain_ms": plain_ms,
+                "bound_ms": r["bounds"][src]["bound_ms"],
+                "bound_by": r["bounds"][src]["bound_by"], "library_ms": None,
+                "note": f"ms (CUDA events) and plain_ms (the plain version "
+                        f"on the card, host clock, one call, synced) at {S} "
+                        f"lanes x {n} symbols, K "
+                        f"{r['K'] if k == 0 else r['Kd']}; max_abs_err also "
+                        f"over phase 13's {h['cases']} runs of "
+                        f"{CFG_BATCHES}",
+                "defines": list(d),
                 "registers": {kn: v[0] for kn, v in regs.items()}})
     return {"rows": rows, "per": per, "seconds": total}
 
@@ -4678,17 +5013,20 @@ def _san_probes(torch, dev) -> int:
 
 
 def _san_cfgs(torch, dev) -> int:
-    """Kernels 1 and 2 of each cfg build of phase 12 (``cfg_groups``, built
-    without -lineinfo) on phase 3's RGB batch (``codec_case``)."""
+    """Kernels 1, 2, 3 and 5 of each cfg build of phases 12 and 13
+    (``cfg_groups``, built without -lineinfo) on phase 3's RGB batch
+    (``codec_case``, ``cfg_sort_case``)."""
     from llcomp_tpu_torch.core.config import CodecConfig
 
     batch = codec_batches()["rgb 4x16x3"]
     n = 0
     for d, names in cfg_groups().items():
         if d:
-            codec_case(torch, dev, "rgb 4x16x3", batch, "unprimed", None,
-                       CodecConfig(**CFG_CASES[names[0]]))
-            n += 1
+            cfg = CodecConfig(**CFG_CASES[names[0]])
+            codec_case(torch, dev, "rgb 4x16x3", batch, "unprimed", None, cfg)
+            cfg_sort_case(torch, dev, "rgb 4x16x3", batch, "unprimed", None,
+                          cfg)
+            n += 2
     return n
 
 
@@ -5072,22 +5410,27 @@ def main() -> int:
         from llcomp_tpu_torch.kernels import build
 
         t0 = time.perf_counter()
+        n_cfg = len(CFG_SOURCES) * sum(1 for d in cfg_groups() if d)
         with ThreadPoolExecutor(len(KERNEL_SOURCES) + len(VARIANTS)
-                                + len(LINEINFO) + 1) as pool:
+                                + len(LINEINFO) + 1 + n_cfg) as pool:
             lineinfo = [pool.submit(build_copy, *lineinfo_copy(name),
                                     flags=("-lineinfo",))
                         for name in LINEINFO]
             guard = pool.submit(guard_library)
+            cfg_jobs = cfg_build_jobs(pool)
             variants = dict(zip(VARIANTS, pool.map(build_variant, VARIANTS)))
             list(pool.map(build.build, KERNEL_SOURCES))
             for f in (*lineinfo, guard):
                 f.result()
+            cfg_builds = {k: f.result() for k, f in cfg_jobs.items()}
         log(f"phase 2 build: {len(KERNEL_SOURCES)} kernel sources from "
             f"llcomp_tpu_torch/csrc and {len(VARIANTS)} copies of kernels "
-            f"1-8 and probes p7-p11, pF, pG, pH and reduce, and phase 11's "
+            f"1-8 and probes p7-p11, pF, pG, pH and reduce, phase 11's "
             f"{len(LINEINFO)} builds with -lineinfo and guard allocator, "
-            f"one nvcc each in parallel, in "
-            f"{time.perf_counter() - t0:.2f} s")
+            f"and the {n_cfg} cfg builds of kernels 1, 2, 3 and 5 (phases "
+            f"12, 13), one nvcc each in parallel, in "
+            f"{time.perf_counter() - t0:.2f} s; the cfg builds: "
+            + cfg_build_line(cfg_builds))
         regs = {name: registers(build.compiler_log(name))
                 for name in PTXAS_SOURCES}
         copied = {f"{name} {tag} {k}": v
@@ -5125,9 +5468,11 @@ def main() -> int:
         bench = timed(5, phase_bench, torch, log, card, variants)
         multi = timed(10, phase_multi, torch, log, card, bench)
         sort = timed(6, phase_sort, torch, log, card, variants)
-        decision = timed(7, phase_decision, torch, log, card, variants)
+        decision = timed(7, phase_decision, torch, log, card, variants,
+                         sort)
         probe = timed(8, phase_probes, torch, log, card, turns, variants)
         cfgs = timed(12, phase_cfgs, torch, log, card)
+        sort_cfgs = timed(13, phase_sort_cfgs, torch, log, card, cfgs)
         conf = timed(11, phase_conformance, torch, log)
         log("phase seconds: " + ", ".join(f"{k} {v}" for k, v in
                                            took.items()))
@@ -5136,7 +5481,7 @@ def main() -> int:
     except Failed as e:
         print(f"chip_smoke FAILED: {e}", file=sys.stderr)
         return 1
-    log(f"chip_smoke: phases 1-12 passed in "
+    log(f"chip_smoke: phases 1-13 passed in "
         f"{time.perf_counter() - t_start:.1f} s")
 
     def bound_of(b: dict) -> dict:
@@ -5206,7 +5551,7 @@ def main() -> int:
             **({"copies_ms": r["copies"]} if "copies" in r else {}),
             **({k: r[k] for k in ("piece", "thread_walk")}
                if name == "walk_probs" else {})})
-    kernels += probe["rows"] + cfgs["rows"]
+    kernels += probe["rows"] + cfgs["rows"] + sort_cfgs["rows"]
     coverage = sanitizer_coverage(conf)
     for row in kernels:     # a cfg build's row: its source's entry point's
         row["sanitizer"] = coverage[row["name"].split(" [")[0]]

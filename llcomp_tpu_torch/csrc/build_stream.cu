@@ -34,8 +34,15 @@
 // (chip_smoke.py phase 7, tools/torch_stream_copies.py); what holds it now
 // is instructions, 51.75 SASS instructions a slot in the store loop
 // (slot()'s branches) against the one-thread design's 136 and two calls.
+//
+// Other codec configurations (codec_cfg.cuh, built once a cfg): slot k
+// holds (hash*kSub + ctx)*2 + bit, with contexts exp_ctx(k) (the stop
+// too), mant_ctx(j) and kSignCtx; at rev 2's constants these fold to rev
+// 2's contexts, and the REV2 build is the rev-2 kernel.
 #include <cstdint>
 #include <cuda_runtime.h>
+
+#include "codec_cfg.cuh"
 
 namespace {
 
@@ -45,7 +52,7 @@ constexpr bool kVector = true;  // 16-byte stores where K % 4 == 0
 
 // slot()'s per-symbol part: the decision terms of residual d.
 struct Terms {
-  int32_t h16;   // hash * 16
+  int32_t h16;   // hash * 2 * kSub: hash * 16 at rev 2's 8 substates
   int32_t ad;    // |d|
   int e;         // exponent, 0..11
   bool nz;       // d != 0
@@ -56,11 +63,12 @@ struct Terms {
 __device__ __forceinline__ Terms terms(int32_t h, int32_t d, bool live) {
   const int32_t ad = d < 0 ? -d : d;
   const int e = ad > 1 ? min(31 - __clz(ad), 11) : 0;
-  return {static_cast<int32_t>(static_cast<uint32_t>(h) * 16u), ad, e,
-          ad != 0, d < 0, live};
+  return {static_cast<int32_t>(static_cast<uint32_t>(h) * (2u * kSub)), ad,
+          e, ad != 0, d < 0, live};
 }
 
-// slot()'s per-k part: slot k of a symbol with terms t.
+// slot()'s per-k part: slot k of a symbol with terms t.  Rev 2's
+// contexts are min(k, 4) (the stop too), min(k - e + 3, 6) and 7.
 __device__ __forceinline__ int32_t slot(const Terms& t, int k) {
   const int e = t.e;
   const int32_t ad = t.ad;
@@ -76,16 +84,16 @@ __device__ __forceinline__ int32_t slot(const Terms& t, int k) {
   if (k == 0) {
     bit = !nz;
   } else if (in_exp) {
-    ctx = min(k, 4);
+    ctx = exp_ctx(k);
     bit = 1;
   } else if (is_stop) {
-    ctx = min(e + 1, 4);
+    ctx = exp_ctx(e + 1);
     bit = 0;
   } else if (in_mant) {
-    ctx = min(k - e + 3, 6);
+    ctx = mant_ctx(k - e - 2);
     bit = (ad >> min(max(2 * e + 1 - k, 0), 30)) & 1;
   } else {
-    ctx = 7;
+    ctx = kSignCtx;
     bit = t.neg;
   }
   return t.h16 + ctx * 2 + bit;

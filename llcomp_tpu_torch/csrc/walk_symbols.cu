@@ -71,8 +71,21 @@
 // row update as shifts, masks and selects ran no faster than the byte
 // permutes, and a state table copied a lane (no bank conflicts) no faster
 // than one table.
+//
+// Other codec configurations (codec_cfg.cuh, built once a cfg): the above
+// is rev 2's row and contexts, kept for every cfg with rev 2's contexts
+// (kRev2Layout).  Any other holds the row as a Row of kWords 64-bit words
+// (substate c in byte c % 8 of word c / 8) and reads each decision's state
+// afresh from it, with contexts exp_ctx(k), mant_ctx(j) and kSignCtx: a
+// symbol's decisions run in order, so one that shares its context with
+// the decision before it (at 4 substates the mantissa and the sign share
+// context 3) reads the state that decision wrote.  A run resets to its
+// bucket's row only at 8 substates (kTableStart; the reset rows hold 8),
+// else to zeros.
 #include <cstdint>
 #include <cuda_runtime.h>
+
+#include "codec_cfg.cuh"
 
 namespace {
 
@@ -103,6 +116,18 @@ __device__ __forceinline__ uint32_t decide(uint32_t& rlo, uint32_t& rhi,
   return valid ? 0x200u | (bit << 8) | (f & 0xFF) : 0u;
 }
 
+// One decision of any cfg on a Row in registers (row_state picks the word
+// by selects), moved only where `valid`: its record, 0 where not valid.  A
+// context past kSub (an invalid decision's) reads a state and writes none.
+__device__ __forceinline__ uint32_t decide_row(Row& row, int ctx,
+                                               uint32_t bit, bool valid,
+                                               const int32_t* fused) {
+  const uint32_t st = row_state(row, ctx);
+  const uint32_t f = static_cast<uint32_t>(fused[st]);
+  set_row_state(row, ctx, valid ? (f >> (bit ? 16 : 8)) & 0xFF : st);
+  return valid ? 0x200u | (bit << 8) | (f & 0xFF) : 0u;
+}
+
 // A live symbol's residual d, |d| and e = floor(log2 |d|) (0 for d = 0),
 // and its decision count (0 for a dead symbol).
 struct Symbol {
@@ -127,6 +152,21 @@ struct Symbol {
     bit = k == 2 * e + 2 ? d < 0 : bit;
     bit = k == 0 ? ad == 0 : bit;
     return decide(rlo, rhi, ctx, bit, k < nb, fused);
+  }
+
+  // The same decision under any cfg, on a Row: contexts exp_ctx(k) (the
+  // stop too), mant_ctx(k - e - 2), kSignCtx, 0 for the zero flag.
+  __device__ __forceinline__ uint32_t code(Row& row, int k,
+                                           const int32_t* fused) const {
+    const bool mant = k > e + 1;
+    int ctx = mant ? mant_ctx(k - e - 2) : exp_ctx(k);
+    ctx = k == 2 * e + 2 ? kSignCtx : ctx;
+    ctx = k == 0 ? 0 : ctx;
+    uint32_t bit = k <= e;
+    bit = mant ? (ad >> max(2 * e + 1 - k, 0)) & 1 : bit;
+    bit = k == 2 * e + 2 ? d < 0 : bit;
+    bit = k == 0 ? ad == 0 : bit;
+    return decide_row(row, ctx, bit, k < nb, fused);
   }
 };
 
@@ -161,7 +201,8 @@ walk_symbols_kernel(const int32_t* __restrict__ xs,      // [n, S]
 #pragma unroll
   for (int k = 0; k < kDepth; ++k) xv[k] = load_x(first + k);
   bool on = c == 0;                                  // walking, not skipping
-  uint32_t rlo = 0, rhi = 0;
+  uint32_t rlo = 0, rhi = 0;                         // rev 2's row
+  Row row = zero_row();                              // any other cfg's
   for (int j0 = first; __any_sync(kFull, !done); j0 += kDepth) {
 #pragma unroll
     for (int k = 0; k < kDepth; ++k) {
@@ -173,18 +214,31 @@ walk_symbols_kernel(const int32_t* __restrict__ xs,      // [n, S]
       xv[k] = load_x(j + kDepth);                    // walked kDepth on
       const bool walk = on && !done;
       const uint64_t r = s_rows[(x >> 14) & 0x7F];
-      rlo = seg ? static_cast<uint32_t>(r) : rlo;
-      rhi = seg ? static_cast<uint32_t>(r >> 32) : rhi;
+      if constexpr (kRev2Layout) {
+        rlo = seg ? static_cast<uint32_t>(r) : rlo;
+        rhi = seg ? static_cast<uint32_t>(r >> 32) : rhi;
+      } else {
+#pragma unroll
+        for (int i = 0; i < kWords; ++i)
+          row.w[i] = seg ? (i == 0 && kTableStart ? r : 0ull) : row.w[i];
+      }
       const Symbol sym(x);
       const int nb = walk ? sym.nb : 0;
       const size_t q0 = static_cast<size_t>(j) * nq;
       for (int q = 0; q < nq; ++q) {
         uint32_t qlo = 0, qhi = 0;
         if (__any_sync(kFull, 4 * q < nb)) {         // the same in a warp
-          qlo = sym.code(rlo, rhi, 4 * q, s_fused);
-          qlo |= sym.code(rlo, rhi, 4 * q + 1, s_fused) << 10;
-          qhi = sym.code(rlo, rhi, 4 * q + 2, s_fused);
-          qhi |= sym.code(rlo, rhi, 4 * q + 3, s_fused) << 10;
+          if constexpr (kRev2Layout) {
+            qlo = sym.code(rlo, rhi, 4 * q, s_fused);
+            qlo |= sym.code(rlo, rhi, 4 * q + 1, s_fused) << 10;
+            qhi = sym.code(rlo, rhi, 4 * q + 2, s_fused);
+            qhi |= sym.code(rlo, rhi, 4 * q + 3, s_fused) << 10;
+          } else {
+            qlo = sym.code(row, 4 * q, s_fused);
+            qlo |= sym.code(row, 4 * q + 1, s_fused) << 10;
+            qhi = sym.code(row, 4 * q + 2, s_fused);
+            qhi |= sym.code(row, 4 * q + 3, s_fused) << 10;
+          }
         }
         if (walk) {
           lo[(q0 + q) * s + lane] = static_cast<int32_t>(qlo);

@@ -22,7 +22,10 @@ Two engines give the same bytes:
   stream order, and kernel 4 (``coder_scan_off_q``) range-codes them.  The
   sorts are torch ops.  The live-quad count Tq is exact (the JAX bucketing
   only bounded its recompiles), and the TPU HBM slot budget is part of the
-  lane-chunk budget.
+  lane-chunk budget.  Kernels 3 and 5 are built for the cfg, so the sort
+  engine codes every cfg that ``config.check`` passes; the JAX package's
+  sort chain hard-codes rev 2's contexts and 8 substates, and its bytes
+  differ from the oracle's under another cfg.
 
   Its second variant, ``variant="decision"`` (the JAX package's
   ``LLCT_ENCODE_VARIANT=decision``, the else branch of
@@ -70,6 +73,7 @@ SORT_SLOT_BYTES = 22
 DECISION_SLOT_BYTES = 54
 SLOT_LIMIT = 1 << 25      # n_sym * 24 below this: the compact key's 23 bits
 POS_LIMIT = 1 << 20       # decision variant: n_sym * K below this (20-bit pos)
+                          # and contexts (hash*substates + ctx) below it too
 OUTCAP_LIMIT = 1 << 21    # sort chain: streams and outcap below this many
                           # bytes (a record packs off << 9 in an int32)
 _DEAD_HASH = 0x1FFF       # symbol padding sorts after every context run
@@ -258,15 +262,25 @@ def decision_slots(sym_max: int) -> int:
     return 8 if sym_max <= 8 else 16 if sym_max <= 16 else 24
 
 
-def check_decision_bounds(n_sym: int, K: int) -> None:
+def check_decision_bounds(n_sym: int, K: int, cfg: CodecConfig = REV2
+                          ) -> None:
     """Raise ValueError for a stripe whose ``n_sym * K`` decision slots
     reach 2^20: the forward sort keeps a slot's position in 20 bits
     (`encode.py:330-336`), and a larger one would run into its context.
     The JAX package is kept inside only by its default slot budget
-    (``fits_pallas_budget``, `encode.py:809-812`)."""
+    (``fits_pallas_budget``, `encode.py:809-812`).  Raise it too, naming
+    ``substates``, for a cfg of more than 2^20 contexts ``hash*substates +
+    ctx`` (``cfg.num_states``; 133 substates at 7,926 hashes), where one
+    would read as padding (``stage_fwd_sort``); 16 substates make
+    126,816."""
     if n_sym * K >= POS_LIMIT:
         raise ValueError(f"a stripe of {n_sym} symbols at K {K} breaks the "
                          f"decision variant's position bound n_sym*K < 2^20")
+    if cfg.num_states > POS_LIMIT:
+        raise ValueError(f"num_hashes {cfg.num_hashes} x substates "
+                         f"{cfg.substates} contexts break the decision "
+                         f"variant's context bound of 2^20: use "
+                         f"variant='symbol'")
 
 
 def stage_fwd_sort(stream: torch.Tensor, Tc: int
@@ -277,7 +291,8 @@ def stage_fwd_sort(stream: torch.Tensor, Tc: int
 
     stream [S, T] int32 lane-major (``build_stream``, padding -1), T < 2^20.
     Each slot becomes the int64 key ``ctx<<21 | pos<<1 | bit`` with ctx =
-    stream >> 1 (hash*8 + substate) and 2^40 for padding, which sorts last;
+    stream >> 1 (hash*substates + context, below 2^20:
+    ``check_decision_bounds``) and 2^40 for padding, which sorts last;
     keys are unique, so the order is total.  -> (skey, spay) [S, Tc] int32,
     lane-major: the context (``_BIG`` for padding) and ``bit<<20 | pos``.
     """
@@ -354,7 +369,8 @@ def _encode_sort(lanes: torch.Tensor, cfg: CodecConfig, init,
 
     ``stage_done(stage, *made)`` is called after each of the six stages
     with what it made; ``chip_smoke.py`` times the stages and holds the
-    kernels against their plain versions through it."""
+    kernels against their plain versions through it.  Kernel 3 runs its
+    build for ``cfg``."""
     timed = profiling.timed
     h, diff = timed("encode/precompute", _hash_diff, lanes, cfg)
     _, sym_max, quad_max = stage_count(diff)
@@ -363,7 +379,7 @@ def _encode_sort(lanes: torch.Tensor, cfg: CodecConfig, init,
     xs, origsym = timed("encode/sym_sort", stage_sym_sort, h, diff,
                         h.shape[1])
     stage_done("sym sort", xs, origsym)
-    lo, hi = timed("encode/walk", walk_symbols, xs, K, init)
+    lo, hi = timed("encode/walk", walk_symbols, xs, K, init, cfg)
     stage_done("walk", lo, hi)
     qlo, qhi = timed("encode/compact_sort", stage_compact, lo, hi, origsym,
                      K, quad_max)
@@ -382,14 +398,15 @@ def _encode_decision(lanes: torch.Tensor, cfg: CodecConfig, init,
     the dead entries past the count code as silent.  Raises ValueError past
     ``check_decision_bounds``.  -> (bytes [S, width] u8, lens [S] int32).
 
-    ``stage_done`` as in ``_encode_sort``, after each of the eight stages."""
+    ``stage_done`` as in ``_encode_sort``, after each of the eight stages.
+    Kernel 5 runs its build for ``cfg``."""
     h, diff = profiling.timed("encode/precompute", _hash_diff, lanes, cfg)
     total, sym_max, _ = stage_count(diff)
     K = decision_slots(sym_max)
     n_sym = h.shape[1]
-    check_decision_bounds(n_sym, K)
+    check_decision_bounds(n_sym, K, cfg)
     stage_done("precompute and counts", K, total, h, diff)
-    stream = build_stream(h, diff, n_sym, K)
+    stream = build_stream(h, diff, n_sym, K, cfg)
     stage_done("build", stream)
     skey, spay = stage_fwd_sort(stream, total)
     del stream
@@ -419,9 +436,6 @@ def _check_args(cfg: CodecConfig, engine: str, variant: str, primed: bool,
     config.check(cfg)
     if engine not in ENGINES:
         raise ValueError(f"engine must be one of {ENGINES}, got {engine!r}")
-    if engine == "sort" and cfg != REV2:
-        raise ValueError("engine='sort' codes the rev-2 cfg only (as the JAX "
-                         "package's sort chain does): use engine='fused'")
     if variant not in VARIANTS:
         raise ValueError(f"variant must be one of {VARIANTS}, got {variant!r}")
     if variant == "decision" and engine != "sort":
@@ -442,8 +456,8 @@ def encode_lanes(imgs, cfg: CodecConfig = REV2, primed: bool = False,
                  seed=None, device="cuda", engine: str = "fused",
                  variant: str = "symbol") -> list[bytes]:
     """Encode equal-shaped lanes [S, H, W, C] u8 -> per-lane headerless
-    streams under ``cfg`` (any cfg that ``config.check`` passes; engine
-    'sort' rev 2 only).
+    streams under ``cfg`` (any cfg that ``config.check`` passes, on either
+    engine and variant; primed and seeded lanes at 8 substates only).
 
     primed: context row h starts at tables.PRIOR_TAB[h % 121] (sliced
     container flag bit 0).  seed: a [121, 8] u8 stored-seed table (flag

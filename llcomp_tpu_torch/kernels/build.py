@@ -3,9 +3,9 @@
 Each kernel is one ``csrc/*.cu`` file with a plain C entry point, compiled on
 first use for Hopper (``sm_90a``) into ``llcomp_tpu_torch/_build/`` (listed in
 ``.gitignore``), keyed by a hash of its source, of the shared headers
-(``csrc/*.cuh``), of the flags and of the build's ``-D`` defines (kernels 1
-and 2 are built once a codec configuration: ``config.defines``), and loaded
-with ctypes.  Builds of other defines stay beside it.  No
+(``csrc/*.cuh``), of the flags and of the build's ``-D`` defines (kernels 1,
+2, 3 and 5 are built once a codec configuration: ``config.defines``), and
+loaded with ctypes.  Builds of other defines stay beside it.  No
 PyTorch headers are compiled, so a build takes seconds.  Sources are read
 only from the package's ``csrc/`` directory.  Each build keeps the
 compiler's ``-Xptxas -v`` report (registers and spills of every kernel)

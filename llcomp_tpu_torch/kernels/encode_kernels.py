@@ -18,6 +18,13 @@ lane-major ``[S, n*K]`` for the forward sort.  The TPU's [G, T, 8, 128]
 lane groups, grid chunks and scratch carries have no counterpart.  The
 source notes in ``csrc/`` say what bounds each kernel on the H100.
 
+Kernels 3 and 5 read the codec configuration (its contexts, and its
+substates a context hash): they are built once a cfg (``config.defines``,
+``csrc/codec_cfg.cuh``), each build's launches counted in the wrapper's
+``by_cfg``.  Kernels 4, 6, 7 and 8 read records, sorted bits or states,
+which no cfg changes: one build each.  The JAX package's two kernels
+hard-code rev 2's contexts and 8 substates; these do not.
+
 A CUDA tensor launches the kernel on its device, made current for the launch
 (a kernel runs on the host thread's current device), and counts the launch
 on the wrapper; a CPU tensor runs the plain version.  Coder records are 10 bits,
@@ -33,7 +40,8 @@ import numpy as np
 import torch
 
 from .. import coder
-from ..core import tables, transform
+from ..core import config, tables, transform
+from ..core.config import REV2, CodecConfig
 from . import build
 
 _P = ctypes.c_void_p
@@ -59,11 +67,18 @@ def _fused_table(dev) -> torch.Tensor:
 def reset_rows(init, device) -> torch.Tensor:
     """[128] int64 model rows a context run starts from, substate k in byte
     k (``tables.pack_u64``): ``init[b]`` for bucket b < 121 and zeros beyond;
-    all zeros when ``init`` is None (unprimed)."""
+    all zeros when ``init`` is None (unprimed).  A table holds 8 substates a
+    bucket: ``config.check_start`` refuses one under any other cfg."""
     rows = np.zeros(RESET_ROWS, dtype=np.int64)
     if init is not None:
         rows[: tables.PRIOR_BUCKETS] = tables.pack_u64(init)
     return torch.from_numpy(rows).to(device)
+
+
+def _count(wrapper, defines: tuple[str, ...]) -> None:
+    """One launch of ``wrapper``'s kernel built with ``defines``."""
+    wrapper.launches += 1
+    wrapper.by_cfg[defines] = wrapper.by_cfg.get(defines, 0) + 1
 
 
 def chunk_bounds(seg: torch.Tensor, chunks: int
@@ -101,13 +116,16 @@ def _threads(start: torch.Tensor, end: torch.Tensor
 
 
 def walk_symbols_plain(xs: torch.Tensor, K: int, init,
-                       chunks: int | None = None
+                       chunks: int | None = None, cfg: CodecConfig = REV2
                        ) -> tuple[torch.Tensor, torch.Tensor]:
     """The walk in plain torch over kernel 3's partition (``chunk_bounds``,
     ``chunks`` defaulting to the kernel's kChunks): vectorised over (chunk,
     lane) pairs, with Python loops over a chunk's symbols and their decisions.
-    The model row is kept as two 32-bit halves (substates 0-3 and 4-7), as
-    the kernel keeps it."""
+    A thread's model row is ``cfg.substates`` states; each decision reads
+    the state of its context (``transform.decision`` under ``cfg``) and
+    writes the next, in order, as the kernel's row in registers does."""
+    config.check(cfg)
+    config.check_start(cfg, init is not None)
     n, S = xs.shape
     dev = xs.device
     chunks = chunks or build.constant("walk_symbols", "kChunks")
@@ -115,10 +133,13 @@ def walk_symbols_plain(xs: torch.Tensor, K: int, init,
     start, lane, length = _threads(
         *chunk_bounds(((x >> 12) & 1).to(torch.bool), chunks))
     fused = torch.from_numpy(tables.FUSED.astype(np.int64)).to(dev)
-    rows = reset_rows(init, dev)
-    half = (rows & 0xFFFFFFFF, (rows >> 32) & 0xFFFFFFFF)
-    row = [torch.zeros(len(length), dtype=torch.int64, device=dev)
-           for _ in range(2)]
+    rows = torch.zeros((RESET_ROWS, cfg.substates), dtype=torch.int64,
+                       device=dev)
+    if init is not None:
+        rows[: tables.PRIOR_BUCKETS] = torch.from_numpy(
+            np.asarray(init, dtype=np.int64)).to(dev)
+    row = torch.zeros((len(length), cfg.substates), dtype=torch.int64,
+                      device=dev)
     qs = K // 4
     lo = torch.zeros((n * qs, S), dtype=torch.int32, device=dev)
     hi = torch.zeros_like(lo)
@@ -126,13 +147,10 @@ def walk_symbols_plain(xs: torch.Tensor, K: int, init,
     for i in range(length[0] if r else 0):
         while length[r - 1] <= i:         # threads past r have ended
             r -= 1
-        row = [row[0][:r], row[1][:r]]
         t = start[:r] + i
         xj = x[t, lane[:r]]
         seg = ((xj >> 12) & 1).to(torch.bool)
-        bucket = (xj >> 14) & 0x7F
-        for w in range(2):
-            row[w] = torch.where(seg, half[w][bucket], row[w])
+        row = torch.where(seg[:, None], rows[(xj >> 14) & 0x7F], row[:r])
         d = (xj & 0xFFF) - 1274
         ad = d.abs()
         e = transform.ilog2(ad.clamp(min=1), max_bits=12)
@@ -140,16 +158,12 @@ def walk_symbols_plain(xs: torch.Tensor, K: int, init,
         nb = (torch.where(ad != 0, 2 * e + 3, 1) * live).clamp(max=K)
         quads = [[torch.zeros_like(xj) for _ in range(2)] for _ in range(qs)]
         for k in range(int(nb.max()) if nb.numel() else 0):
-            ctx, bit = transform.decision(k, d, ad, e)
+            ctx, bit = transform.decision(k, d, ad, e, cfg)
             valid = nb > k
-            sh = (ctx & 3) * 8
-            upper = ctx >= 4
-            word = torch.where(upper, row[1], row[0])
-            f = fused[(word >> sh) & 0xFF]
+            st = row.gather(1, ctx[:, None])[:, 0]
+            f = fused[st]
             ns = torch.where(bit == 1, f >> 16, f >> 8) & 0xFF
-            new = (word & ~(0xFF << sh)) | (ns << sh)
-            row[0] = torch.where(valid & ~upper, new, row[0])
-            row[1] = torch.where(valid & upper, new, row[1])
+            row.scatter_(1, ctx[:, None], torch.where(valid, ns, st)[:, None])
             rec = torch.where(valid, (1 << 9) | (bit << 8) | (f & 0xFF), 0)
             quads[k // 4][k % 4 >= 2] |= rec << (10 * (k % 2))
         for q in range(qs):
@@ -158,29 +172,35 @@ def walk_symbols_plain(xs: torch.Tensor, K: int, init,
     return lo, hi
 
 
-def walk_symbols(xs: torch.Tensor, K: int = 24, init=None
+def walk_symbols(xs: torch.Tensor, K: int = 24, init=None,
+                 cfg: CodecConfig = REV2
                  ) -> tuple[torch.Tensor, torch.Tensor]:
     """Walk each lane's context-sorted symbols: ``xs`` [n, S] int32
     (``bucket<<14 | live<<13 | seg<<12 | diff+1274``, ``encode.stage_sym_sort``)
     -> pair-packed coder records (lo, hi), each [n*K/4, S] int32, K/4 quads
-    per symbol.
+    per symbol, each decision coded on its context under ``cfg``.
 
     A context run (``seg``) starts from zeros, or from ``init[bucket]`` when
-    ``init`` (a [121, 8] u8 prior or seed table) is given.  At most K
-    decisions of a symbol are walked; records past its last decision are 0.
-    A CUDA ``xs`` launches kernel 3 (counted in ``walk_symbols.launches``);
-    a CPU ``xs`` runs ``walk_symbols_plain``.
+    ``init`` (a [121, 8] u8 prior or seed table, 8 substates only) is given.
+    At most K decisions of a symbol are walked; records past its last
+    decision are 0.  A CUDA ``xs`` launches kernel 3 built for ``cfg``
+    (counted in ``walk_symbols.launches`` and, under the build's defines,
+    in ``walk_symbols.by_cfg``; a build that fails raises
+    ``build.KernelCompileError``); a CPU ``xs`` runs ``walk_symbols_plain``.
     """
     _check_i32(xs, "xs")
     if K < 4 or K % 4:
         raise ValueError(f"K must be a positive multiple of 4, got {K}")
+    config.check(cfg)
+    config.check_start(cfg, init is not None)
     if not xs.is_cuda:
-        return walk_symbols_plain(xs, K, init)
+        return walk_symbols_plain(xs, K, init, cfg=cfg)
+    defines = config.defines(cfg)
     xs = xs.contiguous()
     n, S = xs.shape
     dev = xs.device
     fn = build.load("walk_symbols", "llct_walk_symbols",
-                    [_P] * 5 + [_I] * 3 + [_P])
+                    [_P] * 5 + [_I] * 3 + [_P], defines)
     with torch.cuda.device(dev):
         fused = _fused_table(dev)
         rows = reset_rows(init, dev)
@@ -189,17 +209,19 @@ def walk_symbols(xs: torch.Tensor, K: int = 24, init=None
         rc = fn(xs.data_ptr(), fused.data_ptr(), rows.data_ptr(),
                 lo.data_ptr(), hi.data_ptr(), n, S, K, _stream(dev))
     build.check(rc, "walk_symbols")
-    walk_symbols.launches += 1
+    _count(walk_symbols, defines)
     return lo, hi
 
 
 walk_symbols.launches = 0
+walk_symbols.by_cfg = {}      # config.defines(cfg) -> launches of that build
 
 
 def build_stream_plain(hash_: torch.Tensor, diff: torch.Tensor, n_sym: int,
-                       K: int) -> torch.Tensor:
+                       K: int, cfg: CodecConfig = REV2) -> torch.Tensor:
     """The stream builder in plain torch: elementwise over (lane, symbol),
-    one ``transform.decision`` per slot."""
+    one ``transform.decision`` under ``cfg`` per slot."""
+    config.check(cfg)
     S, n_pad = hash_.shape
     ad = diff.abs()
     e = transform.ilog2(ad.clamp(min=1), max_bits=12)
@@ -207,23 +229,26 @@ def build_stream_plain(hash_: torch.Tensor, diff: torch.Tensor, n_sym: int,
     nb = torch.where(live, torch.where(ad != 0, 2 * e + 3, 1), 0)
     slots = []
     for k in range(K):
-        ctx, bit = transform.decision(k, diff, ad, e)
-        slots.append(torch.where(nb > k, (hash_ * 8 + ctx) * 2 + bit, -1)
-                     .to(torch.int32))
+        ctx, bit = transform.decision(k, diff, ad, e, cfg)
+        slots.append(torch.where(
+            nb > k, (hash_ * cfg.substates + ctx) * 2 + bit, -1)
+            .to(torch.int32))
     return torch.stack(slots, dim=2).reshape(S, n_pad * K)
 
 
 def build_stream(hash_: torch.Tensor, diff: torch.Tensor, n_sym: int,
-                 K: int = 24) -> torch.Tensor:
+                 K: int = 24, cfg: CodecConfig = REV2) -> torch.Tensor:
     """Expand each lane's symbols into K decision slots: ``hash_``, ``diff``
     [S, n_pad] int32 lane-major (folded context hash and residual; symbols
     at or past ``n_sym`` are padding) -> [S, n_pad*K] int32 lane-major, slot
-    k of symbol j at ``j*K + k``: ``(hash*8 + ctx)*2 + bit`` of the symbol's
-    decision k, -1 past its last decision (so K below its count cuts it
-    short) and on padding symbols.
+    k of symbol j at ``j*K + k``: ``(hash*substates + ctx)*2 + bit`` of the
+    symbol's decision k under ``cfg``, -1 past its last decision (so K
+    below its count cuts it short) and on padding symbols.
 
-    A CUDA ``hash_`` launches kernel 5 (counted in ``build_stream.launches``);
-    a CPU ``hash_`` runs ``build_stream_plain``.
+    A CUDA ``hash_`` launches kernel 5 built for ``cfg`` (counted in
+    ``build_stream.launches`` and in ``build_stream.by_cfg``; a build that
+    fails raises ``build.KernelCompileError``); a CPU ``hash_`` runs
+    ``build_stream_plain``.
     """
     _check_i32(hash_, "hash", "[S, n]")
     _check_i32(diff, "diff", "[S, n]")
@@ -231,23 +256,26 @@ def build_stream(hash_: torch.Tensor, diff: torch.Tensor, n_sym: int,
         raise ValueError("hash and diff must match in shape and device")
     if K < 1:
         raise ValueError(f"K must be positive, got {K}")
+    config.check(cfg)
     if not hash_.is_cuda:
-        return build_stream_plain(hash_, diff, n_sym, K)
+        return build_stream_plain(hash_, diff, n_sym, K, cfg)
+    defines = config.defines(cfg)
     hash_, diff = hash_.contiguous(), diff.contiguous()
     S, n_pad = hash_.shape
     dev = hash_.device
     fn = build.load("build_stream", "llct_build_stream",
-                    [_P] * 3 + [_I] * 4 + [_P])
+                    [_P] * 3 + [_I] * 4 + [_P], defines)
     with torch.cuda.device(dev):
         out = torch.empty((S, n_pad * K), dtype=torch.int32, device=dev)
         rc = fn(hash_.data_ptr(), diff.data_ptr(), out.data_ptr(), S, n_pad,
                 n_sym, K, _stream(dev))
     build.check(rc, "build_stream")
-    build_stream.launches += 1
+    _count(build_stream, defines)
     return out
 
 
 build_stream.launches = 0
+build_stream.by_cfg = {}      # config.defines(cfg) -> launches of that build
 
 
 def walk_probs_plain(xs: torch.Tensor, chunks: int | None = None

@@ -236,9 +236,9 @@ INVALID = {
         [_IMG], 4, _SUB16, primed=True, device="cpu"), "substates"),
     "native at e_lim 3": (lambda: api.compress(
         _IMG, cfg=CodecConfig(e_lim=3), backend="native"), "native"),
-    "sort at e_lim 3": (lambda: encode.encode_lanes(
-        _IMG[None], CodecConfig(e_lim=3), device="cpu", engine="sort"),
-        "sort"),
+    "sort primed at 16 substates": (lambda: encode.encode_lanes(
+        _IMG[None], _SUB16, primed=True, device="cpu", engine="sort"),
+        "substates"),
 }
 
 

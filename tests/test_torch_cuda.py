@@ -24,8 +24,8 @@ from chip_smoke import (CODERS, EDGE_RESIDUALS, P11_TAGS, PG_TAGS, PG_WORDS,
 from chip_smoke import (MIXED, OVERFLOW_SEED, _flip_slice, _malicious_stream,
                         make_image, overflow_batches, sanitize,
                         sanitizer_status)
-from chip_smoke import (CFG_BATCHES, CFG_CASES, _cfg_start, codec_batches,
-                        codec_case)
+from chip_smoke import (CFG_BATCHES, CFG_CASES, _cfg_start, cfg_sort_case,
+                        codec_batches, codec_case)
 from llcomp_tpu_torch import (api, coder, container, corpus, decode, encode,
                               graft_entry, host, parallel, probes, seed)
 from llcomp_tpu_torch import device as devmod
@@ -98,6 +98,68 @@ def test_cfg_builds_equal_plain(dev, name):
             assert r["encode"] == 0 and r["decode"] == 0, (batch, mode)
     assert ef.encode_fused.by_cfg[d] > before[0]
     assert dk.decode.by_cfg[d] > before[1]
+
+
+@pytest.mark.parametrize("name", list(CFG_CASES))
+def test_cfg_sort_builds_equal_plain(dev, name):
+    """Kernels 3 and 5 built for each cfg, held against their plain
+    versions on phase 13's runs of phase 3's batches (the engine's inputs
+    and a dead tail; primed and seeded at 8 substates), the sort engine's
+    streams equal to kernel 1's; each build's launch count rises."""
+    cfg = CodecConfig(**CFG_CASES[name])
+    batches = codec_batches()
+    d = config.defines(cfg)
+    before = (ek.walk_symbols.by_cfg.get(d, 0),
+              ek.build_stream.by_cfg.get(d, 0))
+    for batch in CFG_BATCHES:
+        for mode, init in _cfg_start(cfg, batch):
+            r = cfg_sort_case(torch, dev, batch, batches[batch], mode, init,
+                              cfg)
+            assert r["walk"] == 0 and r["build"] == 0, (batch, mode)
+    assert ek.walk_symbols.by_cfg[d] > before[0]
+    assert ek.build_stream.by_cfg[d] > before[1]
+
+
+@pytest.mark.parametrize("wrapper", ["walk_symbols", "build_stream"])
+def test_cfg_sort_wrapper_refuses_an_invalid_cfg(dev, wrapper):
+    """A cfg that config.check refuses (sign context 8 at 8 substates)
+    raises on a CUDA tensor, naming sign_ctx, before any build runs."""
+    bad = CodecConfig(sign_ctx=8)
+    x = torch.zeros((8, 2), dtype=torch.int32, device=dev)
+    before = ek.walk_symbols.launches + ek.build_stream.launches
+    with pytest.raises(ValueError, match="sign_ctx"):
+        if wrapper == "walk_symbols":
+            ek.walk_symbols(x, 8, None, bad)
+        else:
+            ek.build_stream(x, x, 8, 8, bad)
+    assert ek.walk_symbols.launches + ek.build_stream.launches == before
+
+
+def test_second_cfg_sort_build_keeps_the_first(dev, monkeypatch):
+    """Two cfg builds of kernels 3 and 5 stand side by side in _build/:
+    loading the first again after the second was built runs no
+    compiler, and each codes its cfg's bytes."""
+    e3 = CodecConfig(e_lim=3, r_lim=5, sign_ctx=6)
+    sub16 = CodecConfig(substates=16, e_lim=8, r_lim=12, sign_ctx=15)
+    for name in ("walk_symbols", "build_stream"):
+        a, b = (build.build(name, config.defines(c)) for c in (e3, sub16))
+        assert a != b and a.exists() and b.exists()
+    for name in ("coder_scan", "walk_probs"):     # the engine's other builds
+        build.build(name)
+    monkeypatch.setattr(build, "_libs", {})
+
+    def no_compiler(*args, **kwargs):
+        raise AssertionError(f"a build ran again: {args}")
+
+    monkeypatch.setattr(build.subprocess, "run", no_compiler)
+    lanes = _lanes((4, 16, 3))
+    for cfg in (e3, sub16):
+        want = encode.encode_lanes(lanes, cfg, device="cpu")
+        for variant in encode.VARIANTS:
+            assert encode.encode_lanes(lanes, cfg, device=dev, engine="sort",
+                                       variant=variant) == want
+        for name in ("walk_symbols", "build_stream"):
+            assert (name, config.defines(cfg)) in build._libs
 
 
 def test_second_cfg_build_keeps_the_first(dev, monkeypatch):
