@@ -232,7 +232,22 @@ Phases (each prints one line; any failure exits non-zero without the final
    2, each build's launches counted from 0 around the two encodes, and at
    that shape each cfg build of kernels 3 and 5 held exactly against its
    plain version on the card (on the engine's own inputs) and timed alone
-   with its bound; the phase fails past ``PHASE13_LIMIT_S`` (180) seconds.
+   with its bound; the phase fails past ``PHASE13_LIMIT_S`` (180) seconds;
+14. (run right after phase 13, before 11) the JAX package's call forms,
+   spelled positionally as a call written for ``llcomp_tpu`` spells them:
+   ``encode_lanes(imgs, REV2, engine)`` for each encode name of the port
+   and of the JAX package (``encode.ENGINES``, ``encode.ENGINE_ALIASES``)
+   and ``decode_lanes(streams, shape, REV2, engine)`` for each of the JAX
+   package's decode names (``decode.ENGINES``), on phase 4's photo512 as
+   its 32 stripes (primed, with the seed of its golden container) and on
+   phase 3's RGB batch (unprimed), each equal to the keyword spelling,
+   the photo's streams to its golden container's and the batch's to the
+   plain versions'; then ``api.compress(img, "auto", REV2, "jax")`` equal
+   to photo512's golden and ``api.decompress(blob, REV2, "jax")`` exact;
+   the launches of kernels 1-4 counted from 0 around each call ('pallas'
+   and 'sort' must reach kernels 3 and 4 and not kernel 1, every other
+   encode name kernel 1 and not 3 or 4, every decode name kernel 2); the
+   phase fails past ``PHASE14_LIMIT_S`` (30) seconds.
 
 Phases 5-8, 12 and 13 compute each kernel's bound (``bound``): the least
 time the card could take for the bytes and integer operations of its work
@@ -2872,7 +2887,8 @@ def phase_decision(torch, log, card: str, variants: dict, sort: dict
     meta, runs_, fin4 = own8
     meta_f, runs_f = coder.finish_steps(fin4)
     by, ln = coder.expand_slots(torch.cat([meta, meta_f]),
-                                torch.cat([runs_, runs_f]), encode.outcap(n))
+                                torch.cat([runs_, runs_f]),
+                                outcap=encode.outcap(n))
     res["coder_scan"]["launches"] = launches8
     ln_h, by_h = ln.cpu().numpy(), by.cpu().numpy()
     check(res["coder_scan"]["launches"] == 1 and np.array_equal(ln_h, lens_h)
@@ -4183,9 +4199,9 @@ def phase_multi(torch, log, card: str, bench: dict) -> dict:
     stages = multi_profiling(torch, log)
     t["profiling"] = time.perf_counter() - t0
     t0 = time.perf_counter()
-    fn, args = graft_entry.entry("cuda")
+    fn, args = graft_entry.entry(device="cuda")
     out, lens = fn(*args)
-    fn_c, args_c = graft_entry.entry("cpu")
+    fn_c, args_c = graft_entry.entry(device="cpu")
     out_c, lens_c = fn_c(*args_c)
     check(torch.equal(lens.cpu(), lens_c) and all(
         torch.equal(out[s, : lens_c[s]].cpu(), out_c[s, : lens_c[s]])
@@ -4655,6 +4671,92 @@ def phase_sort_cfgs(torch, log, card: str, cfgs: dict) -> dict:
 
 
 # --- phase 11: conformance: fuzz across the engines, sanitizers -------------
+
+PHASE14_LIMIT_S = 30    # phase 14 fails past this many seconds
+CALL_FORM_ROWS = ("encode_fused", "decode_kernel", "walk_symbols",
+                  "coder_scan_off_q")      # kernels 1-4, counted in phase 14
+
+
+def phase_call_forms(torch, log) -> dict:
+    """Phase 14: the JAX package's positional call forms and engine and
+    backend names on the card, against the keyword spelling and the goldens
+    -> {call: {kernel row: launches}}."""
+    from llcomp_tpu_torch import api, container, decode, encode
+    from llcomp_tpu_torch import seed as seedmod
+    from llcomp_tpu_torch.core.config import REV2
+
+    t0 = time.perf_counter()
+    fns = launch_counters()
+    counts = {}
+
+    def counted(call: str, fn, *args, **kw):
+        for row in CALL_FORM_ROWS:
+            fns[row].launches = 0
+        out = fn(*args, **kw)
+        torch.cuda.synchronize()
+        counts[call] = {row: fns[row].launches for row in CALL_FORM_ROWS}
+        return out
+
+    img = make_image(512, 512, 3, 1512)
+    check(sha(img) == IMAGE_SHA["photo512"], "photo512: image generator "
+          "drifted")
+    blob = counted('compress(img, "auto", REV2, "jax")', api.compress, img,
+                   "auto", REV2, "jax")
+    check(sha(blob) == GOLDEN_SHA["photo512"],
+          'photo512: compress(img, "auto", REV2, "jax") != golden')
+    check(np.array_equal(counted('decompress(blob, REV2, "jax")',
+                                 api.decompress, blob, REV2, "jax"), img),
+          'photo512: decompress(blob, REV2, "jax") not exact')
+    streams, W, H, C, slice_h, flags, seed_blob, _ = \
+        container.unpack_sliced(blob)
+    tab = None if seed_blob is None else seedmod.unpack_blob(seed_blob)
+    primed = bool(flags & (container.FLAG_PRIMED | container.FLAG_SEEDED))
+    photo = img.reshape(len(streams), slice_h, W, C)
+    rgb = codec_batches()["rgb 4x16x3"]
+    rgb_plain = encode.encode_lanes(rgb, device="cpu")
+    names = encode.ENGINES + tuple(encode.ENGINE_ALIASES)
+    cases = {"photo512": (photo, primed, tab, streams),
+             "rgb 4x16x3": (rgb, False, None, rgb_plain)}
+    for name, (lanes, primed, tab, want) in cases.items():
+        for engine in names:
+            port = encode.ENGINE_ALIASES.get(engine, engine)
+            got = counted(f"{name} encode_lanes {engine!r}",
+                          encode.encode_lanes, lanes, REV2, engine, primed,
+                          tab)
+            key = encode.encode_lanes(lanes, primed=primed, seed=tab,
+                                      device="cuda", engine=port)
+            check(got == key == want, f"{name}: encode_lanes(imgs, REV2, "
+                  f"{engine!r}) != the keyword spelling or the reference")
+            c = counts[f"{name} encode_lanes {engine!r}"]
+            sort = (c["walk_symbols"] > 0 and c["coder_scan_off_q"] > 0
+                    and c["encode_fused"] == 0)
+            fused = (c["encode_fused"] > 0 and c["walk_symbols"] == 0
+                     and c["coder_scan_off_q"] == 0)
+            check(sort if port == "sort" else fused,
+                  f"{name}: engine {engine!r} launched {c}")
+        for engine in decode.ENGINES:
+            out = counted(f"{name} decode_lanes {engine!r}",
+                          decode.decode_lanes, want, lanes.shape[1:], REV2,
+                          engine, primed, "raise", tab)
+            check(np.array_equal(out, lanes), f"{name}: decode_lanes(streams,"
+                  f" shape, REV2, {engine!r}) not exact")
+            check(counts[f"{name} decode_lanes {engine!r}"]["decode_kernel"]
+                  > 0, f"{name}: decode engine {engine!r} skipped kernel 2")
+    took = time.perf_counter() - t0
+    check(took <= PHASE14_LIMIT_S, f"phase 14 took {took:.1f} s, over its "
+          f"{PHASE14_LIMIT_S} s limit")
+    log("phase 14 call forms: compress(img, 'auto', REV2, 'jax') == "
+        "photo512's golden, decompress(blob, REV2, 'jax') exact; "
+        f"encode_lanes(imgs, REV2, engine) for {', '.join(names)} "
+        f"and decode_lanes(streams, shape, REV2, engine) for "
+        f"{', '.join(decode.ENGINES)} on photo512's {len(streams)} stripes "
+        f"(primed, seeded: its golden's streams) and phase 3's rgb 4x16x3 "
+        f"(unprimed: the plain versions' streams), each equal to the "
+        f"keyword spelling; launches of kernels 1-4 a call: "
+        + "; ".join(f"{k} " + "/".join(str(v[r]) for r in CALL_FORM_ROWS)
+                    for k, v in counts.items()) + f"; {took:.1f} s")
+    return counts
+
 
 PHASE11_LIMIT_S = 120   # phase 11 fails past this many seconds
 FUZZ_SEEDS = range(240)  # phase 11's fuzz cases, named by their seeds
@@ -5473,6 +5575,7 @@ def main() -> int:
         probe = timed(8, phase_probes, torch, log, card, turns, variants)
         cfgs = timed(12, phase_cfgs, torch, log, card)
         sort_cfgs = timed(13, phase_sort_cfgs, torch, log, card, cfgs)
+        timed(14, phase_call_forms, torch, log)
         conf = timed(11, phase_conformance, torch, log)
         log("phase seconds: " + ", ".join(f"{k} {v}" for k, v in
                                            took.items()))
@@ -5481,7 +5584,7 @@ def main() -> int:
     except Failed as e:
         print(f"chip_smoke FAILED: {e}", file=sys.stderr)
         return 1
-    log(f"chip_smoke: phases 1-13 passed in "
+    log(f"chip_smoke: phases 1-14 passed in "
         f"{time.perf_counter() - t_start:.1f} s")
 
     def bound_of(b: dict) -> dict:

@@ -13,14 +13,23 @@ versions; 'cuda' without a GPU raises.  ``backend`` says which engine:
   device='cpu'``);
 * 'auto': 'native' for a single stream or fewer than ``MIN_DEVICE_LANES``
   stripes, else 'torch' on ``device``, chosen by the shape of the work only;
-  'torch' for a cfg other than REV2.
+  'torch' for a cfg other than REV2;
+* 'jax', the JAX package's name for its device engines
+  (``BACKEND_ALIASES``): 'torch'.
 
-Every backend gives the same bytes.  A failed build or launch raises; no
-path falls back to another engine.  ``cfg`` may be any configuration that
-``config.check`` passes; 'native' takes REV2 only, as the JAX package's
-native runtime does.  The static prior and the stored seed hold 8
-substates a bucket, so under other ``substates`` the automatic policy
-neither primes nor seeds, and asking for either raises.
+Every function takes the JAX package's parameters in its order, so that a
+call written for ``llcomp_tpu`` runs here unchanged with ``device=``
+added; ``device`` comes after them and is keyword-only.  One default
+differs: ``backend`` is 'torch' where the JAX package says 'auto'
+(``compress``, ``decompress``), so that an entry point runs on the card
+unless the caller asks for the CPU; where it says 'jax' (``encode_stripes``,
+``decode_stripes`` and the corpus), 'torch' is the same engine under the
+port's name.  Every backend gives the same bytes.  A failed build or
+launch raises; no path falls back to another engine.  ``cfg`` may be any
+configuration that ``config.check`` passes; 'native' takes REV2 only, as
+the JAX package's native runtime does.  The static prior and the stored
+seed hold 8 substates a bucket, so under other ``substates`` the automatic
+policy neither primes nor seeds, and asking for either raises.
 """
 from __future__ import annotations
 
@@ -171,6 +180,10 @@ def _pick_primed(img: np.ndarray, dev: torch.device,
 
 
 BACKENDS = ("torch", "auto", "native", "oracle")
+# The JAX package's backend names -> the port's: 'jax', its device engines,
+# is the port's device engines on ``device``.  Every backend gives the same
+# bytes, so a name only chooses the engine.
+BACKEND_ALIASES = {"jax": "torch"}
 
 # Below this many stripes ``backend='auto'`` takes the native runtime: the
 # crossover that chip_smoke.py phase 9 times on 8x512x3 stripes, encode plus
@@ -181,9 +194,15 @@ BACKENDS = ("torch", "auto", "native", "oracle")
 MIN_DEVICE_LANES = 128
 
 
-def _check_backend(backend: str) -> None:
-    if backend not in BACKENDS:
-        raise ValueError(f"backend must be one of {BACKENDS}, got {backend!r}")
+def _check_backend(backend: str) -> str:
+    """A backend's name, the port's or the JAX package's
+    (``BACKEND_ALIASES``) -> the port's; raises ValueError listing every
+    accepted name."""
+    if backend not in BACKENDS + tuple(BACKEND_ALIASES):
+        raise ValueError(f"backend must be one of "
+                         f"{BACKENDS + tuple(BACKEND_ALIASES)}, got "
+                         f"{backend!r}")
+    return BACKEND_ALIASES.get(backend, backend)
 
 
 def _resolve_backend(backend: str, device, single: bool = False,
@@ -195,7 +214,7 @@ def _resolve_backend(backend: str, device, single: bool = False,
     REV2 takes the device engine, as the JAX package's 'auto' takes 'jax'),
     never at whether a GPU is present: a device engine asked for on a host
     without CUDA raises.  'native' raises for a cfg other than REV2."""
-    _check_backend(backend)
+    backend = _check_backend(backend)
     _check_cfg(cfg, backend)
     if backend == "auto":
         few = single or (lanes is not None and lanes < MIN_DEVICE_LANES)
@@ -208,9 +227,9 @@ def _resolve_backend(backend: str, device, single: bool = False,
 
 
 def compress(img, slices: int | str | None = None, cfg: CodecConfig = REV2,
-             device="cuda", primed: bool | None = None,
-             seeded: bool | None = None, tile_w: int | None = None,
-             backend: str = "torch", revision: int = 2) -> bytes:
+             backend: str = "torch", revision: int = 2,
+             primed: bool | None = None, seeded: bool | None = None,
+             tile_w: int | None = None, *, device="cuda") -> bytes:
     """Compress a uint8 [H, W, C] image.
 
     slices=None/1 -> reference-compatible single stream.  slices='auto' or
@@ -290,8 +309,8 @@ def compress(img, slices: int | str | None = None, cfg: CodecConfig = REV2,
 
 
 def encode_stripes(img: np.ndarray, bounds, cfg: CodecConfig = REV2,
-                   primed: bool = False, device="cuda",
-                   seed=None, backend: str = "torch") -> list[bytes]:
+                   primed: bool = False, backend: str = "torch", seed=None,
+                   *, device="cuda") -> list[bytes]:
     """Encode full-width stripes ``(y0, y1)`` as independent streams."""
     W = img.shape[1]
     engine, dev = _resolve_backend(backend, device, lanes=len(bounds),
@@ -327,8 +346,8 @@ def _encode_regions(img: np.ndarray, regions, cfg: CodecConfig,
     return out  # type: ignore[return-value]
 
 
-def decompress(data: bytes, cfg: CodecConfig = REV2, device="cuda",
-               strict: bool = True, backend: str = "torch"):
+def decompress(data: bytes, cfg: CodecConfig = REV2, backend: str = "torch",
+               strict: bool = True, *, device="cuda"):
     """Decompress any container format back to a uint8 [H, W, C] image.
 
     strict=False: a corrupt slice does not raise away the image; returns
@@ -338,7 +357,7 @@ def decompress(data: bytes, cfg: CodecConfig = REV2, device="cuda",
     with the 0x77 magic decodes as revision 0 (``rev0``, NumPy on the
     host).  device, backend, cfg: as in ``compress``.
     """
-    _check_backend(backend)
+    backend = _check_backend(backend)
     _check_cfg(cfg, backend)
     data = bytes(data)
     if container.is_sliced(data):
@@ -391,8 +410,8 @@ def decompress(data: bytes, cfg: CodecConfig = REV2, device="cuda",
 
 
 def decode_stripes(streams, bounds, W: int, C: int, cfg: CodecConfig = REV2,
-                   primed: bool = False, device="cuda", strict: bool = True,
-                   seed=None, skip=(), backend: str = "torch"):
+                   primed: bool = False, backend: str = "torch",
+                   strict: bool = True, seed=None, skip=(), *, device="cuda"):
     """Decode a sliced container's full-width stripes into one image."""
     H = bounds[-1][1]
     engine, dev = _resolve_backend(backend, device, lanes=len(bounds),
@@ -468,7 +487,7 @@ def _decode_regions(streams, regions, shape: tuple[int, int, int],
 
 
 def reencode_slice(data: bytes, index: int, stripe, cfg: CodecConfig = REV2,
-                   device="cuda") -> bytes:
+                   *, device="cuda") -> bytes:
     """Replace one stripe of a sliced container in place.
 
     ``stripe`` is the uint8 pixel block of region ``index`` (a stripe, or a
@@ -508,13 +527,13 @@ def reencode_slice(data: bytes, index: int, stripe, cfg: CodecConfig = REV2,
 
 
 def compress_sliced(img, slices: int | str = "auto", cfg: CodecConfig = REV2,
-                    device="cuda", backend: str = "torch") -> bytes:
+                    *, device="cuda", backend: str = "torch") -> bytes:
     """``compress`` into a sliced container (the JAX package's alias)."""
     return compress(img, slices=slices, cfg=cfg, device=device,
                     backend=backend)
 
 
-def decompress_sliced(data: bytes, cfg: CodecConfig = REV2, device="cuda",
-                      backend: str = "torch") -> np.ndarray:
+def decompress_sliced(data: bytes, cfg: CodecConfig = REV2, *,
+                      device="cuda", backend: str = "torch") -> np.ndarray:
     """``decompress`` (the JAX package's alias for sliced containers)."""
-    return decompress(data, cfg, device=device, backend=backend)
+    return decompress(data, cfg, backend, device=device)

@@ -18,7 +18,8 @@ in sliced mode) and ``decompress`` writes ``<input>.png`` unless ``-o``
 names a file; ``.ppm`` and ``.pgm`` need no Pillow.  ``--device cuda``
 (the default) runs the CUDA kernels and fails without a GPU; ``--device
 cpu`` runs their plain PyTorch versions; ``--backend native`` the C++ host
-runtime.
+runtime, and ``--backend jax`` (the JAX CLI's name) the same engines as
+``torch``.
 """
 from __future__ import annotations
 
@@ -31,7 +32,7 @@ import time
 import numpy as np
 
 from . import container
-from .api import BACKENDS
+from .api import BACKEND_ALIASES, BACKENDS
 from .core.config import EXT, EXT_SLICED
 
 IMAGE_EXTS = {".png", ".jpg", ".jpeg", ".bmp", ".ppm", ".pgm", ".pnm"}
@@ -221,10 +222,12 @@ def _cmd_corpus(args) -> int:
 
 def _engine_args(p: argparse.ArgumentParser, backend: bool = True) -> None:
     if backend:
-        p.add_argument("--backend", default="torch", choices=BACKENDS,
+        p.add_argument("--backend", default="torch",
+                       choices=BACKENDS + tuple(BACKEND_ALIASES),
                        help="torch (the port's engines on --device, "
-                            "default), auto, native (C++ on the CPU) or "
-                            "oracle (plain versions on the CPU)")
+                            "default), auto, native (C++ on the CPU), "
+                            "oracle (plain versions on the CPU) or jax "
+                            "(the JAX package's name for torch)")
     p.add_argument("--device", default="cuda",
                    help="cuda (the kernels, default) or cpu (their plain "
                         "versions)")

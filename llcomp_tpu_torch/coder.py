@@ -86,11 +86,11 @@ def _flush_shifts(low, rng, pend, run) -> list[tuple]:
     return flushed
 
 
-def finish_steps(fin: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-    """Final coder carries ``fin`` [4, S] (low, rng, pend, run) -> the two
+def finish_steps(carry: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Final coder carries ``carry`` [4, S] (low, rng, pend, run) -> the two
     forced flush shifts' slot records (meta, runs), each [2, S] int32 (the
     JAX package's ``coder.finish_steps``)."""
-    recs = _flush_shifts(*fin.to(torch.int64))
+    recs = _flush_shifts(*carry.to(torch.int64))
     meta = torch.stack([slot_meta(e, c, h) for e, c, h, _ in recs])
     runs = torch.stack([r for *_, r in recs]).to(torch.int32)
     return meta, runs
@@ -109,7 +109,7 @@ def finish_steps_off(fin: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     return torch.stack(recs), off.to(torch.int32)
 
 
-def expand_slots(meta: torch.Tensor, runs: torch.Tensor, outcap: int
+def expand_slots(meta: torch.Tensor, runs: torch.Tensor, *, outcap: int
                  ) -> tuple[torch.Tensor, torch.Tensor]:
     """Slot records -> (bytes [S, outcap] u8, stream lengths [S] int32).
 

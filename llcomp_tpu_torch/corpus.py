@@ -131,9 +131,9 @@ def _encode_chunks(lanes: list[np.ndarray], cfg: CodecConfig, primed: bool,
 
 def compress_corpus(images: list[np.ndarray], slice_h: int = 16,
                     cfg: CodecConfig = REV2, max_lanes_per_batch: int = 4096,
-                    primed: bool | None = None, backend: str = "torch",
-                    seeded: bool | None = None, tile_w: int | str = "auto",
-                    device="cuda", mesh=None
+                    mesh=None, primed: bool | None = None,
+                    backend: str = "torch", seeded: bool | None = None,
+                    tile_w: int | str = "auto", *, device="cuda"
                     ) -> tuple[list[bytes], CorpusStats]:
     """Compress many images -> (one sliced container each, stats).
 
@@ -208,9 +208,9 @@ def compress_corpus(images: list[np.ndarray], slice_h: int = 16,
 
 
 def decompress_corpus(blobs: list[bytes], cfg: CodecConfig = REV2,
-                      max_lanes_per_batch: int = 4096,
-                      backend: str = "torch", device="cuda",
-                      mesh=None) -> list[np.ndarray]:
+                      max_lanes_per_batch: int = 4096, mesh=None,
+                      backend: str = "torch", *,
+                      device="cuda") -> list[np.ndarray]:
     """Decompress many sliced containers, stripes of equal shape, flags and
     seed sharing lane batches across images.  ``mesh``: a list of devices
     over which each batch is split, in place of ``backend`` and

@@ -7,7 +7,10 @@ device, and lanes whose streams tripped the corruption guards are reported.
 A chunk is launched (H2D, kernel 2, inverse RCT queued on a stream) apart
 from its collection (D2H), and ``device.overlapped`` runs the chunks, so
 that a list of devices (``parallel``) starts every shard before it waits
-on any.
+on any.  ``decode_lanes(streams, shape, cfg, engine, primed, errors, seed)``
+takes the JAX package's parameters in its order, with ``device`` after them,
+keyword-only; each of the JAX package's decode engine names (``ENGINES``)
+runs kernel 2.
 """
 from __future__ import annotations
 
@@ -25,6 +28,10 @@ from .kernels.encode_fused import model_bytes
 # Device bytes one chunk of lanes may hold: model rows, stream bytes, planes
 # in two layouts and the decoded pixels.
 LANE_BUDGET_BYTES = 8 << 30
+# The JAX package's decode engines: kernel 2 there, or one of its XLA scans
+# ("Not to port").  Each gives the same pixels, so each name runs kernel 2
+# (its plain version on the CPU) on ``device``.
+ENGINES = ("auto", "pallas", "decision", "lockstep", "rowbatch")
 
 
 def _pack(streams: list[bytes]) -> tuple[np.ndarray, np.ndarray]:
@@ -109,18 +116,23 @@ def _decode(streams: list[bytes], shape: tuple[int, int, int], init,
 
 
 def decode_lanes(streams: list[bytes], shape: tuple[int, int, int],
-                 cfg: CodecConfig = REV2, primed: bool = False,
-                 errors: str = "raise", seed=None, device="cuda"):
+                 cfg: CodecConfig = REV2, engine: str = "auto",
+                 primed: bool = False, errors: str = "raise", seed=None, *,
+                 device="cuda"):
     """Decode equal-geometry headerless streams -> images [S, H, W, C] u8.
 
-    primed / seed: the model start, as in ``encode.encode_lanes`` (a seed
-    promotes ``primed``).  errors: 'raise' raises ValueError naming the
+    engine: any of the JAX package's names (``ENGINES``); every one runs
+    kernel 2 on ``device``.  primed / seed: the model start, as in
+    ``encode.encode_lanes`` (a seed promotes ``primed``).  errors: 'raise'
+    raises ValueError naming the
     corrupt lanes; 'report' returns ``(images, bad_lanes)`` instead, with
     every lane not in ``bad_lanes`` exact.  cfg: any that ``config.check``
     passes.  The loop of ``parallel.decode_lanes_sharded`` on a list of one
     device.
     """
     config.check(cfg)
+    if engine not in ENGINES:
+        raise ValueError(f"engine must be one of {ENGINES}, got {engine!r}")
     if errors not in ("raise", "report"):
         raise ValueError(f"errors must be 'raise' or 'report', got {errors!r}")
     out, bad = _decode(streams, shape, _start_table(primed, seed, cfg),

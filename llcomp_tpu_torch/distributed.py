@@ -32,7 +32,8 @@ from .core.config import REV2, CodecConfig
 
 def initialize(coordinator_address: str | None = None,
                num_processes: int | None = None,
-               process_id: int | None = None, backend: str = "nccl") -> None:
+               process_id: int | None = None, *,
+               backend: str = "nccl") -> None:
     """Bring up the default process group at ``tcp://coordinator_address``
     (``host:port``) with ``num_processes`` ranks, this one ``process_id``.
     A no-op when a group is already up, or when no address and no count
@@ -134,7 +135,7 @@ def _rank_device(device) -> torch.device:
 
 
 def compress_image_pod(img, slice_h: int = 8, cfg: CodecConfig = REV2,
-                       primed: bool | None = None, device="cuda") -> bytes:
+                       primed: bool | None = None, *, device="cuda") -> bytes:
     """Compress one image with its stripes spread over the group's
     processes.
 
@@ -171,7 +172,7 @@ def compress_image_pod(img, slice_h: int = 8, cfg: CodecConfig = REV2,
 
 
 def compress_corpus_distributed(images, slice_h: int = 8,
-                                cfg: CodecConfig = REV2, device="cuda"):
+                                cfg: CodecConfig = REV2, *, device="cuda"):
     """Each process compresses its span of the manifest on ``device`` (a
     bare 'cuda': this rank's card) -> ((start, stop), its blobs, stats).
     File-granular sharding needs no communication: callers write each blob

@@ -1,8 +1,12 @@
 """Lane encoding: ``[S, H, W, C]`` u8 stripes -> one stream per lane.
 
-Two engines give the same bytes:
+``encode_lanes(imgs, cfg, engine, primed, seed)`` takes the JAX package's
+parameters in its order, with ``device`` and ``variant`` after them,
+keyword-only.  ``engine`` takes the port's names and the JAX package's
+(``ENGINE_ALIASES``): 'auto' (the default) and 'xla' run 'fused', 'pallas'
+runs 'sort'.  Two engines give the same bytes:
 
-* ``"fused"`` (default): port of the fused branch of ``encode_lanes`` in
+* ``"fused"`` (the default, "auto"): port of the fused branch of ``encode_lanes`` in
   ``llcomp_tpu/encode.py`` (`encode.py:979-1031`, ``_encode_lanes_fused``,
   ``_outcap``) and of its precompute (``_stage_precompute_g``,
   ``_apply_rct``, ``_stage_xs_fused``, `encode.py:213-290,691-696`).  The
@@ -58,6 +62,11 @@ LANE_BUDGET_BYTES = 8 << 30
 MAX_INFLIGHT = 2       # pieces of the fused engine a device holds at once
 ENGINES = ("fused", "sort")
 VARIANTS = ("symbol", "decision")     # the sort engine's two chains
+# The JAX package's engine names -> the port's engine.  Every engine gives
+# the same bytes, so a name only chooses the kernels: 'auto' and 'xla' (an
+# XLA scan there, "Not to port") run kernel 1; 'pallas', the JAX sort chain,
+# runs the sort engine (kernels 3 and 4 with the default variant).
+ENGINE_ALIASES = {"auto": "fused", "pallas": "sort", "xla": "fused"}
 MAX_SLOTS = 24            # decisions per symbol at most (2 * 10 + 3, rounded)
 # Peak device bytes of the sort chain per decision slot (n_sym * K a lane):
 # the walk's int32 records, their int64 copies, the compact key and its
@@ -432,10 +441,14 @@ def _streams(out: np.ndarray, lens: np.ndarray) -> list[bytes]:
 
 
 def _check_args(cfg: CodecConfig, engine: str, variant: str, primed: bool,
-                seed) -> None:
+                seed) -> str:
+    """Check the arguments of a lane encode -> the port's name of
+    ``engine`` (``ENGINE_ALIASES``)."""
     config.check(cfg)
-    if engine not in ENGINES:
-        raise ValueError(f"engine must be one of {ENGINES}, got {engine!r}")
+    if engine not in ENGINES + tuple(ENGINE_ALIASES):
+        raise ValueError(f"engine must be one of "
+                         f"{ENGINES + tuple(ENGINE_ALIASES)}, got {engine!r}")
+    engine = ENGINE_ALIASES.get(engine, engine)
     if variant not in VARIANTS:
         raise ValueError(f"variant must be one of {VARIANTS}, got {variant!r}")
     if variant == "decision" and engine != "sort":
@@ -443,6 +456,7 @@ def _check_args(cfg: CodecConfig, engine: str, variant: str, primed: bool,
     if variant == "decision" and (primed or seed is not None):
         raise ValueError("variant='decision' walks every context from state "
                          "0: it takes no primed or seeded lanes")
+    return engine
 
 
 def _as_lanes(imgs) -> np.ndarray:
@@ -452,8 +466,8 @@ def _as_lanes(imgs) -> np.ndarray:
     return imgs
 
 
-def encode_lanes(imgs, cfg: CodecConfig = REV2, primed: bool = False,
-                 seed=None, device="cuda", engine: str = "fused",
+def encode_lanes(imgs, cfg: CodecConfig = REV2, engine: str = "auto",
+                 primed: bool = False, seed=None, *, device="cuda",
                  variant: str = "symbol") -> list[bytes]:
     """Encode equal-shaped lanes [S, H, W, C] u8 -> per-lane headerless
     streams under ``cfg`` (any cfg that ``config.check`` passes, on either
@@ -462,9 +476,10 @@ def encode_lanes(imgs, cfg: CodecConfig = REV2, primed: bool = False,
     primed: context row h starts at tables.PRIOR_TAB[h % 121] (sliced
     container flag bit 0).  seed: a [121, 8] u8 stored-seed table (flag
     bit 1) used instead.  device: 'cuda' (the kernels) or 'cpu' (their
-    plain versions).  engine: 'fused' (kernel 1) or 'sort', the counterpart
-    of the JAX package's engine='pallas' (kernels 3 and 4; raises
-    ValueError for a stripe past its format bounds).  Both give the same
+    plain versions).  engine: 'fused' (kernel 1) or 'sort' (kernels 3 and
+    4; raises ValueError for a stripe past its format bounds), or a name of
+    the JAX package's (``ENGINE_ALIASES``: 'auto', the default, and 'xla'
+    run 'fused', 'pallas' runs 'sort').  Every engine gives the same
     bytes.  variant: the sort engine's chain, 'symbol' (kernels 3 and 4) or
     'decision' (kernels 5-7), the counterpart of the JAX package's
     LLCT_ENCODE_VARIANT=decision, for unprimed, unseeded lanes only (raises
@@ -472,11 +487,12 @@ def encode_lanes(imgs, cfg: CodecConfig = REV2, primed: bool = False,
     as one batch of ``encode_lanes_pipelined``, whose chunks overlap their
     copies with the kernel; the sort engine codes its chunks in turn.
     """
-    _check_args(cfg, engine, variant, primed, seed)
+    engine = _check_args(cfg, engine, variant, primed, seed)
     dev = devmod.resolve(device)
     imgs = _as_lanes(imgs)
     if engine == "fused":
-        return encode_lanes_pipelined([imgs], cfg, primed, seed, dev)[0]
+        return encode_lanes_pipelined([imgs], cfg, primed, seed,
+                                      device=dev)[0]
     S = imgs.shape[0]
     n_sym = int(np.prod(imgs.shape[1:]))
     init = _start_table(primed, seed, cfg)
@@ -498,7 +514,7 @@ def encode_lanes(imgs, cfg: CodecConfig = REV2, primed: bool = False,
 # --- several batches, overlapped ---------------------------------------------
 
 
-def pipeline_fits(n_sym: int, cfg: CodecConfig = REV2) -> bool:
+def pipeline_fits(n_sym: int, *, cfg: CodecConfig = REV2) -> bool:
     """True iff a lane of ``n_sym`` symbols fits one chunk of the fused
     engine's budget, so that ``encode_lanes_pipelined`` can hold it in
     flight beside others (`encode.py:788-798` of the JAX package, whose
@@ -613,7 +629,7 @@ def _encode_fused(batches: list[np.ndarray], devs: list, cfg: CodecConfig,
     work, where = [], []
     for bi, b in enumerate(batches):
         n_sym = int(np.prod(b.shape[1:]))
-        if not pipeline_fits(n_sym, cfg):
+        if not pipeline_fits(n_sym, cfg=cfg):
             max_inflight = 1
         for dev, lo, hi in devmod.pieces(len(b), devs, lanes_per_chunk(
                 n_sym, "fused", cfg=cfg)):
@@ -628,8 +644,8 @@ def _encode_fused(batches: list[np.ndarray], devs: list, cfg: CodecConfig,
 
 
 def encode_lanes_pipelined(batches, cfg: CodecConfig = REV2,
-                           primed: bool = False, seed=None, device="cuda",
-                           engine: str = "fused",
+                           primed: bool = False, seed=None,
+                           engine: str = "auto", *, device="cuda",
                            max_inflight: int = MAX_INFLIGHT
                            ) -> list[list[bytes]]:
     """Encode several lane batches [S_i, H_i, W_i, C_i] u8 -> each batch's
@@ -643,17 +659,18 @@ def encode_lanes_pipelined(batches, cfg: CodecConfig = REV2,
     the bytes up to their longest stream.  At most ``max_inflight`` pieces
     are on the device at once, or one when a lane alone outgrows a chunk's
     budget (``pipeline_fits``).  A single piece runs at once on the
-    current stream.  engine='sort' runs the batches one after another
-    through ``encode_lanes``.  On the CPU the pieces run in turn through
-    the plain version.
+    current stream.  engine: as in ``encode_lanes``; 'sort' (and the JAX
+    package's 'pallas') runs the batches one after another through
+    ``encode_lanes``.  On the CPU the pieces run in turn through the plain
+    version.
     """
-    _check_args(cfg, engine, "symbol", primed, seed)
+    engine = _check_args(cfg, engine, "symbol", primed, seed)
     if max_inflight < 1:
         raise ValueError(f"max_inflight must be >= 1, got {max_inflight}")
     dev = devmod.resolve(device)
     batches = [_as_lanes(b) for b in batches]
     if engine == "sort":
-        return [encode_lanes(b, cfg, primed, seed, dev, engine)
+        return [encode_lanes(b, cfg, engine, primed, seed, device=dev)
                 for b in batches]
     return _encode_fused(batches, [dev], cfg,
                          _start_table(primed, seed, cfg), max_inflight)

@@ -1,10 +1,10 @@
 """Entry points of the port, the counterpart of the root
 ``__graft_entry__.py`` (which stays the JAX package's).
 
-``entry(device)``               -- the flagship compute step and its input:
+``entry(device=)``              -- the flagship compute step and its input:
                                    the fused engine (precompute and kernel 1)
                                    on a batch of 8 lanes.
-``dryrun_multichip(n, mesh)``   -- the sharded round trip over an n-device
+``dryrun_multichip(n, mesh=)``  -- the sharded round trip over an n-device
                                    list, the fused engine against the sort
                                    engine, and the lanes' placement.
 """
@@ -20,7 +20,7 @@ from .core.config import REV2
 H, W, C, S = 16, 16, 3, 8
 
 
-def entry(device="cuda"):
+def entry(*, device="cuda"):
     """-> (fn, args): ``fn(*args)`` codes the 8 lanes of 16x16x3 in
     ``args`` (on ``device``) through the fused engine, returning the
     (bytes [8, row] u8, lengths [8] int32) tensors of
@@ -44,7 +44,7 @@ def _check(cond: bool, what: str) -> None:
         raise RuntimeError(f"dryrun_multichip: {what}")
 
 
-def dryrun_multichip(n_devices: int, mesh=None) -> None:
+def dryrun_multichip(n_devices: int, *, mesh=None) -> None:
     """Run the sharded path over ``n_devices`` devices on tiny shapes and
     check it.  ``mesh`` defaults to ``parallel.make_mesh(n_devices)``,
     which raises with fewer GPUs: no CPU fallback (pass ``['cpu'] * n`` to

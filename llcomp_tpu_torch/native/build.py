@@ -41,12 +41,13 @@ def compiler() -> str:
                            "needs one to build llcomp_host.cpp")
 
 
-def build() -> pathlib.Path:
+def build(force: bool = False) -> pathlib.Path:
     """Compile the runtime unless a build of this exact source and these
-    flags exists; -> the shared library's path."""
+    flags exists (``force``: compile it all the same); -> the shared
+    library's path."""
     key = _SRC.read_bytes() + " ".join(FLAGS).encode()
     out = BUILD_DIR / f"_llcomp_host_{hashlib.sha256(key).hexdigest()[:16]}.so"
-    if out.exists():
+    if out.exists() and not force:
         return out
     cc = compiler()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)

@@ -56,7 +56,7 @@ def devices(mesh) -> list[torch.device]:
 
 def encode_lanes_sharded(lanes, mesh, cfg: CodecConfig = REV2,
                          primed: bool = False, seed=None,
-                         engine: str = "fused") -> list[bytes]:
+                         engine: str = "auto") -> list[bytes]:
     """Encode equal-shaped lanes [S, H, W, C] u8 split over ``mesh`` ->
     per-lane headerless streams, equal to ``encode.encode_lanes``'s.
 
@@ -64,16 +64,18 @@ def encode_lanes_sharded(lanes, mesh, cfg: CodecConfig = REV2,
     'fused' (kernel 1, through the loop of
     ``encode.encode_lanes_pipelined``: every CUDA shard launched before any
     is collected) or 'sort' (kernels 3 and 4, whose chain syncs between
-    stages: the shards run in turn).  CPU shards run the plain versions.
+    stages: the shards run in turn), or a name of the JAX package's
+    (``encode.ENGINE_ALIASES``: 'auto', the default, and 'xla' run 'fused',
+    'pallas' runs 'sort').  CPU shards run the plain versions.
     """
-    encmod._check_args(cfg, engine, "symbol", primed, seed)
+    engine = encmod._check_args(cfg, engine, "symbol", primed, seed)
     devs = devices(mesh)
     lanes = encmod._as_lanes(lanes)
     if engine == "sort":
         return [s for dev, (a, b) in zip(devs, shard_plan(len(lanes),
                                                           len(devs)))
                 if b > a for s in encmod.encode_lanes(
-                    lanes[a:b], cfg, primed, seed, dev, engine)]
+                    lanes[a:b], cfg, engine, primed, seed, device=dev)]
     return encmod._encode_fused([lanes], devs, cfg,
                                 encmod._start_table(primed, seed, cfg),
                                 encmod.MAX_INFLIGHT)[0]

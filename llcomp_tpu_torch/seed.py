@@ -51,14 +51,14 @@ def _count_bits(img: np.ndarray, sample_mp: float, cfg: CodecConfig, dev,
         n0 += torch.bincount(key[valid & (bit == 0)], minlength=BUCKETS * subs)
 
 
-def derive(img, cfg: CodecConfig = REV2, sample_mp: float = 2.0,
+def derive(img, cfg: CodecConfig = REV2, sample_mp: float = 2.0, *,
            device="cuda") -> np.ndarray:
     """uint8 [H, W, C] -> [121, 8] u8 start-state table."""
-    return derive_pooled([img], cfg, sample_mp, device)
+    return derive_pooled([img], cfg, sample_mp, device=device)
 
 
 def derive_pooled(imgs, cfg: CodecConfig = REV2, sample_mp: float = 0.5,
-                  device="cuda") -> np.ndarray:
+                  *, device="cuda") -> np.ndarray:
     """One table pooled over several images (a batch of lanes from several
     images shares one table; each image's container stores its copy)."""
     # a seed has the prior's 8 substates a bucket: callers derive one only

@@ -101,7 +101,7 @@ def test_error_paths(tmp_path, capsys, monkeypatch):
     assert "error:" in capsys.readouterr().err
     assert cli.main(["info", str(bad)]) == 1
     with pytest.raises(SystemExit):
-        cli.main(["compress", str(bad), "--backend", "jax"])
+        cli.main(["compress", str(bad), "--backend", "xla"])
     # the default device is the GPU: without one the CLI says so
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     p = tmp_path / "img.ppm"

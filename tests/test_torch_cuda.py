@@ -26,6 +26,7 @@ from chip_smoke import (MIXED, OVERFLOW_SEED, _flip_slice, _malicious_stream,
                         sanitizer_status)
 from chip_smoke import (CFG_BATCHES, CFG_CASES, _cfg_start, cfg_sort_case,
                         codec_batches, codec_case)
+from chip_smoke import bench_images, bench_lanes
 from llcomp_tpu_torch import (api, coder, container, corpus, decode, encode,
                               graft_entry, host, parallel, probes, seed)
 from llcomp_tpu_torch import device as devmod
@@ -469,7 +470,8 @@ def test_walk_and_coders_equal_plain_on_random_records(dev):
     want = coder.expand_kp(kp, kp_fin, int(lens.max()))
     mf, rf = coder.finish_steps(fin4)
     got, lens2 = coder.expand_slots(torch.cat([meta, mf]),
-                                    torch.cat([runs, rf]), int(lens.max()))
+                                    torch.cat([runs, rf]),
+                                    outcap=int(lens.max()))
     assert torch.equal(lens2, lens) and torch.equal(got, want)
 
 
@@ -961,8 +963,9 @@ def test_compress_sharded_on_the_card_equals_the_native_backend(dev, slices):
 
 def test_dryrun_multichip_on_one_card_twice(dev):
     graft_entry.dryrun_multichip(2, mesh=TWICE)
-    fn, args = graft_entry.entry("cuda")
-    want, lens = graft_entry.entry("cpu")[0](*graft_entry.entry("cpu")[1])
+    fn, args = graft_entry.entry(device="cuda")
+    fn_c, args_c = graft_entry.entry(device="cpu")
+    want, lens = fn_c(*args_c)
     out, n = fn(*args)
     assert torch.equal(n.cpu(), lens)
     for s in range(len(lens)):
@@ -1096,3 +1099,21 @@ def test_every_kernel_launches_on_its_tensors_device(two_cards):
                 assert torch.equal(a, b), k
             else:
                 assert a == b, k
+
+
+@pytest.mark.parametrize("engine",
+                         encode.ENGINES + tuple(encode.ENGINE_ALIASES))
+def test_encode_engine_names_on_the_bench_batch(dev, engine):
+    """``encode_lanes(imgs, REV2, engine)`` for each encode name, the JAX
+    package's too, on the bench batch (1,024 lanes of 8x512x3, primed):
+    the keyword spelling's streams, through the kernels that the alias
+    table names."""
+    lanes = bench_lanes(bench_images(100))
+    port = encode.ENGINE_ALIASES.get(engine, engine)
+    want = encode.encode_lanes(lanes, primed=True, device="cuda",
+                               engine=port)
+    before = (ef.encode_fused.launches, ek.walk_symbols.launches)
+    assert encode.encode_lanes(lanes, REV2, engine, True) == want
+    ran = (ef.encode_fused.launches - before[0],
+           ek.walk_symbols.launches - before[1])
+    assert (ran[0] > 0, ran[1] > 0) == (port == "fused", port == "sort")

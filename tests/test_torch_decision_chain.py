@@ -230,7 +230,8 @@ def test_expand_slots_equals_jax_on_random_slot_records():
     want, want_lens = jcoder.expand_slots_on_device(
         jnp.asarray(meta), jnp.asarray(runs), outcap)
     got, lens = coder.expand_slots(torch.from_numpy(meta.T.copy()),
-                                   torch.from_numpy(runs.T.copy()), outcap)
+                                   torch.from_numpy(runs.T.copy()),
+                                   outcap=outcap)
     assert torch.equal(lens, torch.from_numpy(np.array(want_lens)))
     assert torch.equal(got, torch.from_numpy(np.array(want)))
 
@@ -242,7 +243,7 @@ def test_slot_records_expand_to_the_chain_bytes(chain):
     meta, runs, fin4 = ek.coder_scan(_minor(chain["cx"], S))
     mf, rf = coder.finish_steps(fin4)
     got, lens = coder.expand_slots(torch.cat([meta, mf]),
-                                   torch.cat([runs, rf]), cap)
+                                   torch.cat([runs, rf]), outcap=cap)
     assert torch.equal(lens, _minor(chain["lens"], S)[0])
     want = _major(chain["bytes"], S)
     for s in range(S):

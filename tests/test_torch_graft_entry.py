@@ -11,7 +11,7 @@ from llcomp_tpu_torch import graft_entry, parallel
 
 
 def test_entry_streams_equal_the_oracle():
-    fn, args = graft_entry.entry("cpu")
+    fn, args = graft_entry.entry(device="cpu")
     (lanes,) = args
     assert lanes.shape == (8, 16, 16, 3) and lanes.dtype == torch.uint8
     out, lens = fn(*args)

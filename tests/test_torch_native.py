@@ -99,7 +99,8 @@ def test_resolve_backend_by_shape_only(monkeypatch):
     assert api._resolve_backend("oracle", "cuda", lanes=1) == ("torch", cpu)
     assert api._resolve_backend("native", "cuda", lanes=4096) == ("native",
                                                                    None)
-    for bad in ("jax", "xla", "pallas", ""):
+    assert api._resolve_backend("jax", "cpu", lanes=1) == ("torch", cpu)
+    for bad in ("xla", "pallas", "cuda", ""):
         with pytest.raises(ValueError, match="backend must be one of"):
             api._resolve_backend(bad, "cpu")
     # without CUDA: auto raises where the device engine would run, and

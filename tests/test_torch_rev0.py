@@ -137,13 +137,13 @@ def test_bad_headers_raise_value_error(strict, tmp_path, capsys):
 def test_revision_0_checks_the_backend():
     img = make_photo(4, 4)
     blob = rev0.encode(img)
-    for bad in ("jax", "pallas"):
+    for bad in ("xla", "pallas"):
         with pytest.raises(ValueError, match="backend must be one of"):
             api.compress(img, revision=0, backend=bad)
         with pytest.raises(ValueError, match="backend must be one of"):
             api.decompress(blob, backend=bad)
     # revision 0 runs on the host: every accepted backend gives its bytes
-    for backend in api.BACKENDS:
+    for backend in api.BACKENDS + tuple(api.BACKEND_ALIASES):
         assert api.compress(img, revision=0, backend=backend) == blob
         np.testing.assert_array_equal(
             api.decompress(blob, backend=backend), img)

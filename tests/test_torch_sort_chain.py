@@ -323,7 +323,7 @@ def test_seed_states_past_the_state_machine_raise():
 def test_engine_and_device_are_checked(monkeypatch):
     lanes = _mixed_lanes()[:1]
     with pytest.raises(ValueError, match="engine"):
-        encode.encode_lanes(lanes, device="cpu", engine="pallas")
+        encode.encode_lanes(lanes, device="cpu", engine="lockstep")
     with pytest.raises(ValueError, match="multiple of 4"):
         ek.walk_symbols(torch.zeros((2, 3), dtype=torch.int32), K=6)
     with pytest.raises(ValueError, match="int32"):
