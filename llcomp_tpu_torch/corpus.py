@@ -17,7 +17,7 @@ import time
 import numpy as np
 import torch
 
-from . import api, container
+from . import api, container, profiling
 from .core import config
 from .core.config import REV2, CodecConfig
 
@@ -153,15 +153,19 @@ def compress_corpus(images: list[np.ndarray], slice_h: int = 16,
     """
     from . import seed as seedmod
 
-    images = [api._as_image(im) for im in images]
-    api._check_cfg(cfg)
-    shapes = [im.shape for im in images]
-    eff, regions_per, groups = _region_plan(shapes, slice_h, tile_w)
-    engine, dev = _resolve(backend, device, mesh,
-                           lanes=sum(len(r) for r in regions_per), cfg=cfg)
+    with profiling.span("corpus/plan"):
+        images = [api._as_image(im) for im in images]
+        api._check_cfg(cfg)
+        shapes = [im.shape for im in images]
+        eff, regions_per, groups = _region_plan(shapes, slice_h, tile_w)
+        engine, dev = _resolve(backend, device, mesh,
+                               lanes=sum(len(r) for r in regions_per),
+                               cfg=cfg)
     policy_dev = dev or torch.device("cpu")   # the native runtime's host
     if primed is None:
-        votes = [api._pick_primed(im, policy_dev, cfg) for im in images[:8]]
+        with profiling.span("corpus/policy"):
+            votes = [api._pick_primed(im, policy_dev, cfg)
+                     for im in images[:8]]
         primed = sum(votes) * 2 > len(votes)
     if seeded is None:
         mean_raw = sum(im.nbytes for im in images) / max(len(images), 1)
@@ -169,41 +173,47 @@ def compress_corpus(images: list[np.ndarray], slice_h: int = 16,
     config.check_start(cfg, primed or seeded)
     seed_tab = seed_blob = None
     if seeded:
-        seed_tab = seedmod.derive_pooled(images[:16], cfg, device=policy_dev)
-        seed_blob = seedmod.pack_blob(seed_tab)
+        with profiling.span("corpus/seed"):
+            seed_tab = seedmod.derive_pooled(images[:16], cfg,
+                                             device=policy_dev)
+            seed_blob = seedmod.pack_blob(seed_tab)
         primed = True
     stats = CorpusStats(images=len(images))
 
     t0 = time.perf_counter()
-    members, lanes = [], []
-    for group in groups.values():
-        for start in range(0, len(group), max_lanes_per_batch):
-            chunk = group[start : start + max_lanes_per_batch]
-            members.append(chunk)
-            lanes.append(np.stack([images[i][y0:y1, x0:x1]
-                                   for i, _j, (y0, y1, x0, x1) in chunk]))
-            stats.lanes += len(chunk)
-            stats.batches += 1
+    with profiling.span("corpus/stack"):
+        members, lanes = [], []
+        for group in groups.values():
+            for start in range(0, len(group), max_lanes_per_batch):
+                chunk = group[start : start + max_lanes_per_batch]
+                members.append(chunk)
+                lanes.append(np.stack([images[i][y0:y1, x0:x1]
+                                       for i, _j, (y0, y1, x0, x1) in chunk]))
+                stats.lanes += len(chunk)
+                stats.batches += 1
     per_image: list[list] = [[None] * len(regs) for regs in regions_per]
-    for chunk, streams in zip(members, _encode_chunks(
-            lanes, cfg, primed, seed_tab, engine, dev, mesh)):
-        for (i, j, _region), blob in zip(chunk, streams):
-            per_image[i][j] = blob
+    with profiling.span("corpus/lanes"):
+        for chunk, streams in zip(members, _encode_chunks(
+                lanes, cfg, primed, seed_tab, engine, dev, mesh)):
+            for (i, j, _region), blob in zip(chunk, streams):
+                per_image[i][j] = blob
     stats.encode_s = time.perf_counter() - t0
 
     flags = ((container.FLAG_SEEDED if seeded
               else container.FLAG_PRIMED if primed else 0)
              | container.FLAG_CRC)
     blobs = []
-    for idx, im in enumerate(images):
-        H, W, C = im.shape
-        blob = container.pack_sliced(per_image[idx], W, H, C, eff[idx][0],
-                                     cfg, flags=flags, seed_blob=seed_blob,
-                                     tile_w=eff[idx][1])
-        blobs.append(blob)
-        stats.pixels += H * W
-        stats.raw_bytes += im.nbytes
-        stats.compressed_bytes += len(blob)
+    with profiling.span("corpus/pack"):
+        for idx, im in enumerate(images):
+            H, W, C = im.shape
+            blob = container.pack_sliced(per_image[idx], W, H, C,
+                                         eff[idx][0], cfg, flags=flags,
+                                         seed_blob=seed_blob,
+                                         tile_w=eff[idx][1])
+            blobs.append(blob)
+            stats.pixels += H * W
+            stats.raw_bytes += im.nbytes
+            stats.compressed_bytes += len(blob)
     return blobs, stats
 
 
@@ -218,42 +228,48 @@ def decompress_corpus(blobs: list[bytes], cfg: CodecConfig = REV2,
     from . import decode
     from . import seed as seedmod
 
-    api._check_cfg(cfg)
-    metas = [container.unpack_sliced(b, cfg) for b in blobs]
-    # the seed blob is part of the key, so every batch has one start table
-    groups: dict[tuple, list[tuple[int, tuple, bytes]]] = {}
-    for idx, (streams, W, H, C, slice_h, flags, seed_blob,
-              tile_w) in enumerate(metas):
-        primed = bool(flags & container.FLAG_PRIMED)
-        for j, (y0, y1, x0, x1) in enumerate(
-                container.tile_regions(W, H, slice_h, tile_w)):
-            groups.setdefault((y1 - y0, x1 - x0, C, primed, seed_blob),
-                              []).append((idx, (y0, y1, x0, x1), streams[j]))
-    engine, dev = _resolve(backend, device, mesh,
-                           lanes=sum(len(m) for m in groups.values()),
-                           cfg=cfg)
-    outs = [np.empty((H, W, C), dtype=np.uint8)
-            for (_, W, H, C, _, _, _, _) in metas]
+    with profiling.span("corpus/parse"):
+        api._check_cfg(cfg)
+        metas = [container.unpack_sliced(b, cfg) for b in blobs]
+    with profiling.span("corpus/plan"):
+        # the seed blob is part of the key, so every batch has one start table
+        groups: dict[tuple, list[tuple[int, tuple, bytes]]] = {}
+        for idx, (streams, W, H, C, slice_h, flags, seed_blob,
+                  tile_w) in enumerate(metas):
+            primed = bool(flags & container.FLAG_PRIMED)
+            for j, (y0, y1, x0, x1) in enumerate(
+                    container.tile_regions(W, H, slice_h, tile_w)):
+                groups.setdefault(
+                    (y1 - y0, x1 - x0, C, primed, seed_blob),
+                    []).append((idx, (y0, y1, x0, x1), streams[j]))
+        engine, dev = _resolve(backend, device, mesh,
+                               lanes=sum(len(m) for m in groups.values()),
+                               cfg=cfg)
+        seed_tabs = {blob: seedmod.unpack_blob(blob) for *_, blob in groups
+                     if blob is not None}
+        outs = [np.empty((H, W, C), dtype=np.uint8)
+                for (_, W, H, C, _, _, _, _) in metas]
     for (rows, cols, C, primed, seed_blob), group in groups.items():
-        seed_tab = (None if seed_blob is None
-                    else seedmod.unpack_blob(seed_blob))
+        seed_tab = seed_tabs.get(seed_blob)
         for start in range(0, len(group), max_lanes_per_batch):
             chunk = group[start : start + max_lanes_per_batch]
             streams = [m[2] for m in chunk]
-            if mesh is not None:
-                from . import parallel
+            with profiling.span("corpus/lanes"):
+                if mesh is not None:
+                    from . import parallel
 
-                lanes = parallel.decode_lanes_sharded(
-                    streams, (rows, cols, C), mesh, cfg, primed, seed_tab)
-            elif engine == "native":
-                from . import host
+                    lanes = parallel.decode_lanes_sharded(
+                        streams, (rows, cols, C), mesh, cfg, primed, seed_tab)
+                elif engine == "native":
+                    from . import host
 
-                lanes = host.decode_streams(streams, (rows, cols, C),
-                                            primed=primed, seed=seed_tab)
-            else:
-                lanes = decode.decode_lanes(streams, (rows, cols, C), cfg,
-                                            primed=primed, seed=seed_tab,
-                                            device=dev)
-            for (idx, (y0, y1, x0, x1), _), lane in zip(chunk, lanes):
-                outs[idx][y0:y1, x0:x1] = lane
+                    lanes = host.decode_streams(streams, (rows, cols, C),
+                                                primed=primed, seed=seed_tab)
+                else:
+                    lanes = decode.decode_lanes(streams, (rows, cols, C), cfg,
+                                                primed=primed, seed=seed_tab,
+                                                device=dev)
+            with profiling.span("corpus/assemble"):
+                for (idx, (y0, y1, x0, x1), _), lane in zip(chunk, lanes):
+                    outs[idx][y0:y1, x0:x1] = lane
     return outs

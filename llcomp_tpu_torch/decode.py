@@ -74,11 +74,13 @@ def _launch_chunk(streams: list[bytes], shape, init, cfg: CodecConfig,
     (pageable: the host waits for the copies, not for the kernels before
     them), kernel 2 and ``rct_inverse`` are queued.  Each stage is
     ``profiling.timed`` on the current stream and only named on a side
-    stream.  -> what ``_collect_chunk`` takes: device (images, err), and
-    the stream."""
+    stream; the host's packing of the streams is ``decode/pack``.  -> what
+    ``_collect_chunk`` takes: device (images, err), and the stream."""
     stage = profiling.timed if stream is None else profiling.marked
+    with profiling.span("decode/pack"):
+        packed = _pack(streams)
     with devmod.guard(dev, stream):
-        data, lens = stage("decode/upload", _upload, *_pack(streams), dev)
+        data, lens = stage("decode/upload", _upload, *packed, dev)
         imgs, err = stage("decode/kernel", _kernel, data, lens, shape, init,
                           cfg)
     return imgs, err, stream
@@ -112,7 +114,8 @@ def _decode(streams: list[bytes], shape: tuple[int, int, int], init,
     bad = sorted(cut[i][1] + k for i in order for k in done[i][1])
     if not cut:
         return np.zeros((0, H, W, C), dtype=np.uint8), bad
-    return np.concatenate([done[i][0] for i in order]), bad
+    with profiling.span("decode/concat"):
+        return np.concatenate([done[i][0] for i in order]), bad
 
 
 def decode_lanes(streams: list[bytes], shape: tuple[int, int, int],

@@ -506,8 +506,9 @@ def encode_lanes(imgs, cfg: CodecConfig = REV2, engine: str = "auto",
         out, lens = run(lanes, cfg, init)
         lens_h = lens.cpu().numpy()
         width = int(lens_h.max(initial=0))
-        streams.extend(_streams(profiling.timed(
-            "encode/download", _to_host, out[:, :width]), lens_h))
+        host = profiling.timed("encode/download", _to_host, out[:, :width])
+        with profiling.span("encode/streams"):
+            streams.extend(_streams(host, lens_h))
     return streams
 
 
@@ -577,14 +578,18 @@ def _collect_piece(out: torch.Tensor, meta: torch.Tensor, stream, piece
     fit its row, and cut the streams.  Lanes flagged as past their row
     (their lengths counted all the same) are coded again from the piece's
     host lanes ``piece`` = (lanes, cfg, init) by ``_recode`` and their
-    streams put in their places; an ordinary piece only reads the flags."""
+    streams put in their places; an ordinary piece only reads the flags.
+    The host's wait for the lengths is ``encode/wait``, the cutting
+    ``encode/streams``."""
     stage = profiling.timed if stream is None else profiling.marked
     with devmod.guard(out.device, stream):
-        lens, ovf = meta.cpu().numpy()
+        with profiling.span("encode/wait"):
+            lens, ovf = meta.cpu().numpy()
         fit = ovf == 0
         width = int(lens[fit].max(initial=0))
-        streams = _streams(stage("encode/download", _to_host, out[:, :width]),
-                           np.where(fit, lens, 0))
+        host = stage("encode/download", _to_host, out[:, :width])
+        with profiling.span("encode/streams"):
+            streams = _streams(host, np.where(fit, lens, 0))
         if not fit.all():
             lanes, cfg, init = piece
             redo = np.flatnonzero(~fit)

@@ -6,8 +6,10 @@ Port of ``llcomp_tpu/profiling.py``.  ``annotate`` names a region in traces
 file; ``PhaseTimer`` accumulates wall time by phase; ``timed`` runs one
 pipeline stage of the lane loops (``encode``, ``decode``) under its label
 (``encode/upload``, ``encode/precompute``, ``encode/fused_kernel``,
-``decode/kernel``, ...).  ``LLCT_PROFILE=1`` (read on every call) turns on
-the stage timer ``stages``.
+``decode/kernel``, ...); ``span`` names a host-only stage of the corpus
+drivers and the lane loops (``corpus/plan``, ``corpus/pack``,
+``encode/streams``, ``decode/pack``, ...).  ``LLCT_PROFILE=1`` (read on
+every call) turns on the stage timer ``stages``.
 """
 from __future__ import annotations
 
@@ -102,26 +104,44 @@ def _cuda_devices(out) -> set:
     return set().union(*(_cuda_devices(o) for o in out))
 
 
+@contextlib.contextmanager
+def span(label: str):
+    """Name the enclosed host region ``label``: host work, or a wait that
+    is itself the sync (``encode/wait``), so that its end needs no sync.
+
+    Inside a ``torch.profiler`` session it is ``annotate(label)``, on the
+    clock of the session's device events, so that the trace can put the
+    device's idle time down to it; with LLCT_PROFILE=1 it also adds its
+    wall time to ``stages``; otherwise it does nothing.
+    """
+    if enabled():
+        with stages(label), annotate(label):
+            yield
+    elif torch.autograd._profiler_enabled():
+        with annotate(label):
+            yield
+    else:
+        yield
+
+
 def timed(label: str, fn, *args, **kwargs):
-    """Run one pipeline stage, ``fn(*args, **kwargs)``, under ``label``.
+    """Run one pipeline stage, ``fn(*args, **kwargs)``, under
+    ``span(label)``.
 
     With profiling off it is ``fn(*args, **kwargs)``, with no sync; inside
     a ``torch.profiler`` session it is named ``label`` in the trace.  With
     LLCT_PROFILE=1 it also synchronises the CUDA devices of the stage's
-    outputs and adds the wall time to ``stages``.  Those syncs serialise
-    the queued stages, so profile-mode throughput is NOT representative: it
-    attributes time, it does not measure end-to-end speed.
+    outputs before the span ends, so that ``stages`` holds the stage's
+    device time too.  Those syncs serialise the queued stages, so
+    profile-mode throughput is NOT representative: it attributes time, it
+    does not measure end-to-end speed.
     """
-    if enabled():
-        with stages(label), annotate(label):
-            out = fn(*args, **kwargs)
+    with span(label):
+        out = fn(*args, **kwargs)
+        if enabled():
             for dev in _cuda_devices(out):
                 torch.cuda.synchronize(dev)
-        return out
-    if torch.autograd._profiler_enabled():
-        with annotate(label):
-            return fn(*args, **kwargs)
-    return fn(*args, **kwargs)
+    return out
 
 
 def marked(label: str, fn, *args, **kwargs):

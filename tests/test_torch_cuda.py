@@ -9,6 +9,8 @@ from __future__ import annotations
 
 import contextlib
 import functools
+import json
+import re
 
 import numpy as np
 import pytest
@@ -28,7 +30,8 @@ from chip_smoke import (CFG_BATCHES, CFG_CASES, _cfg_start, cfg_sort_case,
                         codec_batches, codec_case)
 from chip_smoke import bench_images, bench_lanes
 from llcomp_tpu_torch import (api, coder, container, corpus, decode, encode,
-                              graft_entry, host, parallel, probes, seed)
+                              graft_entry, host, parallel, probes, profiling,
+                              seed)
 from llcomp_tpu_torch import device as devmod
 from llcomp_tpu_torch.core import config
 from llcomp_tpu_torch.core.config import REV2, CodecConfig
@@ -897,6 +900,41 @@ def test_corpus_round_trip_on_the_card(dev):
     assert blobs == native
     for a, b in zip(corpus.decompress_corpus(blobs, device=dev), imgs):
         np.testing.assert_array_equal(a, b)
+
+
+def test_kernel_launches_lie_inside_their_stage_spans(dev, tmp_path):
+    """One ``trace_to`` trace of a ``decompress_corpus`` and a
+    ``compress_corpus``: every launch of kernels 1 and 2 (the host's launch
+    call, joined to the kernel by its correlation id) lies inside an
+    ``encode/fused_kernel`` or ``decode/kernel`` span, so the program's
+    host spans and the device's events share one clock."""
+    imgs = [make_image(16, 16, 3, 1), make_image(24, 16, 3, 2),
+            make_image(13, 16, 3, 3)]
+    blobs, _ = corpus.compress_corpus(imgs, slice_h=8, device=dev)
+    corpus.decompress_corpus(blobs, device=dev)        # kernels built
+    with profiling.trace_to(tmp_path) as path:
+        outs = corpus.decompress_corpus(blobs, device=dev)
+        again, _ = corpus.compress_corpus(imgs, slice_h=8, device=dev)
+    assert again == blobs
+    for a, b in zip(outs, imgs):
+        np.testing.assert_array_equal(a, b)
+    events = [e for e in json.loads(path.read_text())["traceEvents"]
+              if e.get("ph") == "X" and "dur" in e]
+    ours = re.compile(r"\b(encode_fused_kernel|decode_kernel)\b")
+    kernels = [e for e in events if e.get("cat") == "kernel"
+               and ours.search(e["name"])]
+    assert {ours.search(e["name"])[1] for e in kernels} == {
+        "encode_fused_kernel", "decode_kernel"}
+    launches = {e["args"]["correlation"]: e for e in events
+                if e.get("cat") in ("cuda_runtime", "cuda_driver")
+                and "correlation" in e.get("args", {})}
+    spans = [(e["ts"], e["ts"] + e["dur"]) for e in events
+             if e.get("cat") == "user_annotation"
+             and e["name"] in ("encode/fused_kernel", "decode/kernel")]
+    for k in kernels:
+        call = launches[k["args"]["correlation"]]
+        assert any(a <= call["ts"] and call["ts"] + call["dur"] <= b
+                   for a, b in spans), (k["name"], call["name"])
 
 
 TWICE = ["cuda:0", "cuda:0"]
